@@ -1,18 +1,25 @@
-"""Where one served request's device time goes.
+"""Where one served request's, or one training step's, device time goes.
 
-    python -m raftstereo_tpu_torch.cli.profile
+    python -m raftstereo_tpu_torch.cli.profile [--train [--remat]]
 
-Builds the flagship model with seeded weights on the card, warms the
-engine at the 540x960 bucket and 32 iterations (the serving path of
-``chip_smoke.py``), then runs one ``BatchEngine.infer_batch`` call under
-``torch.profiler`` and prints one JSON line: the request's wall time, the
-summed device time of its kernels, the device idle share (1 - device /
-wall), and device time by kernel, with the port's two CUDA kernels
-(``alt_corr``, ``gru_update``) grouped by their source.  Needs a GPU.
+Builds the flagship model with seeded weights on the card.  By default it
+warms the engine at the 540x960 bucket and 32 iterations (the serving
+path of ``chip_smoke.py``) and profiles one ``BatchEngine.infer_batch``
+call; with ``--train`` it profiles one training step of the recipe (batch
+6, 320x720, 16 iterations, ``train.step.make_train_step``) after one
+warm-up step; ``--remat`` recomputes each iteration in the backward
+pass.  Either way it prints one JSON line: the
+wall time, the summed device time of the kernels, the device busy time
+(the union of the kernels' intervals, so overlapping kernels count once)
+and idle share (1 - busy / wall), the peak device memory over the
+profiled call, and device time by kernel, grouped by the port's CUDA
+sources (``alt_corr``, ``alt_corr_bwd``, ``gru_update``) and by
+cuDNN/cuBLAS convolutions and products ("conv").  Needs a GPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -25,10 +32,14 @@ from ..config import RAFTStereoConfig, ServeConfig
 from ..models import RAFTStereo
 from ..serve.engine import BatchEngine
 
-# Kernel-name prefixes of each CUDA source (csrc/*.cu).
+# Kernel-name prefixes of each CUDA source (csrc/*.cu), then the library
+# convolutions and matrix products.
 _GROUPS = {"alt_corr": ("alt_corr_kernel",),
+           "alt_corr_bwd": ("alt_corr_bwd_kernel",),
            "gru_update": ("conv_nhwc_kernel", "reset_gate_kernel",
-                          "conv3x3_few_out_kernel")}
+                          "conv3x3_few_out_kernel"),
+           "conv": ("cudnn", "xmma", "conv", "gemm", "wgrad", "dgrad",
+                    "fprop", "sgemm")}
 
 
 def _group(name: str) -> str:
@@ -39,9 +50,10 @@ def _group(name: str) -> str:
 
 
 HW, ITERS, TOP = (540, 960), 32, 12
+TRAIN_BATCH, TRAIN_HW, TRAIN_ITERS = 6, (320, 720), 16
 
 
-def main() -> int:
+def _serve_call():
     h, w = HW
     model = RAFTStereo(RAFTStereoConfig(), device="cuda", seed=0)
     engine = BatchEngine(model, ServeConfig(buckets=(HW,), serve_iters=ITERS))
@@ -49,31 +61,83 @@ def main() -> int:
     rng = np.random.default_rng(0)
     pair = tuple(rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
                  for _ in range(2))
-    engine.infer_batch([pair])
+    return lambda: engine.infer_batch([pair]), {"bucket": [h, w],
+                                                "iters": ITERS}
+
+
+def _train_call(remat: bool):
+    from ..config import TrainConfig
+    from ..train.optim import make_optimizer
+    from ..train.state import TrainState
+    from ..train.step import make_train_step
+
+    cfg = TrainConfig(batch_size=TRAIN_BATCH, image_size=TRAIN_HW,
+                      train_iters=TRAIN_ITERS)
+    model = RAFTStereo(RAFTStereoConfig(remat=remat), device="cuda", seed=0)
+    opt, schedule = make_optimizer(cfg, dict(model.named_parameters()))
+    state = TrainState(step=0, model=model, opt=opt)
+    step = make_train_step(cfg, schedule)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    shape = (TRAIN_BATCH,) + TRAIN_HW
+    batch = (255 * torch.rand(shape + (3,), generator=g, device="cuda"),
+             255 * torch.rand(shape + (3,), generator=g, device="cuda"),
+             -30 * torch.rand(shape + (1,), generator=g, device="cuda"),
+             torch.ones(shape, device="cuda"))
+    return lambda: step(state, batch), {"batch": TRAIN_BATCH,
+                                        "image_hw": list(TRAIN_HW),
+                                        "iters": TRAIN_ITERS,
+                                        "remat": remat}
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m raftstereo_tpu_torch.cli.profile",
+        description="Device time of one served request or train step.")
+    p.add_argument("--train", action="store_true",
+                   help="profile one training step instead of a request")
+    p.add_argument("--remat", action="store_true",
+                   help="with --train: recompute each iteration in the "
+                        "backward pass")
+    args = p.parse_args(argv)
+    if args.remat and not args.train:
+        p.error("--remat needs --train")
+    train = args.train
+    call, what = _train_call(args.remat) if train else _serve_call()
+    call()  # warm-up: kernel builds, cuDNN plans, allocator
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        engine.infer_batch([pair])
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = defaultdict(lambda: [0.0, 0])
+    spans = []
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             k = by_kernel[ev.name]
             k[0] += ev.device_time_total / 1e3
             k[1] += 1
+            spans.append((ev.time_range.start, ev.time_range.end))
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        busy_us += max(0.0, end - max(start, reach))
+        reach = max(reach, end)
     by_group = defaultdict(float)
     for name, (ms, _) in by_kernel.items():
         by_group[_group(name)] += ms
     device_ms = sum(v[0] for v in by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]
     print(json.dumps({
-        "card": torch.cuda.get_device_name(0), "bucket": [h, w],
-        "iters": ITERS, "wall_ms": wall_ms,
+        "card": torch.cuda.get_device_name(0),
+        "path": "train_step" if train else "serve_request", **what,
+        "wall_ms": wall_ms,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "device_ms": device_ms,
-        "idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
+        "busy_ms": busy_us / 1e3,
+        "idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
         "by_group_ms": dict(by_group),
         "top_kernels": [{"name": n[:80], "ms": ms, "count": c}
                         for n, (ms, c) in top]}))

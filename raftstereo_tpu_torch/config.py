@@ -1,11 +1,12 @@
 """Configuration of the PyTorch port.
 
-``RAFTStereoConfig`` keeps the field names and defaults of the JAX
-package's config (``raftstereo_tpu/config.py``) so one set of flags
-describes both.  This slice of the port runs one numeric path: the
-on-demand correlation lookup and the fused finest-level GRU update, both
-as hand-written CUDA kernels, in fp32, with the plain (non-fused)
-encoders.  Every field value that selects another path raises
+``RAFTStereoConfig`` and ``TrainConfig`` keep the field names and
+defaults of the JAX package's configs (``raftstereo_tpu/config.py``) so
+one set of flags describes both.  The port runs fp32 with the plain
+(non-fused) encoders and the on-demand correlation lookup (CUDA kernels
+forward and backward); inference takes the fused finest-level GRU update
+(a CUDA kernel) or the module step, training always the module step.
+Every field value that selects another path raises
 ``NotImplementedError`` naming the ROADMAP item that will add it.
 """
 
@@ -68,7 +69,9 @@ class RAFTStereoConfig:
 _SUPPORTED = (
     ("corr_implementation", ("auto", "pallas_alt"),
      "Queue 2 (the reg/alt/pallas lookups)"),
-    ("gru_backend", ("auto", "fused"), "Queue 1 item 3 (the xla GRU step)"),
+    ("gru_backend", ("auto", "fused", "xla"), "Queue 1 item 3"),
+    ("fused_encoder", (None, False),
+     "Queue 2 group 1 (the fused encoder kernels)"),
     ("corr_quant", (False,), "Queue 1 item 7 (precision tiers)"),
     ("compute_dtype", ("float32",), "Queue 1 item 3 (bf16 compute)"),
     ("corr_dtype", ("float32",), "Queue 1 item 7 (bf16 correlation)"),
@@ -84,16 +87,79 @@ _SUPPORTED = (
 
 
 def check_supported(config: RAFTStereoConfig) -> None:
-    """Raise ``NotImplementedError`` for any field value outside this
-    slice's path.  ``fused_encoder`` is ignored: the plain encoder is the
-    only one the port has, and it is the JAX package's
-    ``fused_encoder=False`` path."""
+    """Raise ``NotImplementedError`` for any field value outside the
+    port's paths.  ``fused_encoder`` None and False run the plain encoders
+    (the JAX package's ``fused_encoder=False`` path); True pins the fused
+    encoder kernels, which are not ported."""
     for field, ok, item in _SUPPORTED:
         v = getattr(config, field)
         if v not in ok:
             raise NotImplementedError(
                 f"{field}={v!r} is not ported yet (supported: {list(ok)}); "
                 f"see ROADMAP.md {item}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop hyper-parameters, the JAX package's ``TrainConfig``
+    (reference recipe: batch 6, 320x720 crops, 16 GRU iterations, AdamW +
+    OneCycle, gradient clip 1.0)."""
+
+    name: str = "raft-stereo"
+    batch_size: int = 6
+    train_datasets: Tuple[str, ...] = ("sceneflow",)
+    lr: float = 2e-4
+    num_steps: int = 100000
+    image_size: Tuple[int, int] = (320, 720)
+    train_iters: int = 16
+    valid_iters: int = 32
+    wdecay: float = 1e-5
+    loss_gamma: float = 0.9
+    max_flow: float = 700.0
+    grad_clip: float = 1.0
+    seed: int = 1234
+    validation_frequency: int = 10000
+    checkpoint_dir: str = "checkpoints"
+    restore_ckpt: Optional[str] = None
+    keep_checkpoints: int = 5
+
+    # Data augmentation: img_gamma is (GMIN, GMAX) or (GMIN, GMAX,
+    # GAIN_MIN, GAIN_MAX).
+    img_gamma: Optional[Tuple[float, ...]] = None
+    saturation_range: Optional[Tuple[float, float]] = None
+    do_flip: Optional[str] = None  # None | "h" | "v"
+    spatial_scale: Tuple[float, float] = (0.0, 0.0)
+    noyjitter: bool = False
+    device_photometric: bool = False
+
+    # Data-parallel shards; None and 1 run on one device.
+    data_parallel: Optional[int] = None
+
+    # "abort": raise on a non-finite loss or gradient; "skip": keep the
+    # parameters and Adam moments, advance the schedule.
+    nan_policy: str = "abort"
+    # Restarts from the latest checkpoint without step progress before
+    # the loop gives up, and the base of their exponential back-off (s).
+    max_restarts: int = 0
+    restart_backoff: float = 1.0
+
+    # Data pipeline: per-sample retries, quarantine bound, worker timeout.
+    sample_retries: int = 2
+    quarantine_limit: int = 64
+    loader_timeout_s: float = 300.0
+
+    # Flag a step slower than this multiple of the running median (0 off).
+    watchdog_factor: float = 10.0
+
+    def __post_init__(self):
+        if self.nan_policy not in ("abort", "skip"):
+            raise ValueError(f"nan_policy {self.nan_policy!r} not in "
+                             f"('abort', 'skip')")
+        for f in ("train_datasets", "image_size", "spatial_scale",
+                  "img_gamma", "saturation_range"):
+            v = getattr(self, f)
+            if isinstance(v, list):
+                object.__setattr__(self, f, tuple(v))
 
 
 @dataclasses.dataclass(frozen=True)

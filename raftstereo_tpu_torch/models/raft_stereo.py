@@ -1,23 +1,34 @@
-"""RAFT-Stereo test-mode inference in PyTorch.
+"""RAFT-Stereo in PyTorch: test-mode inference and train mode.
 
-The counterpart of the JAX package's ``RAFTStereo.forward(...,
-test_mode=True)`` with ``corr_implementation="pallas_alt"``,
-``gru_backend="fused"`` and ``fused_encoder=False``: plain-convolution
-encoders, then per GRU iteration one on-demand correlation lookup
-(``ops.corr.corr_lookup``, CUDA kernel ``csrc/alt_corr.cu``), the coarser
-GRU levels, and one fused finest-level update (``ops.cuda_gru.gru_update``,
-CUDA kernel ``csrc/gru_update.cu``); the mask head and convex upsampling
-run once after the loop.  Images and disparities are NHWC at this
-interface, as in the JAX package; the encoders run NCHW.
+The counterpart of the JAX package's ``RAFTStereo.forward`` with
+``corr_implementation="pallas_alt"`` and ``fused_encoder=False``:
+plain-convolution encoders, then per GRU iteration one on-demand
+correlation lookup (``ops.corr.corr_lookup``, CUDA kernels
+``csrc/alt_corr.cu`` forward and ``csrc/alt_corr_bwd.cu`` backward) and
+one update of the GRU levels.
+
+* Test mode with ``gru_backend`` "auto" or "fused": the coarser levels,
+  then one fused finest-level update (``ops.cuda_gru.gru_update``, CUDA
+  kernel ``csrc/gru_update.cu``); the mask head and convex upsampling run
+  once after the loop.
+* Test mode with "xla", and train mode always: the module step
+  (``BasicMultiUpdateBlock.forward``).  Train mode detaches the disparity
+  at the start of every iteration, upsamples each iteration's prediction
+  with that iteration's mask, and with ``remat`` recomputes each
+  iteration in the backward pass (``torch.utils.checkpoint``).
+
+Images and disparities are NHWC at this interface, as in the JAX package;
+the encoders and GRUs run NCHW.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import RAFTStereoConfig, check_supported
 from ..device import fp32_numerics, resolve_device
@@ -35,7 +46,7 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 class RAFTStereo(nn.Module):
-    """RAFT-Stereo for inference.
+    """RAFT-Stereo for inference and training.
 
     ``RAFTStereo(config, device="cuda", seed=0)`` builds the model with
     seeded random weights on ``device``; load real weights with
@@ -76,13 +87,23 @@ class RAFTStereo(nn.Module):
     def device(self) -> torch.device:
         return self.fnet.conv1.weight.device
 
-    @torch.inference_mode()
     def forward(self, image1: torch.Tensor, image2: torch.Tensor,
-                iters: int = 12, flow_init: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, H, W, 3) images in [0, 255] -> ``(disp_low, disp_up)``:
-        (B, H/f, W/f, 1) and (B, H, W, 1).  ``flow_init`` is an optional
-        (B, H/f, W/f, 1) warm start added to the zero initialisation."""
+                iters: int = 12, flow_init: Optional[torch.Tensor] = None,
+                test_mode: bool = True):
+        """(B, H, W, 3) images in [0, 255].
+
+        ``test_mode=True`` (the default, under ``torch.inference_mode``):
+        returns ``(disp_low, disp_up)``, (B, H/f, W/f, 1) and (B, H, W, 1).
+        ``test_mode=False`` (training): returns every iteration's
+        full-resolution prediction, (iters, B, H, W, 1), differentiable.
+        ``flow_init`` is an optional (B, H/f, W/f, 1) warm start added to
+        the zero initialisation."""
+        if test_mode:
+            with torch.inference_mode():
+                return self._forward(image1, image2, iters, flow_init, True)
+        return self._forward(image1, image2, iters, flow_init, False)
+
+    def _forward(self, image1, image2, iters, flow_init, test_mode):
         cfg = self.config
         n, hd = cfg.n_gru_layers, cfg.hidden_dims
         b = image1.shape[0]
@@ -99,14 +120,53 @@ class RAFTStereo(nn.Module):
                                               self.context_zqr_convs))]
         state = build_corr_state(_nhwc(fmaps[:b]), _nhwc(fmaps[b:]),
                                  cfg.corr_levels)
+        h_lo, w_lo = net[0].shape[2:]
+        disp = torch.zeros((b, h_lo, w_lo, 1), device=net[0].device)
+        if flow_init is not None:
+            disp = disp + flow_init.float()
+        grid = coords_grid_x(b, h_lo, w_lo, device=disp.device)[..., 0]
+        blk = self.update_block
 
+        if test_mode and cfg.gru_backend != "xla":
+            return self._fused_loop(state, net, zqr, disp, grid, iters)
+
+        def step(disp, *net):
+            """One module-step iteration (NCHW states, NHWC disparity);
+            train mode also returns this iteration's upsampled
+            prediction."""
+            disp = disp.detach()
+            corr = corr_lookup(state, grid + disp[..., 0], cfg.corr_radius)
+            flow = torch.cat([disp, torch.zeros_like(disp)], dim=-1)
+            net, delta = blk(net, zqr, corr.permute(0, 3, 1, 2),
+                             flow.permute(0, 3, 1, 2))
+            disp = disp + _nhwc(delta[:, :1])
+            if test_mode:
+                return (disp, *net)
+            mask = _nhwc(blk.upsample_mask(net[0]))
+            return (disp, *net, convex_upsample(disp, mask, cfg.factor))
+
+        preds = []
+        for _ in range(iters):
+            if cfg.remat and not test_mode:
+                out = checkpoint(step, disp, *net, use_reentrant=False)
+            else:
+                out = step(disp, *net)
+            disp, net = out[0], list(out[1:1 + n])
+            if not test_mode:
+                preds.append(out[-1])
+        if not test_mode:
+            return torch.stack(preds)
+        mask = _nhwc(blk.upsample_mask(net[0]))
+        return disp, convex_upsample(disp, mask, cfg.factor)
+
+    def _fused_loop(self, state, net, zqr, disp, grid, iters):
+        """Test-mode iterations through the fused finest-level update
+        kernel; the mask head runs once after the loop."""
+        cfg = self.config
+        n, hd = cfg.n_gru_layers, cfg.hidden_dims
         h0 = _nhwc(net[0])
         cz0, cr0, cq0 = (_nhwc(t) for t in zqr[0])
         h_lo, w_lo = h0.shape[1:3]
-        disp = torch.zeros((b, h_lo, w_lo, 1), device=h0.device)
-        if flow_init is not None:
-            disp = disp + flow_init.float()
-        grid = coords_grid_x(b, h_lo, w_lo, device=h0.device)[..., 0]
         wpack = pack_update_params(self.update_block,
                                    hd[1] if n > 1 else 0)
         blk = self.update_block

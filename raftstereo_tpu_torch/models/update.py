@@ -1,17 +1,25 @@
 """Iterative refinement: motion encoder, multilevel ConvGRU stack, heads.
 
-The finest level's update (motion encoder + gru08 + flow head) runs as
-one fused step, ``ops.cuda_gru.gru_update``, over a weight pack of the
-modules below; the coarser levels run through ``ConvGRU`` here, NCHW,
-coarsest first, as in the JAX package's fused-step branch
-(``models/raft_stereo.py`` ``_step_body``)."""
+Two forms of one GRU iteration, as in the JAX package
+(``models/raft_stereo.py`` ``_step_body``):
+
+* the fused step: the finest level's update (motion encoder + gru08 +
+  flow head) runs as one kernel, ``ops.cuda_gru.gru_update``, over a
+  weight pack of the modules below; the coarser levels run through
+  ``update_coarse``;
+* the module step (``BasicMultiUpdateBlock.forward``, the JAX
+  ``BasicMultiUpdateBlock.__call__``): every level through the modules,
+  differentiable; training always takes it.
+
+Everything here is NCHW; levels update coarsest first."""
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import RAFTStereoConfig
 from ..ops.image import avg_pool2x, resize_nchw
@@ -45,7 +53,7 @@ class ConvGRU(nn.Module):
 
 class BasicMotionEncoder(nn.Module):
     """Correlation + flow -> 128 motion channels (126 learned + the 2-channel
-    flow).  Its weights run inside the fused update."""
+    flow).  The fp32 form: convf1 runs on the full [d, 0] flow."""
 
     def __init__(self, cor_planes: int):
         super().__init__()
@@ -55,6 +63,12 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = conv(64, 64, 3)
         self.conv = conv(128, 128 - 2, 3)
 
+    def forward(self, flow, corr):
+        cor = F.relu(self.convc2(F.relu(self.convc1(corr))))
+        flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
+        out = F.relu(self.conv(torch.cat([cor, flo], dim=1)))
+        return torch.cat([out, flow], dim=1)
+
 
 class FlowHead(nn.Module):
     """3x3 conv -> relu -> 3x3 conv to 2 channels (channel 0 is used)."""
@@ -63,6 +77,9 @@ class FlowHead(nn.Module):
         super().__init__()
         self.conv1 = conv(input_dim, hidden_dim, 3)
         self.conv2 = conv(hidden_dim, 2, 3)
+
+    def forward(self, x):
+        return self.conv2(F.relu(self.conv1(x)))
 
 
 class BasicMultiUpdateBlock(nn.Module):
@@ -93,6 +110,21 @@ class BasicMultiUpdateBlock(nn.Module):
         if self.n == 3:
             xs.append(interp_to(net[2], net[1]))
         net[1] = self.gru16(net[1], *zqr[1], *xs)
+
+    def forward(self, net: List[torch.Tensor], zqr: Sequence,
+                corr: torch.Tensor, flow: torch.Tensor
+                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+        """The module step: coarser levels, then the motion encoder on
+        (flow, corr), gru08 with the upsampled next level, and the flow
+        head.  Returns the new states and the 2-channel delta (NCHW)."""
+        net = list(net)
+        if self.n >= 2:
+            self.update_coarse(net, zqr)
+        xs = [self.encoder(flow, corr)]
+        if self.n >= 2:
+            xs.append(interp_to(net[1], net[0]))
+        net[0] = self.gru08(net[0], *zqr[0], *xs)
+        return net, self.flow_head(net[0])
 
     def upsample_mask(self, net0: torch.Tensor) -> torch.Tensor:
         """Convex-upsampling mask from the finest state (NCHW), scaled by

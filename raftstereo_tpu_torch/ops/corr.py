@@ -6,7 +6,10 @@ average-pooled along W by 2 per level with floor halving, and each lookup
 recomputes only the correlation taps it needs.  The TPU form pads every
 level to 128 lanes and concatenates the padded levels; here the levels
 are concatenated at their real widths, which is the same function (the
-TPU's padded columns correlate to exactly zero).
+TPU's padded columns correlate to exactly zero).  The lookup is
+differentiable: its VJP is the backward kernel (``ops.cuda_alt``), and
+gradients reach fmap2 through the pooling and the concat by ordinary
+autograd.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import List, NamedTuple, Tuple
 
 import torch
 
-from .cuda_alt import alt_corr
+from .cuda_alt import alt_corr_autograd
 
 
 def build_fmap2_pyramid(fmap2: torch.Tensor,
@@ -53,5 +56,5 @@ def corr_lookup(state: CorrState, x: torch.Tensor,
                 radius: int) -> torch.Tensor:
     """Correlation features at level-0 x-coordinates ``x`` (B, H, W1):
     (B, H, W1, L*(2r+1)), channels level-major, taps -r..r."""
-    return alt_corr(state.fmap1, state.f2cat, state.widths,
-                    x.float().contiguous(), radius)
+    return alt_corr_autograd(state.fmap1, state.f2cat, state.widths,
+                             x.float().contiguous(), radius)

@@ -1,5 +1,6 @@
-"""On-demand correlation lookup: the CUDA kernel ``csrc/alt_corr.cu`` and
-its plain PyTorch version.
+"""On-demand correlation lookup: the CUDA kernels ``csrc/alt_corr.cu``
+(forward) and ``csrc/alt_corr_bwd.cu`` (its VJP), their plain PyTorch
+versions, and the ``torch.autograd.Function`` that joins the two.
 
 Replaces the TPU kernel ``raftstereo_tpu/ops/pallas_alt.py``
 ``_alt_pyr_radial_kernel`` (core ``_radial_cols``).  The function, for
@@ -12,14 +13,20 @@ the source's note: bytes bound (about 100 MB per call at the flagship
 shapes, about 30 us at 3.35 TB/s); one warp per pixel computes only the
 window dot products the pixel needs.
 
-``alt_corr`` runs the plain version for CPU tensors and the kernel for
-CUDA tensors; it never falls back from one to the other.
+The backward replaces ``_alt_pyr_bwd_kernel`` of the same file, with the
+radial taps of ``_make_alt_pyr_radial``'s VJP: bytes bound (about 521 MB
+per call at the training shapes, about 0.16 ms); deterministic, with no
+floating-point atomics (see the source's note).
+
+``alt_corr`` and ``alt_corr_backward`` run the plain version for CPU
+tensors and the kernel for CUDA tensors; they never fall back from one to
+the other.  ``alt_corr_autograd`` is the differentiable lookup.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 
@@ -62,17 +69,12 @@ def alt_corr_plain(fmap1: torch.Tensor, f2cat: torch.Tensor,
     return torch.stack(cols, dim=-1)
 
 
-def alt_corr(fmap1: torch.Tensor, f2cat: torch.Tensor,
-             widths: Sequence[int], x: torch.Tensor,
-             radius: int) -> torch.Tensor:
-    """On-demand lookup: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (counted in ``alt_corr.launches``)."""
-    tensors = (fmap1, f2cat, x)
-    if all(t.device.type == "cpu" for t in tensors):
-        return alt_corr_plain(fmap1, f2cat, widths, x, radius)
+def _check_cuda(name, fmap1, f2cat, widths, x, radius, extra=()):
+    """Validate the kernels' operands; returns (b, h, w1, c, widths)."""
+    tensors = (fmap1, f2cat, x) + tuple(extra)
     dev = fmap1.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(f"alt_corr: tensors on {[t.device for t in tensors]}"
+        raise ValueError(f"{name}: tensors on {[t.device for t in tensors]}"
                          f"; all must be on one CUDA device")
     b, h, w1, c = fmap1.shape
     widths = [int(w) for w in widths]
@@ -83,13 +85,26 @@ def alt_corr(fmap1: torch.Tensor, f2cat: torch.Tensor,
         raise ValueError(f"x {tuple(x.shape)} != {(b, h, w1)}")
     for t in tensors:
         if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("alt_corr takes contiguous float32 tensors")
+            raise ValueError(f"{name} takes contiguous float32 tensors")
     if c % 128 or c > 512 or not 1 <= radius <= 8 or not 1 <= len(widths) <= 8:
-        raise ValueError(f"alt_corr kernel takes C in {{128..512}} step 128, "
+        raise ValueError(f"{name} kernel takes C in {{128..512}} step 128, "
                          f"radius 1..8 and 1..8 levels; got C={c}, "
                          f"radius={radius}, levels={len(widths)}")
     if fmap1.data_ptr() % 16 or f2cat.data_ptr() % 16:
-        raise ValueError("alt_corr needs 16-byte aligned feature maps")
+        raise ValueError(f"{name} needs 16-byte aligned feature maps")
+    return b, h, w1, c, widths
+
+
+def alt_corr(fmap1: torch.Tensor, f2cat: torch.Tensor,
+             widths: Sequence[int], x: torch.Tensor,
+             radius: int) -> torch.Tensor:
+    """On-demand lookup: the plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors (counted in ``alt_corr.launches``)."""
+    if all(t.device.type == "cpu" for t in (fmap1, f2cat, x)):
+        return alt_corr_plain(fmap1, f2cat, widths, x, radius)
+    b, h, w1, c, widths = _check_cuda("alt_corr", fmap1, f2cat, widths, x,
+                                      radius)
+    dev = fmap1.device
     nlev = len(widths)
     out = torch.empty((b, h, w1, nlev * (2 * radius + 1)),
                       dtype=torch.float32, device=dev)
@@ -115,3 +130,116 @@ def alt_corr(fmap1: torch.Tensor, f2cat: torch.Tensor,
 
 
 alt_corr.launches = 0
+
+
+def alt_corr_backward_plain(fmap1: torch.Tensor, f2cat: torch.Tensor,
+                            widths: Sequence[int], x: torch.Tensor,
+                            g: torch.Tensor, radius: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch VJP of the lookup, in the TPU kernel's form: per level
+    the dense hat matrix dm[i, j] = s * sum_k g[i, k] * max(0, 1 - |j -
+    t_k|) over the level's real columns (t_k = x * 2^-l + k - r), then two
+    matmuls.  A NaN coordinate or a non-finite cotangent makes that
+    level's hat row NaN, as on the TPU.  g (B, H, W1, L*(2r+1)) ->
+    ``(df1, df2cat)`` shaped like fmap1 and f2cat."""
+    c = fmap1.shape[-1]
+    scale = 1.0 / float(c) ** 0.5
+    k = 2 * radius + 1
+    x = x.float()
+    g = g.float()
+    df1 = torch.zeros_like(fmap1, dtype=torch.float32)
+    parts = []
+    off = 0
+    for lvl, w2 in enumerate(widths):
+        if w2 == 0:
+            continue
+        xl = x * (1.0 / 2.0 ** lvl)
+        j = torch.arange(w2, dtype=torch.float32, device=x.device)
+        dm = None
+        for t in range(k):
+            tap = (xl + float(t - radius))[..., None]
+            w = torch.maximum(1.0 - (j - tap).abs(),
+                              torch.zeros((), device=x.device))  # NaN stays
+            term = g[..., lvl * k + t, None] * w
+            dm = term if dm is None else dm + term
+        dm = dm * scale                                    # (B, H, W1, w2)
+        f2 = f2cat[:, :, off:off + w2]
+        df1 = df1 + torch.matmul(dm, f2)
+        parts.append(torch.matmul(dm.transpose(-1, -2), fmap1))
+        off += w2
+    return df1, torch.cat(parts, dim=2)
+
+
+def alt_corr_backward(fmap1: torch.Tensor, f2cat: torch.Tensor,
+                      widths: Sequence[int], x: torch.Tensor,
+                      g: torch.Tensor, radius: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """VJP of ``alt_corr`` for the cotangent ``g``: the plain version for
+    CPU tensors, the CUDA kernel for CUDA tensors (counted in
+    ``alt_corr_backward.launches``).  Returns ``(df1, df2cat)``; two calls
+    on the same CUDA inputs are bitwise equal."""
+    if all(t.device.type == "cpu" for t in (fmap1, f2cat, x, g)):
+        return alt_corr_backward_plain(fmap1, f2cat, widths, x, g, radius)
+    b, h, w1, c, widths = _check_cuda("alt_corr_backward", fmap1, f2cat,
+                                      widths, x, radius, extra=(g,))
+    nlev = len(widths)
+    if g.shape != (b, h, w1, nlev * (2 * radius + 1)):
+        raise ValueError(f"g {tuple(g.shape)} != "
+                         f"{(b, h, w1, nlev * (2 * radius + 1))}")
+    # The kernel keeps one image row's tables in shared memory.
+    if w1 * nlev * (2 * radius + 3) * 4 > 232448 - 64:
+        raise ValueError(f"alt_corr_backward: W1={w1} is too wide for the "
+                         f"kernel's per-row tables")
+    df1 = torch.empty_like(fmap1)
+    df2 = torch.empty_like(f2cat)
+    offs = [sum(widths[:i]) for i in range(nlev)]
+    lib = _build.load("alt_corr_bwd")
+    fn = lib.alt_corr_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_long]
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_void_p])
+    ints = ctypes.c_int * nlev
+    dev = fmap1.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(fmap1.data_ptr(), f2cat.data_ptr(), x.data_ptr(),
+                g.data_ptr(), df1.data_ptr(), df2.data_ptr(), b * h, w1,
+                f2cat.shape[2], c, radius, 1.0 / float(c) ** 0.5, nlev,
+                ints(*offs), ints(*widths), stream)
+    if rc != 0:
+        raise RuntimeError(f"alt_corr_backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    alt_corr_backward.launches += 1
+    return df1, df2
+
+
+alt_corr_backward.launches = 0
+
+
+class _AltCorrFunction(torch.autograd.Function):
+    """``alt_corr`` with ``alt_corr_backward`` as its VJP.  Saves fmap1,
+    f2cat and x; x gets no gradient (the model detaches the disparity
+    before every lookup, and the JAX VJP returns zeros for it)."""
+
+    @staticmethod
+    def forward(ctx, fmap1, f2cat, x, widths, radius):
+        ctx.save_for_backward(fmap1, f2cat, x)
+        ctx.widths, ctx.radius = tuple(widths), radius
+        return alt_corr(fmap1, f2cat, widths, x, radius)
+
+    @staticmethod
+    def backward(ctx, g):
+        fmap1, f2cat, x = ctx.saved_tensors
+        df1, df2 = alt_corr_backward(fmap1, f2cat, ctx.widths, x,
+                                     g.contiguous(), ctx.radius)
+        return df1, df2, None, None, None
+
+
+def alt_corr_autograd(fmap1: torch.Tensor, f2cat: torch.Tensor,
+                      widths: Sequence[int], x: torch.Tensor,
+                      radius: int) -> torch.Tensor:
+    """Differentiable ``alt_corr``: gradients reach fmap1 and f2cat
+    through ``alt_corr_backward``."""
+    return _AltCorrFunction.apply(fmap1, f2cat, x, tuple(widths), radius)

@@ -34,9 +34,12 @@ def _axis_resize_indices(in_size: int, out_size: int):
 def _resize_tables(in_size: int, out_size: int, device: torch.device):
     """Device copies of ``_axis_resize_indices``, built once per shape: the
     GRU loop resizes at the same shapes every iteration, and a host copy
-    per call stalls the stream.  Callers only read them."""
-    return tuple(torch.from_numpy(a).to(device)
-                 for a in _axis_resize_indices(in_size, out_size))
+    per call stalls the stream.  Callers only read them.  Built outside
+    inference mode, so a table first made while serving can still be
+    saved for a training backward."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in _axis_resize_indices(in_size, out_size))
 
 
 def resize_bilinear_align_corners(x: torch.Tensor,

@@ -76,6 +76,46 @@ def test_gru_update_kernel_matches_plain(dev, n):
     torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-4)
 
 
+def _bwd_inputs(dev, rng, b, h, w, levels, radius, nan):
+    st = build_corr_state(_randn(rng, b, h, w, 256).to(dev),
+                          _randn(rng, b, h, w, 256).to(dev), levels)
+    x = np.arange(w, dtype=np.float32) + rng.uniform(-w / 3, 10, (b, h, w))
+    x[0, 0, :3] = [-200.5, w + 200.25, 1e6]
+    if nan:
+        x[-1, -1, -1] = np.nan
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    g = _randn(rng, b, h, w, levels * (2 * radius + 1)).to(dev)
+    return st, x, g
+
+
+@pytest.mark.parametrize("shape,levels,radius", [
+    ((2, 11, 20), 4, 4), ((6, 80, 180), 4, 4), ((1, 2, 4), 4, 2)],
+    ids=["hostile", "training", "zero_width_level"])
+def test_alt_corr_backward_kernel_matches_plain(dev, shape, levels, radius):
+    """Row 4 at a hostile shape (taps past both edges, a NaN coordinate),
+    the training path's shape (6x80 rows of 180, C=256) and a width-0
+    top level; bitwise repeatable."""
+    rng = np.random.default_rng(5)
+    st, x, g = _bwd_inputs(dev, rng, *shape, levels, radius,
+                           nan=shape[2] > 4)
+    before = cuda_alt.alt_corr_backward.launches
+    k1 = cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x, g,
+                                    radius)
+    k2 = cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x, g,
+                                    radius)
+    assert cuda_alt.alt_corr_backward.launches == before + 2
+    want = cuda_alt.alt_corr_backward_plain(st.fmap1, st.f2cat, st.widths, x,
+                                            g, radius)
+    torch.cuda.synchronize()
+    for a, b, w in zip(k1, k2, want):
+        # no floating-point atomics: two calls are bitwise equal
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+        assert torch.equal(a.isnan(), w.isnan())
+        # sums of ~40-200 products of O(1) terms, in another order.
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-4,
+                                   equal_nan=True)
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     rng = np.random.default_rng(2)
     st = build_corr_state(_randn(rng, 1, 2, 8, 256).to(dev),
@@ -86,6 +126,45 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):  # C=192 is not a kernel width
         cuda_alt.alt_corr(st.fmap1[..., :192].contiguous(),
                           st.f2cat[..., :192].contiguous(), st.widths, x, 2)
+    g = torch.zeros((1, 2, 8, 10), device=dev)
+    with pytest.raises(ValueError):  # the cotangent on the CPU
+        cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x,
+                                   g.cpu(), 2)
+    with pytest.raises(ValueError):  # a cotangent of the wrong width
+        cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x,
+                                   g[..., :9].contiguous(), 2)
+    with pytest.raises(ValueError):  # a non-contiguous cotangent
+        cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x,
+                                   g.transpose(1, 2), 2)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """One train-mode forward and backward on the card (kernels) against
+    the CPU (plain versions): loss within 1e-4 relative, every gradient
+    within 1e-3 of the largest CPU gradient entry."""
+    from raftstereo_tpu_torch.train.loss import sequence_loss
+
+    cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                           corr_levels=2, corr_radius=2)
+    rng = np.random.default_rng(6)
+    batch = [torch.from_numpy(rng.uniform(0, 255, (1, 32, 48, 3))
+                              .astype(np.float32)) for _ in range(2)]
+    batch += [torch.from_numpy(-rng.uniform(1, 20, (1, 32, 48, 1))
+                               .astype(np.float32)), torch.ones(1, 32, 48)]
+    out = []
+    for device in (dev, torch.device("cpu")):
+        m = RAFTStereo(cfg, device=device, seed=4)
+        preds = m(*(t.to(device) for t in batch[:2]), iters=3,
+                  test_mode=False)
+        loss, _ = sequence_loss(preds, *(t.to(device) for t in batch[2:]))
+        loss.backward()
+        out.append((float(loss.detach()),
+                    {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    (lg, gg), (lc, gc) = out
+    assert lg == pytest.approx(lc, rel=1e-4)
+    gmax = max(float(t.abs().max()) for t in gc.values())
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max()) <= 1e-3 * gmax, k
 
 
 def test_forward_on_card_matches_cpu(dev):

@@ -134,9 +134,26 @@ def test_forward_flow_init_matches_jax(tiny_pair):
     np.testing.assert_allclose(pup, np.asarray(up), rtol=0, atol=5e-3)
 
 
+def test_forward_xla_gru_matches_jax(tiny_pair):
+    """Test mode with ``gru_backend="xla"`` (the module step) against the
+    JAX package's reg/xla forward."""
+    _, v, port, imgs = tiny_pair
+    xla = RAFTStereo(RAFTStereoConfig(gru_backend="xla", **TINY),
+                     device="cpu")
+    xla.load_state_dict(port.state_dict())
+    jmodel = JaxModel(JaxConfig(corr_implementation="reg", gru_backend="xla",
+                                fused_encoder=False, **TINY))
+    lo, up = jmodel.forward(v, *(jnp.asarray(i) for i in imgs), iters=3,
+                            test_mode=True)
+    plo, pup = _port_forward(xla, imgs, 3)
+    assert plo.shape == (1, 8, 12, 1) and pup.shape == (1, 32, 48, 1)
+    np.testing.assert_allclose(plo, np.asarray(lo), rtol=0, atol=2e-3)
+    np.testing.assert_allclose(pup, np.asarray(up), rtol=0, atol=5e-3)
+
+
 @pytest.mark.parametrize("field,value", [
     ("corr_implementation", "reg"), ("corr_implementation", "alt"),
-    ("gru_backend", "xla"), ("corr_quant", True),
+    ("fused_encoder", True), ("corr_quant", True),
     ("compute_dtype", "bfloat16"), ("shared_backbone", True),
     ("input_mode", "sl"), ("spatial_shards", 2), ("context_norm", "group"),
     ("context_norm", "none"), ("slow_fast_gru", True)])

@@ -7,6 +7,7 @@ TPU) and its XLA references; the port runs its plain PyTorch versions
 test with their reason.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -143,6 +144,67 @@ def test_lookup_zero_width_level_is_zero():
     assert (got[..., 15:] == 0).all() and np.isfinite(got).all()
 
 
+def _vjp_jax(backend, f1, f2, x, g, levels, radius):
+    fn = jax.vjp(lambda a, b: jcorr.make_corr_fn(backend, a, b, levels,
+                                                 radius)(jnp.asarray(x)[..., None]),
+                 jnp.asarray(f1), jnp.asarray(f2))[1]
+    return [np.asarray(t) for t in fn(jnp.asarray(g))]
+
+
+def _vjp_port(f1, f2, x, g, levels, radius):
+    """Gradients of the port's differentiable lookup w.r.t. fmap1 and
+    fmap2: the backward's plain version, then autograd through the
+    pyramid's pooling and concat."""
+    t1, t2 = _t(f1).requires_grad_(), _t(f2).requires_grad_()
+    out = corr_lookup(build_corr_state(t1, t2, levels), _t(x), radius)
+    out.backward(_t(g))
+    return [t1.grad.numpy(), t2.grad.numpy()]
+
+
+@pytest.mark.parametrize("backend,shape,levels,radius,nan", [
+    ("pallas_alt", (2, 11, 20), 4, 4, True),
+    ("pallas_alt", (1, 2, 4), 4, 2, True),
+    ("alt", (2, 11, 20), 4, 4, False),
+    ("alt", (1, 2, 4), 4, 2, False)],
+    ids=["custom_vjp-hostile", "custom_vjp-zero_width_level",
+         "alt_vjp-hostile", "alt_vjp-zero_width_level"])
+def test_lookup_backward_plain_matches_jax(backend, shape, levels, radius,
+                                           nan):
+    """Row 4: the backward's plain version (reached through the autograd
+    Function) against the JAX ``custom_vjp`` of the Pallas lookup
+    (interpret mode) and against ``jax.vjp`` of the ``alt`` backend, the
+    same function.  Taps past both edges; with 4 levels at W=4 the top
+    level has width 0.  NaN coordinates: the Pallas VJP poisons the whole
+    level row, which the port reproduces; ``alt``'s gather VJP poisons
+    only the gathered columns, so that case runs without NaN."""
+    b, h, w = shape
+    f1, f2, x = _features(np.random.default_rng(8), b, h, w)
+    x[0, 0, :3] = [-200.5, w + 200.25, 1e6]
+    x[0, 1, :2] = [-3.5, w + 1.75]
+    if nan:
+        x[-1, -1, -1] = np.nan
+    g = np.random.default_rng(9).normal(
+        size=(b, h, w, levels * (2 * radius + 1))).astype(np.float32)
+    want = _vjp_jax(backend, f1, f2, x, g, levels, radius)
+    got = _vjp_port(f1, f2, x, g, levels, radius)
+    for gt, wt in zip(got, want):
+        assert gt.shape == wt.shape
+        np.testing.assert_array_equal(np.isnan(gt), np.isnan(wt))
+        assert np.isnan(gt).any() == nan
+        # sums of ~40 products of O(1) terms, reordered: ~1e-7.
+        np.testing.assert_allclose(np.nan_to_num(gt), np.nan_to_num(wt),
+                                   rtol=0, atol=1e-5)
+
+
+def test_lookup_backward_wrapper_validates_before_launch():
+    f1, f2, x = _features(np.random.default_rng(7), 1, 2, 8)
+    st = build_corr_state(_t(f1), _t(f2), 2)
+    g = torch.zeros((1, 2, 8, 10))
+    with pytest.raises(ValueError):
+        cuda_alt.alt_corr_backward(st.fmap1.to("meta"), st.f2cat, st.widths,
+                                   _t(x), g, 2)
+
+
 def test_lookup_wrapper_validates_before_launch():
     f1, f2, x = _features(np.random.default_rng(7), 1, 2, 8)
     st = build_corr_state(_t(f1), _t(f2), 2)
@@ -158,6 +220,7 @@ def test_kernel_sources_carry_their_notes():
     replaces and its bound on the card."""
     srcs = _build.sources()
     replaced = {"alt_corr": "_alt_pyr_radial_kernel",
+                "alt_corr_bwd": "_alt_pyr_bwd_kernel",
                 "gru_update": "_gru_update_kernel"}
     assert set(srcs) == set(replaced)
     for name, path in srcs.items():
