@@ -8,19 +8,25 @@ the CUDA kernels from ``raftstereo_tpu_torch/csrc``; (3) hold each kernel
 against its plain PyTorch version on the card at the shapes its main path
 gives it, and time both: the serving path's lookup and fused update (a
 540x960 request pads to the 576x960 bucket, so the 1/4-resolution grid is
-144x240 with C=256 and hidden 128), and the training path's lookup and
-its backward (batch 6 of 320x720 crops: 480 rows of 180 pixels, C=256),
-the backward also bitwise repeatable; (4) serve three 540x960, 32-iteration
-requests of the flagship model through ``/predict``, check that they are
-finite, bitwise equal to a direct ``BatchEngine.infer_batch`` call, and
-that each serving kernel launched exactly 32 times per request; (5) hold
-the card's forward against the port's CPU forward (plain versions) on a
-small pair; (6) train the flagship model through
+144x240 with C=256 and hidden 128), the training path's lookup and its
+backward (batch 6 of 320x720 crops: 480 rows of 180 pixels, C=256), and
+the fused encoder stages' kernels at the fused serving path's shapes
+(fnet's 2 images and cnet's 1 at 576x960, layer2 at 288x480), the
+stride-2 conv1 at the ``n_downsample=3`` shape and the stats kernel at a
+batch-3 fnet shape (6 images); the backward and the encoder kernels also
+bitwise repeatable; (4) serve three 540x960, 32-iteration requests of the
+flagship model through ``/predict``, check that they are finite, bitwise
+equal to a direct ``BatchEngine.infer_batch`` call, and that each serving
+kernel launched exactly 32 times per request (and no encoder kernel);
+(5) the same with ``fused_encoder=True``, whose encoder kernels must
+launch exactly their per-request counts; (6) hold the card's forward
+against the port's CPU forward (plain versions) on a small pair, plain
+and fused encoders; (7) train the flagship model through
 ``cli.train.train`` on ``ShiftStereoDataset`` at the recipe shape (batch
 6, 320x720, 16 iterations): 6 steps, then a second call that resumes from
 the step-6 checkpoint and runs to step 8; every loss finite, the lookup
 forward and backward kernels launched exactly 16 times per step each;
-(7) hold one train step's loss and gradients on the card against the CPU
+(8) hold one train step's loss and gradients on the card against the CPU
 (plain versions) on a 64x96 pair.  Prints a ``{"kernels": [...]}`` line,
 one row per kernel and path (the path's launches beside the times and
 bound at its shapes), and, last, ``{"ok": true, "device": ...}``.  Exits non-zero, printing no
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import base64
 import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -59,6 +66,17 @@ TRAIN_BATCH, TRAIN_HW, TRAIN_ITERS = 6, (320, 720), 16
 TRAIN_STEPS, RESUME_TO = 6, 8
 STEP_LOSS_TOL = 1e-4   # relative: one train step's loss, card vs CPU
 STEP_GRAD_TOL = 1e-3   # of the largest CPU gradient entry, card vs CPU
+ENC_TOL = 1e-4         # relative to max(1, |plain|): fp32 conv sums of up
+#                        to 576 products against cuDNN's order; output
+#                        sums compared per pixel (divided by H*W)
+FINISH_TOL = 1e-5      # relative: elementwise, FMAs where plain rounds twice
+# Per-request launches of the fused encoder kernels (fnet + cnet, one
+# each per stage call): conv1, the four layer1 convs, the finish, the
+# layer2 entry, its three convs and its finish; 0 for the stride-2 conv1
+# and the stats kernel at batch 1.
+FUSED_PER_REQUEST = {"stem_conv7": 2, "stem_conv7_s2": 0, "stage_conv": 8,
+                     "plane_stats": 0, "stage_finish": 2, "l2_entry": 2,
+                     "l2_conv": 6, "l2_finish": 2}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -257,6 +275,257 @@ def kernel_phase(model, lo_hw, torch):
     return rows
 
 
+def _leaves(out):
+    if out is None:
+        return []
+    if hasattr(out, "shape"):
+        return [out]
+    return [t for o in out for t in _leaves(o)]
+
+
+def dims(t) -> str:
+    return "x".join(str(d) for d in t.shape)
+
+
+def hold(label, kern, plain, n, tol, torch):
+    """A kernel against its plain version on the same inputs: two kernel
+    calls bitwise equal, and every output within tol x max(1, |plain|);
+    (B, C) output sums are compared per pixel (divided by ``n``).
+    Returns the largest absolute error of the first output."""
+    k1, k2, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    k1, k2, want = _leaves(k1), _leaves(k2), _leaves(want)
+    check(len(k1) == len(want), f"{label}: {len(k1)} outputs vs "
+                                f"{len(want)}")
+    check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+          f"{label}: two calls on the same inputs differ")
+    rel = 0.0
+    for a, w in zip(k1, want):
+        if a.dim() == 2:
+            a, w = a / n, w / n
+        err = float((a - w).abs().max())
+        rel = max(rel, err / max(1.0, float(w.abs().max())))
+    err0 = float((k1[0] - want[0]).abs().max())
+    print(f"{label} max_abs_err {err0:.3e}, max rel {rel:.3e} (tol {tol}); "
+          f"bitwise repeatable")
+    check(rel <= tol, f"{label} disagrees with its plain version ({rel})")
+    return err0
+
+
+def encoder_kernel_phase(model, bucket, torch):
+    """The fused encoder kernels against their plain versions at the fused
+    serving path's shapes (fnet: 2 images, instance norm with sums; cnet:
+    1 image, batch norm without), plus the stride-2 conv1 at the
+    ``n_downsample=3`` shape and the stats kernel at a batch-3 fnet; one
+    timed row per kernel."""
+    import torch.nn.functional as F
+
+    from raftstereo_tpu_torch.ops import cuda_encoder as ce
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    def aff(b, c):  # shifts > 0: padding before the prep would show
+        return ((0.5 + torch.rand((b, c), generator=g)).to(dev),
+                (0.5 * torch.rand((b, c), generator=g)).to(dev))
+
+    def wb(m):
+        return m.weight.detach(), m.bias.detach()
+
+    enc = model.fnet
+    l0, l1 = enc.layer1
+    m0, _ = enc.layer2
+    h, w = bucket
+    h2, w2 = h // 2, w // 2
+    rows = []
+
+    def row(name, replaces, path_shape, kern, plain, n, tol, nbytes, flops,
+            lib=None, reps=5):
+        err = hold(f"{name} {path_shape}", kern, plain, n, tol, torch)
+        ms, plain_ms = time_ms(kern, reps), time_ms(plain, reps)
+        lib_ms = time_ms(lib, reps) if lib is not None else None
+        print(f"{name} {path_shape} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms {lib_ms}")
+        src = {"stage_finish": "enc_finish", "l2_finish": "enc_finish",
+               "plane_stats": "enc_stats"}.get(name, "enc_conv")
+        rows.append(dict(name=name, path="serve_fused", shape=path_shape,
+                         route="cuda",
+                         source=f"raftstereo_tpu_torch/csrc/{src}.cu",
+                         replaces=replaces, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms,
+                         **dict(zip(("bound_ms", "bound_by"),
+                                    bound(nbytes, flops))),
+                         library_ms=lib_ms))
+
+    def conv_cost(x, wt, out_numel, n_in=1, proj_flops=0):
+        """FLOPs: the MACs, the bias and the output sums, the input prep."""
+        macs = out_numel * wt.shape[1] * wt.shape[2] * wt.shape[3]
+        return 2 * macs + proj_flops + 4 * out_numel + 3 * n_in * x.numel()
+
+    # -- fnet, 2 images: conv1 (row 13), layer1 (row 9), finish (row 11)
+    img = torch.tanh(randn(2, 3, h, w))
+    w1, b1 = wb(enc.conv1)
+    n = float(h * w)
+    out = 2 * 64 * h * w
+    row("stem_conv7", "raftstereo_tpu/ops/pallas_encoder.py:648",
+        dims(img), lambda: ce.stem_conv7(img, w1, b1),
+        lambda: ce.conv_plain(img, w1, b1, 1), n, ENC_TOL,
+        4 * (img.numel() + w1.numel() + 64 + out + 2 * 2 * 64),
+        conv_cost(img, w1, out, n_in=0),
+        lib=lambda: F.conv2d(img, w1, b1, 1, 3), reps=10)
+    x = randn(2, 64, h, w)
+    r = randn(2, 64, h, w)
+    a, ra = aff(2, 64), aff(2, 64)
+    wc, bc = wb(l0.conv1)
+    hold(f"stage_conv res form {dims(x)}",
+         lambda: ce.stage_conv(x, a, wc, bc, res=r, res_aff=ra),
+         lambda: ce.conv_plain(x, wc, bc, 1, a, r, ra), n, ENC_TOL, torch)
+    row("stage_conv", "raftstereo_tpu/ops/pallas_encoder.py:338, :348",
+        dims(x), lambda: ce.stage_conv(x, a, wc, bc),
+        lambda: ce.conv_plain(x, wc, bc, 1, a), n, ENC_TOL,
+        4 * (2 * x.numel() + wc.numel() + 64 + 2 * 2 * 64 + 2 * 2 * 64),
+        conv_cost(x, wc, x.numel(), n_in=1),
+        lib=lambda: F.conv2d(x, wc, bc, 1, 1))
+    c = randn(2, 64, h, w)
+    a2, a3 = aff(2, 64), aff(2, 64)
+    row("stage_finish", "raftstereo_tpu/ops/pallas_encoder.py:364",
+        dims(x), lambda: ce.stage_finish(x, a, r, a2, c, a3),
+        lambda: ce.finish_plain(x, a, r, a2, c, a3), n, FINISH_TOL,
+        4 * (4 * x.numel() + 6 * 2 * 64), 12 * x.numel(), reps=20)
+
+    # -- fnet layer2: entry (row 15), convs (row 16), finish (row 17)
+    t = torch.relu(x)
+    we, be = wb(m0.conv1)
+    wp, bp = wb(m0.downsample[0])
+    n2 = float(h2 * w2)
+    out2 = 2 * 96 * h2 * w2
+    row("l2_entry", "raftstereo_tpu/ops/pallas_layer2.py:118",
+        dims(t), lambda: ce.l2_entry(t, we, be, wp, bp),
+        lambda: ce.entry_plain(t, we, be, wp, bp), n2, ENC_TOL,
+        4 * (t.numel() + we.numel() + wp.numel() + 2 * 96 + 2 * out2
+             + 2 * 2 * 2 * 96),
+        conv_cost(t, we, out2, n_in=0, proj_flops=2 * out2 * 64) + 4 * out2,
+        lib=lambda: F.conv2d(t, we, be, 2, 1))
+    y = randn(2, 96, h2, w2)
+    p = randn(2, 96, h2, w2)
+    b_, pb = aff(2, 96), aff(2, 96)
+    wl, bl = wb(m0.conv2)
+    hold(f"l2_conv res form {dims(y)}",
+         lambda: ce.l2_conv(y, b_, wl, bl, res=p, res_aff=pb),
+         lambda: ce.conv_plain(y, wl, bl, 1, b_, p, pb, res_relu=False),
+         n2, ENC_TOL, torch)
+    row("l2_conv", "raftstereo_tpu/ops/pallas_layer2.py:201, :212",
+        dims(y), lambda: ce.l2_conv(y, b_, wl, bl),
+        lambda: ce.conv_plain(y, wl, bl, 1, b_), n2, ENC_TOL,
+        4 * (2 * y.numel() + wl.numel() + 96 + 4 * 2 * 96),
+        conv_cost(y, wl, y.numel(), n_in=1),
+        lib=lambda: F.conv2d(y, wl, bl, 1, 1))
+    q, a4 = randn(2, 96, h2, w2), aff(2, 96)
+    row("l2_finish", "raftstereo_tpu/ops/pallas_layer2.py:228",
+        dims(y), lambda: ce.l2_finish(p, pb, y, b_, q, a4),
+        lambda: ce.finish_plain(p, pb, y, b_, q, a4, a_relu=False), n2,
+        FINISH_TOL, 4 * (4 * y.numel() + 6 * 2 * 96), 12 * y.numel(),
+        reps=20)
+
+    # -- cnet, 1 image, batch norm: the same kernels without sums
+    img1, x1, t1 = img[:1].contiguous(), x[:1].contiguous(), t[:1].contiguous()
+    ab = aff(1, 64)
+    for label, kern, plain in (
+            (f"stem_conv7 {dims(img1)} no sums",
+             lambda: ce.stem_conv7(img1, w1, b1, want_stats=False),
+             lambda: ce.conv_plain(img1, w1, b1, 1, want_stats=False)),
+            (f"stage_conv {dims(x1)} no sums",
+             lambda: ce.stage_conv(x1, ab, wc, bc, want_stats=False),
+             lambda: ce.conv_plain(x1, wc, bc, 1, ab, want_stats=False)),
+            (f"l2_entry {dims(t1)} no sums",
+             lambda: ce.l2_entry(t1, we, be, wp, bp, want_stats=False),
+             lambda: ce.entry_plain(t1, we, be, wp, bp, want_stats=False)),
+            (f"l2_conv {dims(y[:1])} no sums",
+             lambda: ce.l2_conv(y[:1].contiguous(), (b_[0][:1], b_[1][:1]),
+                                wl, bl, want_stats=False),
+             lambda: ce.conv_plain(y[:1], wl, bl, 1, (b_[0][:1], b_[1][:1]),
+                                   want_stats=False))):
+        hold(label, kern, plain, 1.0, ENC_TOL, torch)
+
+    # -- off the batch-1 path: the stride-2 conv1 (row 12) at the
+    # n_downsample=3 shape, the stats kernel (row 10) at a batch-3 fnet
+    outs2 = 2 * 64 * h2 * w2
+    row("stem_conv7_s2", "raftstereo_tpu/ops/pallas_encoder.py:721",
+        f"{dims(img)} (n_downsample=3)",
+        lambda: ce.stem_conv7_s2(img, w1, b1),
+        lambda: ce.conv_plain(img, w1, b1, 2), n2, ENC_TOL,
+        4 * (img.numel() + w1.numel() + 64 + outs2 + 2 * 2 * 64),
+        conv_cost(img, w1, outs2, n_in=0),
+        lib=lambda: F.conv2d(img, w1, b1, 2, 3), reps=10)
+    big = randn(6, 64, h, w)
+    row("plane_stats", "raftstereo_tpu/ops/pallas_norm.py:47 (via "
+        "pallas_encoder.py:476)", f"{dims(big)} (batch 3)",
+        lambda: ce.plane_stats(big), lambda: ce.stats_plain(big), n,
+        ENC_TOL, 4 * (big.numel() + 2 * 6 * 64), 3 * big.numel(), reps=10)
+    return rows
+
+
+def serve_phase(model, scfg, pairs, torch):
+    """Three requests through ``/predict``: replies, and launches per
+    counted wrapper over exactly those requests."""
+    from raftstereo_tpu_torch.ops import cuda_alt, cuda_encoder, cuda_gru
+    from raftstereo_tpu_torch.serve.server import build_server, decode_array
+
+    t0 = time.perf_counter()
+    server = build_server(model, scfg, device="cuda")
+    print(f"server warm in {time.perf_counter() - t0:.1f}s")
+    server.start()
+    counted = (cuda_alt.alt_corr, cuda_gru.gru_update) + cuda_encoder.WRAPPERS
+    try:
+        for fn in counted:
+            fn.launches = 0
+        replies = []
+        for left, right in pairs:
+            t0 = time.perf_counter()
+            replies.append(post_predict(server.port, left, right))
+            print(f"/predict {time.perf_counter() - t0:.3f}s "
+                  f"meta {replies[-1]['meta']}")
+        launches = {fn.__name__: fn.launches for fn in counted}
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(f"launches {launches}")
+    for (left, right), rep in zip(pairs, replies):
+        disp = decode_array(rep["disparity"])
+        check(disp.shape == IMAGE_HW, f"reply shape {disp.shape}")
+        check(bool(np.isfinite(disp).all()), "non-finite disparity")
+        (direct,) = server.engine.infer_batch([(left, right)], ITERS)
+        check(np.array_equal(disp, direct),
+              "reply differs from a direct engine call")
+    print("replies finite and bitwise equal to direct engine calls")
+    return launches
+
+
+def forward_card_vs_cpu(model, rng, torch):
+    """The card's forward (kernels) against the CPU forward (plain
+    versions) on a small pair: the repo's own reference for the path."""
+    cpu_model = copy.deepcopy(model).to("cpu")
+    i1 = torch.from_numpy(rng.uniform(0, 255, (1, 64, 96, 3))
+                          .astype(np.float32))
+    i2 = torch.from_numpy(rng.uniform(0, 255, (1, 64, 96, 3))
+                          .astype(np.float32))
+    lo_g, up_g = model(i1.cuda(), i2.cuda(), iters=4)
+    lo_c, up_c = cpu_model(i1, i2, iters=4)
+    tag = "fused encoder " if model.config.fused_encoder else ""
+    for name, a, b, tol in (("low-res", lo_g.cpu(), lo_c, FORWARD_TOL[0]),
+                            ("full-res", up_g.cpu(), up_c, FORWARD_TOL[1])):
+        err = float((a - b).abs().max())
+        scale = max(1.0, float(b.abs().max()))
+        print(f"{tag}forward {name} card vs cpu max_abs_err {err:.3e} "
+              f"(tol {tol} x {scale:.3g})")
+        check(bool(torch.isfinite(a).all()) and err <= tol * scale,
+              f"card {tag}forward differs from the CPU forward ({name}: "
+              f"{err})")
+
+
 def train_phase(torch):
     """The training path: 6 steps of the recipe, then a resume to 8."""
     from raftstereo_tpu_torch import RAFTStereoConfig
@@ -361,9 +630,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, root)
     from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig, ServeConfig
-    from raftstereo_tpu_torch.ops import _build, cuda_alt, cuda_gru
+    from raftstereo_tpu_torch.ops import _build
     from raftstereo_tpu_torch.ops.image import BucketPadder
-    from raftstereo_tpu_torch.serve.server import build_server, decode_array
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -389,67 +657,41 @@ def main() -> int:
     lo_hw = (bucket[0] // cfg.factor, bucket[1] // cfg.factor)
     print(f"bucket {bucket} -> grid {lo_hw}")
     rows = kernel_phase(model, lo_hw, torch)
+    rows += encoder_kernel_phase(model, bucket, torch)
 
-    t0 = time.perf_counter()
-    server = build_server(model, scfg, device="cuda")
-    print(f"server warm in {time.perf_counter() - t0:.1f}s")
-    server.start()
     rng = np.random.default_rng(0)
     pairs = [tuple(rng.uniform(0, 255, IMAGE_HW + (3,)).astype(np.float32)
                    for _ in range(2)) for _ in range(REQUESTS)]
-    try:
-        cuda_alt.alt_corr.launches = 0
-        cuda_gru.gru_update.launches = 0
-        replies = []
-        for left, right in pairs:
-            t0 = time.perf_counter()
-            replies.append(post_predict(server.port, left, right))
-            print(f"/predict {time.perf_counter() - t0:.3f}s "
-                  f"meta {replies[-1]['meta']}")
-        launches = {"alt_corr": cuda_alt.alt_corr.launches,
-                    "gru_update": cuda_gru.gru_update.launches}
-    finally:
-        server.shutdown()
-        server.server_close()
-    print(f"launches {launches}")
-    for name, count in launches.items():
-        check(count == REQUESTS * ITERS,
-              f"{name} launched {count} times, want {REQUESTS * ITERS}")
-    for (left, right), rep in zip(pairs, replies):
-        disp = decode_array(rep["disparity"])
-        check(disp.shape == IMAGE_HW, f"reply shape {disp.shape}")
-        check(bool(np.isfinite(disp).all()), "non-finite disparity")
-        (direct,) = server.engine.infer_batch([(left, right)], ITERS)
-        check(np.array_equal(disp, direct),
-              "reply differs from a direct engine call")
-    print("replies finite and bitwise equal to direct engine calls")
+    launches = serve_phase(model, scfg, pairs, torch)
+    for name in ("alt_corr", "gru_update"):
+        check(launches[name] == REQUESTS * ITERS,
+              f"{name} launched {launches[name]} times, want "
+              f"{REQUESTS * ITERS}")
+    check(all(launches[k] == 0 for k in FUSED_PER_REQUEST),
+          f"the plain encoders launched encoder kernels: {launches}")
+    forward_card_vs_cpu(model, rng, torch)
+    del model
+    torch.cuda.empty_cache()
 
-    # The card's forward (kernels) against the CPU forward (plain versions)
-    # on a small pair: the repo's own reference for the whole path.
-    cpu_model = copy.deepcopy(model).to("cpu")
-    i1 = torch.from_numpy(rng.uniform(0, 255, (1, 64, 96, 3))
-                          .astype(np.float32))
-    i2 = torch.from_numpy(rng.uniform(0, 255, (1, 64, 96, 3))
-                          .astype(np.float32))
-    lo_g, up_g = model(i1.cuda(), i2.cuda(), iters=4)
-    lo_c, up_c = cpu_model(i1, i2, iters=4)
-    for name, a, b, tol in (("low-res", lo_g.cpu(), lo_c, FORWARD_TOL[0]),
-                            ("full-res", up_g.cpu(), up_c, FORWARD_TOL[1])):
-        err = float((a - b).abs().max())
-        scale = max(1.0, float(b.abs().max()))
-        print(f"forward {name} card vs cpu max_abs_err {err:.3e} "
-              f"(tol {tol} x {scale:.3g})")
-        check(bool(torch.isfinite(a).all()) and err <= tol * scale,
-              f"card forward differs from the CPU forward ({name}: {err})")
+    # The fused encoder stages on the same serving path.
+    fused = RAFTStereo(dataclasses.replace(cfg, fused_encoder=True),
+                       device="cuda", seed=0)
+    fused_launches = serve_phase(fused, scfg, pairs, torch)
+    want = {k: REQUESTS * v for k, v in FUSED_PER_REQUEST.items()}
+    want.update(alt_corr=REQUESTS * ITERS, gru_update=REQUESTS * ITERS)
+    check(fused_launches == want, f"fused encoder launches "
+                                  f"{fused_launches}, want {want}")
+    forward_card_vs_cpu(fused, rng, torch)
 
-    del model, cpu_model, server
+    del fused
     torch.cuda.empty_cache()
     train_launches = train_phase(torch)
     train_step_card_vs_cpu(torch, rng)
 
     # Each row's launches are those of its path's run, beside the times
     # and bound measured at that path's shapes.
-    by_path = {"serve": launches, "train": train_launches}
+    by_path = {"serve": launches, "train": train_launches,
+               "serve_fused": fused_launches}
     for row in rows:
         row["launches"] = by_path[row["path"]][row["name"]]
     print(json.dumps({"kernels": rows}))

@@ -1,11 +1,13 @@
 """Where one served request's, or one training step's, device time goes.
 
-    python -m raftstereo_tpu_torch.cli.profile [--train [--remat]]
+    python -m raftstereo_tpu_torch.cli.profile [--fused_encoder]
+    python -m raftstereo_tpu_torch.cli.profile --train [--remat]
 
 Builds the flagship model with seeded weights on the card.  By default it
 warms the engine at the 540x960 bucket and 32 iterations (the serving
 path of ``chip_smoke.py``) and profiles one ``BatchEngine.infer_batch``
-call; with ``--train`` it profiles one training step of the recipe (batch
+call (``--fused_encoder``: with the fused encoder stages,
+``RAFTStereoConfig(fused_encoder=True)``); with ``--train`` it profiles one training step of the recipe (batch
 6, 320x720, 16 iterations, ``train.step.make_train_step``) after one
 warm-up step; ``--remat`` recomputes each iteration in the backward
 pass.  Either way it prints one JSON line: the
@@ -13,7 +15,8 @@ wall time, the summed device time of the kernels, the device busy time
 (the union of the kernels' intervals, so overlapping kernels count once)
 and idle share (1 - busy / wall), the peak device memory over the
 profiled call, and device time by kernel, grouped by the port's CUDA
-sources (``alt_corr``, ``alt_corr_bwd``, ``gru_update``) and by
+sources (``enc_conv``, ``enc_stats``, ``enc_finish``, ``alt_corr``,
+``alt_corr_bwd``, ``gru_update``) and by
 cuDNN/cuBLAS convolutions and products ("conv").  Needs a GPU.
 """
 
@@ -34,7 +37,10 @@ from ..serve.engine import BatchEngine
 
 # Kernel-name prefixes of each CUDA source (csrc/*.cu), then the library
 # convolutions and matrix products.
-_GROUPS = {"alt_corr": ("alt_corr_kernel",),
+_GROUPS = {"enc_conv": ("enc_conv_kernel", "enc_conv_stats_kernel"),
+           "enc_stats": ("enc_plane_stats_kernel",),
+           "enc_finish": ("enc_finish_kernel",),
+           "alt_corr": ("alt_corr_kernel",),
            "alt_corr_bwd": ("alt_corr_bwd_kernel",),
            "gru_update": ("conv_nhwc_kernel", "reset_gate_kernel",
                           "conv3x3_few_out_kernel"),
@@ -53,16 +59,17 @@ HW, ITERS, TOP = (540, 960), 32, 12
 TRAIN_BATCH, TRAIN_HW, TRAIN_ITERS = 6, (320, 720), 16
 
 
-def _serve_call():
+def _serve_call(fused_encoder: bool):
     h, w = HW
-    model = RAFTStereo(RAFTStereoConfig(), device="cuda", seed=0)
+    cfg = RAFTStereoConfig(fused_encoder=True if fused_encoder else None)
+    model = RAFTStereo(cfg, device="cuda", seed=0)
     engine = BatchEngine(model, ServeConfig(buckets=(HW,), serve_iters=ITERS))
     engine.warmup()
     rng = np.random.default_rng(0)
     pair = tuple(rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
                  for _ in range(2))
-    return lambda: engine.infer_batch([pair]), {"bucket": [h, w],
-                                                "iters": ITERS}
+    return lambda: engine.infer_batch([pair]), {
+        "bucket": [h, w], "iters": ITERS, "fused_encoder": fused_encoder}
 
 
 def _train_call(remat: bool):
@@ -95,14 +102,19 @@ def main(argv=None) -> int:
         description="Device time of one served request or train step.")
     p.add_argument("--train", action="store_true",
                    help="profile one training step instead of a request")
+    p.add_argument("--fused_encoder", action="store_true",
+                   help="serve with the fused encoder stages")
     p.add_argument("--remat", action="store_true",
                    help="with --train: recompute each iteration in the "
                         "backward pass")
     args = p.parse_args(argv)
     if args.remat and not args.train:
         p.error("--remat needs --train")
+    if args.fused_encoder and args.train:
+        p.error("--fused_encoder serves only: its stages have no backward")
     train = args.train
-    call, what = _train_call(args.remat) if train else _serve_call()
+    call, what = (_train_call(args.remat) if train
+                  else _serve_call(args.fused_encoder))
     call()  # warm-up: kernel builds, cuDNN plans, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()

@@ -12,7 +12,8 @@ data (``data.synthetic.ShiftStereoDataset``).
 Not ported yet, and refused at startup with ``NotImplementedError``:
 in-training validation (pass ``--no_validation``), ``--metrics_port``,
 ``--profile_steps``, ``--faults``, ``--data_parallel`` > 1,
-``--device_photometric`` and ``--workload sl``.
+``--device_photometric``, ``--workload sl`` and, through ``train()``, a
+model config with ``fused_encoder=True``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import RAFTStereoConfig, TrainConfig
+from ..config import RAFTStereoConfig, TrainConfig, check_trainable
 from ..data.datasets import build_aug_params, fetch_dataset
 from ..data.loader import DataLoader, prefetch_to_device
 from ..device import resolve_device
@@ -190,6 +191,7 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig, dataset=None,
     boundary and return.  ``log_dir`` defaults to ``runs/<name>``."""
     check_unported(cfg, no_validation, profile_steps, fault_plan,
                    metrics_port, workload)
+    check_trainable(model_cfg)
     dev = resolve_device(device)
     np.random.seed(cfg.seed)
 

@@ -2,12 +2,16 @@
 
 ``RAFTStereoConfig`` and ``TrainConfig`` keep the field names and
 defaults of the JAX package's configs (``raftstereo_tpu/config.py``) so
-one set of flags describes both.  The port runs fp32 with the plain
-(non-fused) encoders and the on-demand correlation lookup (CUDA kernels
-forward and backward); inference takes the fused finest-level GRU update
-(a CUDA kernel) or the module step, training always the module step.
-Every field value that selects another path raises
-``NotImplementedError`` naming the ROADMAP item that will add it.
+one set of flags describes both.  The port runs fp32 with the on-demand
+correlation lookup (CUDA kernels forward and backward); inference takes
+the fused finest-level GRU update (a CUDA kernel) or the module step,
+training always the module step.  The encoders are the plain ones, or
+with ``fused_encoder=True`` the fused stem + layer1 and layer2 stages
+(CUDA kernels) in inference; training with ``fused_encoder=True`` raises
+``NotImplementedError`` (``check_trainable``: the stages' backward is
+ROADMAP Queue 2 row 14).  Every other field value that selects another
+path raises ``NotImplementedError`` naming the ROADMAP item that will add
+it.
 """
 
 from __future__ import annotations
@@ -70,8 +74,6 @@ _SUPPORTED = (
     ("corr_implementation", ("auto", "pallas_alt"),
      "Queue 2 (the reg/alt/pallas lookups)"),
     ("gru_backend", ("auto", "fused", "xla"), "Queue 1 item 3"),
-    ("fused_encoder", (None, False),
-     "Queue 2 group 1 (the fused encoder kernels)"),
     ("corr_quant", (False,), "Queue 1 item 7 (precision tiers)"),
     ("compute_dtype", ("float32",), "Queue 1 item 3 (bf16 compute)"),
     ("corr_dtype", ("float32",), "Queue 1 item 7 (bf16 correlation)"),
@@ -89,14 +91,26 @@ _SUPPORTED = (
 def check_supported(config: RAFTStereoConfig) -> None:
     """Raise ``NotImplementedError`` for any field value outside the
     port's paths.  ``fused_encoder`` None and False run the plain encoders
-    (the JAX package's ``fused_encoder=False`` path); True pins the fused
-    encoder kernels, which are not ported."""
+    (the JAX package's ``fused_encoder=False`` path, and its ``None`` off
+    the TPU); True runs the fused encoder stages, in inference only (see
+    ``check_trainable``)."""
     for field, ok, item in _SUPPORTED:
         v = getattr(config, field)
         if v not in ok:
             raise NotImplementedError(
                 f"{field}={v!r} is not ported yet (supported: {list(ok)}); "
                 f"see ROADMAP.md {item}")
+
+
+def check_trainable(config: RAFTStereoConfig) -> None:
+    """Raise ``NotImplementedError`` for a config the port serves but
+    cannot train: ``fused_encoder=True``, whose stages have no backward
+    yet."""
+    if config.fused_encoder is True:
+        raise NotImplementedError(
+            "training with fused_encoder=True is not ported yet: the fused "
+            "stages' backward (_dual_sum_kernel) is ROADMAP.md Queue 2 row "
+            "14; train with fused_encoder None or False")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,17 @@
 """RAFT-Stereo in PyTorch: test-mode inference and train mode.
 
 The counterpart of the JAX package's ``RAFTStereo.forward`` with
-``corr_implementation="pallas_alt"`` and ``fused_encoder=False``:
-plain-convolution encoders, then per GRU iteration one on-demand
-correlation lookup (``ops.corr.corr_lookup``, CUDA kernels
-``csrc/alt_corr.cu`` forward and ``csrc/alt_corr_bwd.cu`` backward) and
-one update of the GRU levels.
+``corr_implementation="pallas_alt"``: the encoders, then per GRU
+iteration one on-demand correlation lookup (``ops.corr.corr_lookup``,
+CUDA kernels ``csrc/alt_corr.cu`` forward and ``csrc/alt_corr_bwd.cu``
+backward) and one update of the GRU levels.
+
+* ``fused_encoder`` None or False: plain-convolution encoders (the JAX
+  package's ``fused_encoder=False`` path).  True: both encoders run their
+  stem + layer1 and layer2 through the fused stages
+  (``ops.encoder_stage``, CUDA kernels ``csrc/enc_conv.cu``,
+  ``enc_stats.cu``, ``enc_finish.cu``), in test mode only: train mode
+  raises ``NotImplementedError`` (``config.check_trainable``).
 
 * Test mode with ``gru_backend`` "auto" or "fused": the coarser levels,
   then one fused finest-level update (``ops.cuda_gru.gru_update``, CUDA
@@ -30,7 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import RAFTStereoConfig, check_supported
+from ..config import RAFTStereoConfig, check_supported, check_trainable
 from ..device import fp32_numerics, resolve_device
 from ..ops.corr import build_corr_state, corr_lookup
 from ..ops.cuda_gru import gru_update, pack_update_params
@@ -70,9 +76,11 @@ class RAFTStereo(nn.Module):
         self.cnet = MultiBasicEncoder((cfg.hidden_dims, cfg.hidden_dims),
                                       norm_fn=cfg.context_norm,
                                       downsample=cfg.n_downsample,
-                                      num_layers=n)
+                                      num_layers=n,
+                                      fused_stem=cfg.fused_encoder)
         self.fnet = BasicEncoder(self.feature_dim, norm_fn="instance",
-                                 downsample=cfg.n_downsample)
+                                 downsample=cfg.n_downsample,
+                                 fused_stem=cfg.fused_encoder)
         self.context_zqr_convs = nn.ModuleList(
             conv(cfg.hidden_dims[i], cfg.hidden_dims[i] * 3, 3)
             for i in range(n))
@@ -101,6 +109,7 @@ class RAFTStereo(nn.Module):
         if test_mode:
             with torch.inference_mode():
                 return self._forward(image1, image2, iters, flow_init, True)
+        check_trainable(self.config)
         return self._forward(image1, image2, iters, flow_init, False)
 
     def _forward(self, image1, image2, iters, flow_init, test_mode):

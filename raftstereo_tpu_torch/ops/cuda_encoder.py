@@ -1,0 +1,338 @@
+"""The fused encoder stages' kernels: ``csrc/enc_conv.cu`` (prep ->
+direct convolution -> + bias, with per-(image, channel) output sums),
+``csrc/enc_stats.cu`` (the sums of a tensor) and ``csrc/enc_finish.cu``
+(the stages' last elementwise pass), their plain PyTorch versions, and
+one wrapper per TPU kernel they replace, each with its own ``launches``
+count:
+
+=====================  ==================================================
+wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
+=====================  ==================================================
+``stem_conv7``         row 13, ``pallas_encoder.py`` ``_stem7_kernel``
+``stem_conv7_s2``      row 12, ``pallas_encoder.py`` ``_stem7s2_kernel``
+``stage_conv``         row 9, ``pallas_encoder.py`` ``_enc_conv_kernel``,
+                       ``_enc_conv_res_kernel``
+``plane_stats``        row 10, ``pallas_norm.py`` ``_in_stats_kernel`` as
+                       ``pallas_encoder.py`` ``_packed_stats`` reaches it
+``stage_finish``       row 11, ``pallas_encoder.py`` ``_enc_finish_kernel``
+``l2_entry``           row 15, ``pallas_layer2.py`` ``_l2_entry_kernel``
+``l2_conv``            row 16, ``pallas_layer2.py`` ``_l2_conv_kernel``,
+                       ``_l2_conv_res_kernel``
+``l2_finish``          row 17, ``pallas_layer2.py`` ``_l2_finish_kernel``
+=====================  ==================================================
+
+Tensors are NCHW, as in the port's encoders.  A prep affine ``aff`` is a
+pair ``(s, t)`` of (B, C) tensors and preps ``x`` as relu(x*s + t); a
+stage's output sums are ``(sum, sum of squares)``, each (B, C), of the
+fp32 raw output including the bias.  Convolution zero padding applies
+AFTER the prep, as on the TPU.  The bounds on an H100 and what each
+kernel's design does about them are in the sources' notes: the
+convolutions are bound by operations, the stats and finish by bytes.
+
+Each wrapper runs the plain version for CPU tensors and its kernel for
+CUDA tensors (counted in ``<wrapper>.launches``); it never falls back from
+one to the other.  The convolution wrapper repacks the OIHW weights on
+every call (at most 332 KB), so nothing goes stale after
+``load_state_dict``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+Affine = Tuple[torch.Tensor, torch.Tensor]
+
+# enc_conv.cu's output tile and channel tile (kTileH, kTileW, kCoutTile).
+_TILE_H, _TILE_W, _COUT_TILE = 8, 32, 32
+_NONE, _PREP, _RES, _RES_PROJ = 0, 1, 2, 3
+
+
+# ------------------------------------------------------- plain versions
+
+def prep(x: torch.Tensor, aff: Affine, relu: bool = True) -> torch.Tensor:
+    """relu(x*s + t) per (image, channel); no relu with ``relu=False``."""
+    s, t = aff
+    y = x * s[:, :, None, None] + t[:, :, None, None]
+    return torch.relu(y) if relu else y
+
+
+def stats_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (sum, sum of squares) over (H, W), each (B, C)."""
+    return y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
+
+
+def conv_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               stride: int = 1, aff: Optional[Affine] = None,
+               res: Optional[torch.Tensor] = None,
+               res_aff: Optional[Affine] = None, res_relu: bool = True,
+               want_stats: bool = True):
+    """Plain version of ``enc_conv``: the prepped input (``x`` itself
+    without ``aff``; with ``res``, relu(prep(res) + prep(x)), the residual
+    term without its relu when ``res_relu`` is False), zero-padded, through
+    ``F.conv2d``.  Returns ``(y, sums or None)``."""
+    t = x if aff is None else prep(x, aff)
+    if res is not None:
+        t = torch.relu(prep(res, res_aff, relu=res_relu) + t)
+    y = F.conv2d(t, weight, bias, stride, weight.shape[-1] // 2)
+    return y, (stats_plain(y) if want_stats else None)
+
+
+def entry_plain(t: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                proj_weight: torch.Tensor, proj_bias: torch.Tensor,
+                want_stats: bool = True):
+    """Plain version of layer2's entry: the stride-2 3x3 conv and the
+    stride-2 1x1 projection of the same input.  Returns ``(c1, p,
+    c1 sums, p sums)``."""
+    c1, s1 = conv_plain(t, weight, bias, 2, want_stats=want_stats)
+    p, sp = conv_plain(t, proj_weight, proj_bias, 2, want_stats=want_stats)
+    return c1, p, s1, sp
+
+
+def finish_plain(a: torch.Tensor, aff_a: Affine, b: torch.Tensor,
+                 aff_b: Affine, c: torch.Tensor, aff_c: Affine,
+                 a_relu: bool = True) -> torch.Tensor:
+    """relu(relu(prep(a) + prep(b)) + prep(c)); ``a``'s prep without its
+    relu when ``a_relu`` is False (layer2's projection norm)."""
+    return torch.relu(torch.relu(prep(a, aff_a, relu=a_relu)
+                                 + prep(b, aff_b)) + prep(c, aff_c))
+
+
+# ------------------------------------------------------------- kernels
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts if t is not None)
+
+
+def _check(name: str, *ts) -> torch.device:
+    """All operands fp32, contiguous and on one CUDA device."""
+    dev = ts[0].device
+    for t in ts:
+        if t is None:
+            continue
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name}: operands on "
+                             f"{[u.device for u in ts if u is not None]}; "
+                             f"all must be on one CUDA device")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous float32 tensors")
+    return dev
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _conv_cuda(name, x, weight, bias, stride, mode, aff=None, res=None,
+               res_aff=None, proj=None, want_stats=True):
+    """One ``enc_conv_forward`` launch; returns (y, yp or None, stats
+    (B, 2, CH) or None)."""
+    cout, cin, ks, _ = weight.shape
+    w = weight.detach().permute(1, 2, 3, 0).contiguous()  # (Cin, k, k, Cout)
+    bias = bias.detach().contiguous()
+    wp = bp = None
+    if proj is not None:
+        wp = proj[0].detach().reshape(cout, cin).t().contiguous()
+        bp = proj[1].detach().contiguous()
+    s, t = aff if aff is not None else (None, None)
+    rs, rt = res_aff if res_aff is not None else (None, None)
+    dev = _check(name, x, s, t, res, rs, rt, w, bias, wp, bp)
+    b, c, h, wd = x.shape
+    if c != cin or cout % _COUT_TILE:
+        raise ValueError(f"{name}: input channels {c} vs weight {cin}, or "
+                         f"Cout {cout} not a multiple of {_COUT_TILE}")
+    for a in (s, t, rs, rt):
+        if a is not None and a.shape != (b, c):
+            raise ValueError(f"{name}: affine {tuple(a.shape)} != {(b, c)}")
+    if res is not None and res.shape != x.shape:
+        raise ValueError(f"{name}: residual {tuple(res.shape)} != "
+                         f"{tuple(x.shape)}")
+    pad = ks // 2
+    ho = (h + 2 * pad - ks) // stride + 1
+    wo = (wd + 2 * pad - ks) // stride + 1
+    nb = -(-ho // _TILE_H) * -(-wo // _TILE_W)
+    y = torch.empty((b, cout, ho, wo), dtype=torch.float32, device=dev)
+    yp = torch.empty_like(y) if proj is not None else None
+    ch = cout * (2 if proj is not None else 1)
+    partials = stats = None
+    if want_stats:
+        partials = torch.empty((b, nb, 2, ch), dtype=torch.float32,
+                               device=dev)
+        stats = torch.empty((b, 2, ch), dtype=torch.float32, device=dev)
+    fn = _build.load("enc_conv").enc_conv_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
+                _ptr(w), _ptr(bias), _ptr(wp), _ptr(bp), _ptr(y), _ptr(yp),
+                _ptr(partials), _ptr(stats), b, cin, h, wd, cout, ks, stride,
+                mode, nb, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return y, yp, stats
+
+
+def _sums(stats: Optional[torch.Tensor], lo: int, hi: int):
+    if stats is None:
+        return None
+    return stats[:, 0, lo:hi], stats[:, 1, lo:hi]
+
+
+def stem_conv7(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               want_stats: bool = True):
+    """7x7 stride-1 conv1 of the (B, 3, H, W) image, zero padding on the
+    raw image: ``(y, sums or None)`` (row 13)."""
+    if _on_cpu(img, weight, bias):
+        return conv_plain(img, weight, bias, 1, want_stats=want_stats)
+    y, _, st = _conv_cuda("stem_conv7", img, weight, bias, 1, _NONE,
+                          want_stats=want_stats)
+    stem_conv7.launches += 1
+    return y, _sums(st, 0, y.shape[1])
+
+
+def stem_conv7_s2(img: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor, want_stats: bool = True):
+    """7x7 stride-2 conv1: output (i, j) reads image rows and columns
+    2i-3 .. 2i+3; ``(y, sums or None)`` (row 12)."""
+    if _on_cpu(img, weight, bias):
+        return conv_plain(img, weight, bias, 2, want_stats=want_stats)
+    y, _, st = _conv_cuda("stem_conv7_s2", img, weight, bias, 2, _NONE,
+                          want_stats=want_stats)
+    stem_conv7_s2.launches += 1
+    return y, _sums(st, 0, y.shape[1])
+
+
+def stage_conv(x: torch.Tensor, aff: Affine, weight: torch.Tensor,
+               bias: torch.Tensor, res: Optional[torch.Tensor] = None,
+               res_aff: Optional[Affine] = None, want_stats: bool = True):
+    """prep -> 3x3 conv of the stem + layer1 stage; with ``res`` the input
+    is relu(prep(res) + prep(x)) (the residual block boundary).  ``(y,
+    sums or None)`` (row 9)."""
+    if _on_cpu(x, res, weight, *aff):
+        return conv_plain(x, weight, bias, 1, aff, res, res_aff,
+                          want_stats=want_stats)
+    y, _, st = _conv_cuda("stage_conv", x, weight, bias, 1,
+                          _PREP if res is None else _RES, aff, res, res_aff,
+                          want_stats=want_stats)
+    stage_conv.launches += 1
+    return y, _sums(st, 0, y.shape[1])
+
+
+def l2_conv(x: torch.Tensor, aff: Affine, weight: torch.Tensor,
+            bias: torch.Tensor, res: Optional[torch.Tensor] = None,
+            res_aff: Optional[Affine] = None, want_stats: bool = True):
+    """prep -> 3x3 conv of layer2; with ``res`` (the projection) the input
+    is relu((res*rs + rt) + prep(x)): no relu on the projection term.
+    ``(y, sums or None)`` (row 16)."""
+    if _on_cpu(x, res, weight, *aff):
+        return conv_plain(x, weight, bias, 1, aff, res, res_aff,
+                          res_relu=False, want_stats=want_stats)
+    y, _, st = _conv_cuda("l2_conv", x, weight, bias, 1,
+                          _PREP if res is None else _RES_PROJ, aff, res,
+                          res_aff, want_stats=want_stats)
+    l2_conv.launches += 1
+    return y, _sums(st, 0, y.shape[1])
+
+
+def l2_entry(t: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             proj_weight: torch.Tensor, proj_bias: torch.Tensor,
+             want_stats: bool = True):
+    """layer2's entry in one launch: the stride-2 3x3 conv (output (i, j)
+    reads 2i-1 .. 2i+1) and the stride-2 1x1 projection (reads (2i, 2j))
+    of the post-relu input.  ``(c1, p, c1 sums, p sums)`` (row 15)."""
+    if _on_cpu(t, weight, proj_weight):
+        return entry_plain(t, weight, bias, proj_weight, proj_bias,
+                           want_stats)
+    if proj_weight.shape[2:] != (1, 1):
+        raise ValueError(f"l2_entry: projection {tuple(proj_weight.shape)}"
+                         f" is not 1x1")
+    y, yp, st = _conv_cuda("l2_entry", t, weight, bias, 2, _NONE,
+                           proj=(proj_weight, proj_bias),
+                           want_stats=want_stats)
+    l2_entry.launches += 1
+    c = y.shape[1]
+    return y, yp, _sums(st, 0, c), _sums(st, c, 2 * c)
+
+
+def plane_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (sum, sum of squares) of each (image, channel) plane (row
+    10)."""
+    if _on_cpu(x):
+        return stats_plain(x)
+    dev = _check("plane_stats", x)
+    b, c, h, w = x.shape
+    stats = torch.empty((b, 2, c), dtype=torch.float32, device=dev)
+    fn = _build.load("enc_stats").enc_stats_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_long, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(x.data_ptr(), stats.data_ptr(), b, c, h * w, stream)
+    if rc != 0:
+        raise RuntimeError(f"plane_stats kernel launch failed: CUDA error "
+                           f"{rc}")
+    plane_stats.launches += 1
+    return stats[:, 0], stats[:, 1]
+
+
+def _finish_cuda(name, a, aff_a, b, aff_b, c, aff_c, a_relu):
+    dev = _check(name, a, b, c, *aff_a, *aff_b, *aff_c)
+    if not a.shape == b.shape == c.shape:
+        raise ValueError(f"{name}: shapes {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(c.shape)} differ")
+    n, ch, h, w = a.shape
+    for t in (*aff_a, *aff_b, *aff_c):
+        if t.shape != (n, ch):
+            raise ValueError(f"{name}: affine {tuple(t.shape)} != {(n, ch)}")
+    out = torch.empty_like(a)
+    fn = _build.load("enc_finish").enc_finish_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_long, ctypes.c_long,
+                                            ctypes.c_int, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(a.data_ptr(), aff_a[0].data_ptr(), aff_a[1].data_ptr(),
+                b.data_ptr(), aff_b[0].data_ptr(), aff_b[1].data_ptr(),
+                c.data_ptr(), aff_c[0].data_ptr(), aff_c[1].data_ptr(),
+                out.data_ptr(), n * ch, h * w, int(a_relu), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def stage_finish(y1: torch.Tensor, aff1: Affine, c11: torch.Tensor,
+                 aff11: Affine, c21: torch.Tensor,
+                 aff21: Affine) -> torch.Tensor:
+    """The stem + layer1 stage's output relu(relu(t0 + u2) + v2), t0, u2,
+    v2 the prepped y1, c11, c21 (row 11)."""
+    if _on_cpu(y1, c11, c21):
+        return finish_plain(y1, aff1, c11, aff11, c21, aff21)
+    out = _finish_cuda("stage_finish", y1, aff1, c11, aff11, c21, aff21,
+                       True)
+    stage_finish.launches += 1
+    return out
+
+
+def l2_finish(p: torch.Tensor, aff_p: Affine, c2: torch.Tensor,
+              aff2: Affine, c4: torch.Tensor, aff4: Affine) -> torch.Tensor:
+    """layer2's output relu(relu(pn + u2) + y4), pn = p*sp + tp without
+    relu, u2 and y4 the prepped c2 and c4 (row 17)."""
+    if _on_cpu(p, c2, c4):
+        return finish_plain(p, aff_p, c2, aff2, c4, aff4, a_relu=False)
+    out = _finish_cuda("l2_finish", p, aff_p, c2, aff2, c4, aff4, False)
+    l2_finish.launches += 1
+    return out
+
+
+WRAPPERS = (stem_conv7, stem_conv7_s2, stage_conv, plane_stats,
+            stage_finish, l2_entry, l2_conv, l2_finish)
+for _fn in WRAPPERS:
+    _fn.launches = 0

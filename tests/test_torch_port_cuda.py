@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig
-from raftstereo_tpu_torch.ops import cuda_alt, cuda_gru
+from raftstereo_tpu_torch.ops import cuda_alt, cuda_encoder, cuda_gru
 from raftstereo_tpu_torch.ops.corr import build_corr_state
 
 pytestmark = pytest.mark.cuda
@@ -179,5 +179,162 @@ def test_forward_on_card_matches_cpu(dev):
     lo_c, up_c = cpu(*imgs, iters=3)
     # The thresholds of the JAX parity tests: fp32 rounding differences
     # carried through three GRU iterations.
+    torch.testing.assert_close(lo_g.cpu(), lo_c, rtol=0, atol=2e-3)
+    torch.testing.assert_close(up_g.cpu(), up_c, rtol=0, atol=5e-3)
+
+
+# ------------------------------------------------- fused encoder kernels
+
+def _aff(rng, dev, b, c, const=False):
+    """A per-(image, channel) prep affine; its shift is positive in every
+    channel, so zero padding before the prep would show at the border."""
+    s = rng.uniform(0.5, 1.5, (b, c)).astype(np.float32)
+    if const:
+        s[:, 0] = 1.0 / np.sqrt(1e-5)  # a constant channel's rstd
+    t = rng.uniform(0.05, 0.5, (b, c)).astype(np.float32)
+    return torch.from_numpy(s).to(dev), torch.from_numpy(t).to(dev)
+
+
+def _wb(rng, dev, co, ci, k):
+    w = _randn(rng, co, ci, k, k) * (2.0 / (ci * k * k)) ** 0.5
+    return w.to(dev), (_randn(rng, co) * 0.1).to(dev)
+
+
+def _twice(fn, *args, **kw):
+    """Two kernel calls on the same inputs (their results) and the plain
+    version's, after checking the wrapper counted both launches."""
+    before = fn.launches
+    k1, k2 = fn(*args, **kw), fn(*args, **kw)
+    assert fn.launches == before + 2
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else
+           tuple(t.cpu() for t in a) if isinstance(a, tuple) else a
+           for a in args]
+    want = fn(*cpu, **{k: v.cpu() if isinstance(v, torch.Tensor) else
+                       tuple(t.cpu() for t in v) if isinstance(v, tuple)
+                       else v for k, v in kw.items()})
+    torch.cuda.synchronize()
+    return k1, k2, want
+
+
+def _leaves(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out if o is not None for t in _leaves(o)]
+
+
+def _assert_kernel(k1, k2, want, rtol=1e-4):
+    """Bitwise repeatable; within rtol of max(1, |plain|) of the plain
+    version (fp32 convolution sums of up to 864 terms and image sums,
+    reordered; FMAs where the plain version rounds twice)."""
+    for a, b, w in zip(_leaves(k1), _leaves(k2), _leaves(want)):
+        assert torch.equal(a, b)
+        scale = max(1.0, float(w.abs().max()))
+        assert float((a.cpu() - w).abs().max()) <= rtol * scale
+
+
+# Hostile shapes: odd H, H not a multiple of the 8-row tile, W = 2 and W
+# not a multiple of the 32-column tile, stride-2 edges (odd input sizes).
+@pytest.mark.parametrize("b,h,w", [(2, 13, 2), (1, 9, 37), (3, 21, 70)])
+def test_stem_conv7_kernels_match_plain(dev, b, h, w):
+    rng = np.random.default_rng(h)
+    img = _randn(rng, b, 3, h, w).to(dev)
+    wt, bias = _wb(rng, dev, 64, 3, 7)
+    for fn in (cuda_encoder.stem_conv7, cuda_encoder.stem_conv7_s2):
+        _assert_kernel(*_twice(fn, img, wt, bias))
+        y, st = fn(img, wt, bias, want_stats=False)
+        assert st is None
+
+
+@pytest.mark.parametrize("cin,b,h,w", [(64, 2, 13, 2), (64, 1, 19, 45),
+                                       (96, 3, 9, 33)])
+def test_stage_and_l2_conv_kernels_match_plain(dev, cin, b, h, w):
+    """Rows 9 and 16, plain and residual forms, with and without sums;
+    channel 0 is constant (variance 0), its prep scale 1/sqrt(1e-5)."""
+    rng = np.random.default_rng(cin + h)
+    x = _randn(rng, b, cin, h, w)
+    x[:, 0] = 0.25
+    x = x.to(dev)
+    r = _randn(rng, b, cin, h, w).to(dev)
+    aff, raff = _aff(rng, dev, b, cin, const=True), _aff(rng, dev, b, cin)
+    wt, bias = _wb(rng, dev, cin, cin, 3)
+    for fn in (cuda_encoder.stage_conv, cuda_encoder.l2_conv):
+        _assert_kernel(*_twice(fn, x, aff, wt, bias))
+        _assert_kernel(*_twice(fn, x, aff, wt, bias, res=r, res_aff=raff))
+        _assert_kernel(*_twice(fn, x, aff, wt, bias, want_stats=False))
+
+
+@pytest.mark.parametrize("b,h,w", [(2, 14, 4), (1, 17, 66), (3, 30, 2)])
+def test_l2_entry_kernel_matches_plain(dev, b, h, w):
+    rng = np.random.default_rng(w)
+    t = torch.relu(_randn(rng, b, 64, h, w)).to(dev)
+    wt, bias = _wb(rng, dev, 96, 64, 3)
+    wp, bp = _wb(rng, dev, 96, 64, 1)
+    _assert_kernel(*_twice(cuda_encoder.l2_entry, t, wt, bias, wp, bp))
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 13, 2), (1, 96, 7, 9),
+                                   (6, 64, 24, 40)])
+def test_stats_and_finish_kernels_match_plain(dev, shape):
+    rng = np.random.default_rng(shape[2])
+    b, c = shape[:2]
+    x = (_randn(rng, *shape) * 3 + 10).to(dev)
+    x[:, 1] = 7.0  # a constant channel
+    _assert_kernel(*_twice(cuda_encoder.plane_stats, x))
+    ts = [_randn(rng, *shape).to(dev) for _ in range(3)]
+    affs = [_aff(rng, dev, b, c) for _ in range(3)]
+    args = [v for pair in zip(ts, affs) for v in pair]
+    for fn in (cuda_encoder.stage_finish, cuda_encoder.l2_finish):
+        _assert_kernel(*_twice(fn, *args), rtol=1e-5)
+
+
+def test_encoder_wrappers_raise_instead_of_falling_back(dev):
+    rng = np.random.default_rng(9)
+    x = _randn(rng, 1, 64, 8, 8).to(dev)
+    aff = _aff(rng, dev, 1, 64)
+    wt, bias = _wb(rng, dev, 64, 64, 3)
+    with pytest.raises(ValueError):  # the weights on the CPU
+        cuda_encoder.stage_conv(x, aff, wt.cpu(), bias.cpu())
+    with pytest.raises(ValueError):  # Cout 48 is not a multiple of 32
+        cuda_encoder.stage_conv(x, aff, wt[:48], bias[:48])
+    with pytest.raises(ValueError):  # a non-contiguous input
+        cuda_encoder.stage_conv(x.transpose(2, 3), aff, wt, bias)
+    with pytest.raises(ValueError):  # an affine of the wrong width
+        cuda_encoder.stage_conv(x, (aff[0][:, :32], aff[1][:, :32]), wt,
+                                bias)
+    with pytest.raises(ValueError):  # float64
+        cuda_encoder.plane_stats(x.double())
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_fused_encoder_on_card_never_runs_plain(dev, batch, monkeypatch):
+    """``fused_encoder=True`` on CUDA tensors: every plain version patched
+    to raise, the model runs, launches counted per row (batch 3: fnet's 6
+    images take plain conv1 + the stats kernel), and the result matches
+    the CPU forward (plain versions) within the parity thresholds."""
+    cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                           corr_levels=2, corr_radius=2, fused_encoder=True)
+    gpu = RAFTStereo(cfg, device=dev, seed=4)
+    cpu = RAFTStereo(cfg, device="cpu", seed=4)
+    rng = np.random.default_rng(batch)
+    imgs = [torch.from_numpy(rng.uniform(0, 255, (batch, 32, 48, 3))
+                             .astype(np.float32)) for _ in range(2)]
+    lo_c, up_c = cpu(*imgs, iters=3)
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    for name in ("conv_plain", "entry_plain", "finish_plain", "stats_plain",
+                 "prep"):
+        monkeypatch.setattr(cuda_encoder, name, boom)
+    for fn in cuda_encoder.WRAPPERS:
+        fn.launches = 0
+    lo_g, up_g = gpu(*(i.to(dev) for i in imgs), iters=3)
+    torch.cuda.synchronize()
+    got = {fn.__name__: fn.launches for fn in cuda_encoder.WRAPPERS}
+    big = batch > 2  # fnet sees 2 * batch images
+    assert got == {"stem_conv7": 2 - big, "stem_conv7_s2": 0,
+                   "stage_conv": 8, "plane_stats": int(big),
+                   "stage_finish": 2, "l2_entry": 2, "l2_conv": 6,
+                   "l2_finish": 2}
     torch.testing.assert_close(lo_g.cpu(), lo_c, rtol=0, atol=2e-3)
     torch.testing.assert_close(up_g.cpu(), up_c, rtol=0, atol=5e-3)

@@ -158,8 +158,13 @@ def test_forward_xla_gru_matches_jax(tiny_pair):
     ("input_mode", "sl"), ("spatial_shards", 2), ("context_norm", "group"),
     ("context_norm", "none"), ("slow_fast_gru", True)])
 def test_unported_config_raises(field, value):
+    """Every listed value is refused, naming its ROADMAP item.
+    ``fused_encoder=True`` builds and serves, but a train-mode forward
+    raises (its stages' backward is not ported)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RAFTStereo(RAFTStereoConfig(**{field: value}), device="cpu")
+        model = RAFTStereo(RAFTStereoConfig(**{field: value}), device="cpu")
+        img = torch.zeros((1, 32, 48, 3))
+        model(img, img, iters=1, test_mode=False)
 
 
 def test_model_defaults_to_cuda_and_refuses_cpu_fallback():

@@ -216,16 +216,23 @@ def test_lookup_wrapper_validates_before_launch():
 # --------------------------------------------------------------- build
 
 def test_kernel_sources_carry_their_notes():
-    """One CUDA source per ported TPU kernel, each naming the kernel it
-    replaces and its bound on the card."""
+    """Every CUDA source names each TPU kernel it replaces and its bound
+    on the card."""
     srcs = _build.sources()
-    replaced = {"alt_corr": "_alt_pyr_radial_kernel",
-                "alt_corr_bwd": "_alt_pyr_bwd_kernel",
-                "gru_update": "_gru_update_kernel"}
+    replaced = {"alt_corr": ("_alt_pyr_radial_kernel",),
+                "alt_corr_bwd": ("_alt_pyr_bwd_kernel",),
+                "gru_update": ("_gru_update_kernel",),
+                "enc_conv": ("_stem7_kernel", "_stem7s2_kernel",
+                             "_enc_conv_kernel", "_enc_conv_res_kernel",
+                             "_l2_entry_kernel", "_l2_conv_kernel",
+                             "_l2_conv_res_kernel"),
+                "enc_stats": ("_in_stats_kernel", "_packed_stats"),
+                "enc_finish": ("_enc_finish_kernel", "_l2_finish_kernel")}
     assert set(srcs) == set(replaced)
     for name, path in srcs.items():
         text = path.read_text()
-        assert replaced[name] in text and "Bound on an H100" in text
+        assert "Bound on an H100" in text
+        assert all(k in text for k in replaced[name]), name
 
 
 def test_library_name_follows_source_content(tmp_path, monkeypatch):
