@@ -27,10 +27,22 @@ and fused encoders; (7) train the flagship model through
 the step-6 checkpoint and runs to step 8; every loss finite, the lookup
 forward and backward kernels launched exactly 16 times per step each;
 (8) hold one train step's loss and gradients on the card against the CPU
-(plain versions) on a 64x96 pair.  Prints a ``{"kernels": [...]}`` line,
-one row per kernel and path (the path's launches beside the times and
-bound at its shapes), and, last, ``{"ok": true, "device": ...}``.  Exits non-zero, printing no
-result, without a GPU or without the repo.
+(plain versions) on a 64x96 pair; then the precomputed-volume
+correlation: (9) hold its kernels against their plain versions, bitwise,
+at the serving shape (the 144x240 volume pyramid, level widths
+240/120/60/30; the int8 volume of 1x144x240 features, C=256) and the
+training shape (6x80x180): the volume lookup, its backward (also two
+calls bitwise equal) and the int8 volume; (10) serve three requests with
+``corr_implementation="pallas"`` and the fused update, and three with
+``corr_quant=True``: finite, bitwise equal to direct engine calls, 32
+volume lookups and 32 updates per request, one int8 volume per quant
+request, no on-demand lookup; (11) hold the card's forward against the
+CPU's for ``pallas``, ``corr_quant``, ``reg`` and ``alt``; (12) train 3
+steps of the recipe with ``pallas``, 16 lookups and 16 backward lookups
+per step, and one 64x96 step card vs CPU.  Prints a ``{"kernels": [...]}``
+line, one row per kernel and path (the path's launches beside the times
+and bound at its shapes), and, last, ``{"ok": true, "device": ...}``.
+Exits non-zero, printing no result, without a GPU or without the repo.
 """
 
 from __future__ import annotations
@@ -49,10 +61,12 @@ import urllib.request
 
 import numpy as np
 
-# H100 SXM data sheet: HBM rate and fp32 rate outside the tensor cores
-# (TF32 is off on the port's fp32 path).
+# H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores (TF32
+# is off on the port's fp32 path) and the dense int8 tensor-core rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_INT8_OPS_PER_S = 1979e12
+SLEEP_CYCLES = 20_000_000  # ~10 ms at the card's clock: time_ms's stream hold
 
 ITERS = 32
 REQUESTS = 3
@@ -77,6 +91,20 @@ FINISH_TOL = 1e-5      # relative: elementwise, FMAs where plain rounds twice
 FUSED_PER_REQUEST = {"stem_conv7": 2, "stem_conv7_s2": 0, "stage_conv": 8,
                      "plane_stats": 0, "stage_finish": 2, "l2_entry": 2,
                      "l2_conv": 6, "l2_finish": 2}
+# The volume kernels are held bitwise against their plain versions: both
+# round each product and each sum once, in the same order, and the int8
+# product is exact.
+VOL_STEPS = 3          # training steps with corr_implementation="pallas"
+# Source and replaced TPU kernel of each volume kernel row.
+VOLUME_SITES = {
+    "vol_lookup": ("corr_vol", "raftstereo_tpu/ops/pallas_corr.py:262"),
+    "vol_lookup_bwd": ("corr_vol_bwd",
+                       "raftstereo_tpu/ops/pallas_corr.py:288"),
+    "int8_volume": ("int8_volume", "raftstereo_tpu/ops/quant.py:241")}
+# Row names of the kernels whose counters carry another name.
+COUNTER = {"alt_corr_bwd": "alt_corr_backward",
+           "vol_lookup_bwd": "vol_lookup_backward",
+           "int8_volume": "int8_corr_volume"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -86,29 +114,41 @@ def check(cond: bool, msg: str) -> None:
 
 def time_ms(fn, reps: int, rounds: int = 5) -> float:
     """Device time of one ``fn()`` call in ms: CUDA events around ``reps``
-    back-to-back calls (the host enqueues ahead of the card, so launch
-    overhead hides behind the work), divided by ``reps``; the median of
-    ``rounds`` such rounds, after two warm-up calls."""
+    back-to-back calls, divided by ``reps``; the median of ``rounds`` such
+    rounds, after two warm-up calls.  A sleep kernel holds the stream
+    while the host enqueues the calls, so the card runs them back to back
+    even where one call's host work (argument checks, the ctypes call)
+    outlasts its kernel; a round whose enqueue outlasted the sleep is
+    repeated with a longer one (up to ~0.5 s, for functions that
+    synchronise or fill the launch queue)."""
     import torch
 
     for _ in range(2):
         fn()
-    times = []
-    for _ in range(rounds):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    times, cycles = [], SLEEP_CYCLES
+    while len(times) < rounds:
+        z, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        z.record()
+        torch.cuda._sleep(cycles)
         a.record()
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / reps)
+        if enqueue_ms < z.elapsed_time(a) or cycles >= 32 * SLEEP_CYCLES:
+            times.append(a.elapsed_time(b) / reps)
+        else:
+            cycles *= 2
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, int8_ops: float = 0.0):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = (flops / PEAK_FP32_FLOP_PER_S
+             + int8_ops / PEAK_INT8_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -464,21 +504,156 @@ def encoder_kernel_phase(model, bucket, torch):
     row("plane_stats", "raftstereo_tpu/ops/pallas_norm.py:47 (via "
         "pallas_encoder.py:476)", f"{dims(big)} (batch 3)",
         lambda: ce.plane_stats(big), lambda: ce.stats_plain(big), n,
-        ENC_TOL, 4 * (big.numel() + 2 * 6 * 64), 3 * big.numel(), reps=10)
+        ENC_TOL, 4 * (big.numel() + 2 * 6 * 64), 3 * big.numel(),
+        lib=lambda: torch.var_mean(big, dim=(2, 3), correction=0), reps=10)
     return rows
+
+
+def same_bits(a, b, torch) -> bool:
+    """Equal NaN positions and equal values elsewhere."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))
+
+
+def volume_kernel_phase(cfg, lo_hw, torch):
+    """The precomputed-volume kernels against their plain versions at the
+    serving and training shapes, bitwise; one timed row per kernel and
+    path."""
+    from raftstereo_tpu_torch.ops import cuda_vol, quant
+    from raftstereo_tpu_torch.ops.corr import build_corr_state
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(2)
+    c, r = 256, cfg.corr_radius  # fnet's feature width
+    k = 2 * r + 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    def coords(b, h, w):
+        return (torch.arange(w, device=dev, dtype=torch.float32)
+                - 60.0 * torch.rand((b, h, w), generator=g).to(dev)
+                ).contiguous()
+
+    def timed(name, path, kern, plain, nbytes, flops, lib=None,
+              int8_ops=0.0, reps=20):
+        ms, plain_ms = time_ms(kern, reps), time_ms(plain, 5)
+        lib_ms = time_ms(lib, 5) if lib is not None else None
+        print(f"{name} ({path}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms {lib_ms}")
+        src, replaces = VOLUME_SITES[name]
+        return dict(name=name, path=path, route="cuda",
+                    source=f"raftstereo_tpu_torch/csrc/{src}.cu",
+                    replaces=replaces, max_abs_err=0.0, ms=ms,
+                    plain_ms=plain_ms,
+                    **dict(zip(("bound_ms", "bound_by"),
+                               bound(nbytes, flops, int8_ops))),
+                    library_ms=lib_ms)
+
+    def needed_columns(x, widths):
+        """(pixel, level, column) entries inside the level that the taps
+        weight: columns floor(x_l) - r .. floor(x_l) + r + 1."""
+        n = 0
+        for lvl, w in enumerate(widths):
+            b0 = torch.floor(x / 2 ** lvl) - r
+            for d in range(k + 1):
+                j = b0 + d
+                n += int(((j >= 0) & (j <= w - 1)).sum())
+        return n
+
+    rows = []
+    for path, (b, h, w) in (("serve_pallas", (1,) + tuple(lo_hw)),
+                            ("train_pallas", (TRAIN_BATCH,
+                                              TRAIN_HW[0] // cfg.factor,
+                                              TRAIN_HW[1] // cfg.factor))):
+        st = build_corr_state(randn(b, h, w, c), randn(b, h, w, c),
+                              cfg.corr_levels, "pallas")
+        x = coords(b, h, w)
+
+        def kern():
+            return cuda_vol.vol_lookup(st.vcat, st.widths, x, r)
+
+        def plain():
+            return cuda_vol.vol_lookup_plain(st.vcat, st.widths, x, r)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        print(f"vol_lookup ({path}, vcat {dims(st.vcat)}): bitwise equal "
+              f"to its plain version: {same_bits(got, want, torch)}")
+        check(same_bits(got, want, torch),
+              f"vol_lookup differs from its plain version ({path})")
+        nout = got.numel()
+        rows.append(timed(
+            "vol_lookup", path, kern, plain,
+            4 * (needed_columns(x, st.widths) + x.numel() + nout),
+            8 * nout))
+        if path != "train_pallas":
+            continue
+        gout = randn(b, h, w, cfg.corr_levels * k)
+
+        def bwd():
+            return cuda_vol.vol_lookup_backward(x, gout, st.widths, r)
+
+        def bwd_plain():
+            return cuda_vol.vol_lookup_backward_plain(x, gout, st.widths, r)
+
+        k1, k2, want = bwd(), bwd(), bwd_plain()
+        torch.cuda.synchronize()
+        ok = same_bits(k1, k2, torch) and same_bits(k1, want, torch)
+        print(f"vol_lookup_bwd ({path}, dvol {dims(k1)}): two calls and the "
+              f"plain version bitwise equal: {ok}")
+        check(ok, "vol_lookup_bwd is not bitwise repeatable or differs from "
+                  "its plain version")
+        rows.append(timed("vol_lookup_bwd", path, bwd, bwd_plain,
+                          4 * (k1.numel() + gout.numel() + x.numel()),
+                          6 * k * k1.numel(), reps=10))
+
+    # -- the int8 volume at the serving shape
+    h, w = lo_hw
+    q1, s1 = quant.quantize_rows(randn(1, h, w, c))
+    q2, s2 = quant.quantize_rows(randn(1, h, w, c))
+
+    def vol():
+        return quant.int8_corr_volume(q1, s1, q2, s2)
+
+    def vol_plain():
+        return quant.int8_volume_plain(q1, s1, q2, s2)
+
+    def int_mm():  # the int32 product alone, one cuBLASLt call per row
+        return [torch._int_mm(q1[0, y], q2[0, y].t()) for y in range(h)]
+
+    got, want = vol(), vol_plain()
+    torch.cuda.synchronize()
+    print(f"int8_volume (serve_quant, {dims(got)}): bitwise equal to its "
+          f"plain version: {torch.equal(got, want)}")
+    check(torch.equal(got, want), "int8_volume differs from its plain version")
+    rows.append(timed("int8_volume", "serve_quant", vol, vol_plain,
+                      q1.numel() + q2.numel()
+                      + 4 * (s1.numel() + s2.numel() + got.numel()),
+                      3 * got.numel(), lib=int_mm,
+                      int8_ops=2 * got.numel() * c))
+    return rows
+
+
+def serving_wrappers():
+    """Every counted kernel wrapper a served request may launch."""
+    from raftstereo_tpu_torch.ops import (cuda_alt, cuda_encoder, cuda_gru,
+                                         cuda_vol, quant)
+
+    return ((cuda_alt.alt_corr, cuda_gru.gru_update, cuda_vol.vol_lookup,
+             quant.int8_corr_volume) + cuda_encoder.WRAPPERS)
 
 
 def serve_phase(model, scfg, pairs, torch):
     """Three requests through ``/predict``: replies, and launches per
     counted wrapper over exactly those requests."""
-    from raftstereo_tpu_torch.ops import cuda_alt, cuda_encoder, cuda_gru
     from raftstereo_tpu_torch.serve.server import build_server, decode_array
 
     t0 = time.perf_counter()
     server = build_server(model, scfg, device="cuda")
     print(f"server warm in {time.perf_counter() - t0:.1f}s")
     server.start()
-    counted = (cuda_alt.alt_corr, cuda_gru.gru_update) + cuda_encoder.WRAPPERS
+    counted = serving_wrappers()
     try:
         for fn in counted:
             fn.launches = 0
@@ -504,6 +679,35 @@ def serve_phase(model, scfg, pairs, torch):
     return launches
 
 
+def quant_forwards(model, cpu_model, i1, i2):
+    """A ``corr_quant`` model's card forward, and the CPU forward fed the
+    card's int8 codes and scales.  The card's and the CPU's features
+    differ by fp32 rounding, which moves a few codes across a rounding
+    boundary and the disparities by far more than FORWARD_TOL; pinning the
+    codes leaves fp32 rounding alone to compare.  The error against the
+    CPU's own codes is printed."""
+    from raftstereo_tpu_torch.ops import quant
+
+    real, codes = quant.quantize_rows, []
+
+    def record(x):
+        codes.append(real(x))
+        return codes[-1]
+
+    try:
+        quant.quantize_rows = record
+        card = model(i1.cuda(), i2.cuda(), iters=4)
+        pinned = iter([tuple(t.cpu() for t in c) for c in codes])
+        quant.quantize_rows = lambda x: next(pinned)
+        cpu = cpu_model(i1, i2, iters=4)
+    finally:
+        quant.quantize_rows = real
+    own, _ = cpu_model(i1, i2, iters=4)
+    print(f"corr_quant forward low-res card vs cpu with the CPU's own codes "
+          f"max_abs_err {float((card[0].cpu() - own).abs().max()):.3e}")
+    return card, cpu
+
+
 def forward_card_vs_cpu(model, rng, torch):
     """The card's forward (kernels) against the CPU forward (plain
     versions) on a small pair: the repo's own reference for the path."""
@@ -512,9 +716,14 @@ def forward_card_vs_cpu(model, rng, torch):
                           .astype(np.float32))
     i2 = torch.from_numpy(rng.uniform(0, 255, (1, 64, 96, 3))
                           .astype(np.float32))
-    lo_g, up_g = model(i1.cuda(), i2.cuda(), iters=4)
-    lo_c, up_c = cpu_model(i1, i2, iters=4)
-    tag = "fused encoder " if model.config.fused_encoder else ""
+    cfg = model.config
+    if cfg.corr_quant:
+        (lo_g, up_g), (lo_c, up_c) = quant_forwards(model, cpu_model, i1, i2)
+    else:
+        lo_g, up_g = model(i1.cuda(), i2.cuda(), iters=4)
+        lo_c, up_c = cpu_model(i1, i2, iters=4)
+    tag = (cfg.corr_implementation + " corr_quant" * cfg.corr_quant
+           + " fused encoder" * bool(cfg.fused_encoder) + " ")
     for name, a, b, tol in (("low-res", lo_g.cpu(), lo_c, FORWARD_TOL[0]),
                             ("full-res", up_g.cpu(), up_c, FORWARD_TOL[1])):
         err = float((a - b).abs().max())
@@ -526,41 +735,41 @@ def forward_card_vs_cpu(model, rng, torch):
               f"{err})")
 
 
-def train_phase(torch):
-    """The training path: 6 steps of the recipe, then a resume to 8."""
-    from raftstereo_tpu_torch import RAFTStereoConfig
+def train_phase(torch, mcfg, runs, fns):
+    """The training path of ``mcfg`` on ``ShiftStereoDataset`` at the
+    recipe shape: one ``train()`` call per ``(last, first)`` in ``runs``,
+    each resuming from the previous call's checkpoint.  ``fns`` are the
+    lookup's forward and backward wrappers, which must launch exactly
+    ``TRAIN_ITERS`` times per step each.  Returns launches per wrapper
+    name over all runs."""
     from raftstereo_tpu_torch.cli import train as cli_train
     from raftstereo_tpu_torch.config import TrainConfig
     from raftstereo_tpu_torch.data.synthetic import ShiftStereoDataset
-    from raftstereo_tpu_torch.ops import cuda_alt
 
-    mcfg = RAFTStereoConfig(corr_implementation="pallas_alt",
-                            fused_encoder=False)
     dataset = ShiftStereoDataset(n=2 * TRAIN_BATCH, hw=TRAIN_HW,
                                  max_disp=48.0, seed=0)
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.reset_peak_memory_stats()
-        for last in (TRAIN_STEPS, RESUME_TO):
+        for last, _ in runs:
             # The loop stops once the step count exceeds num_steps.
             cfg = TrainConfig(name="smoke", batch_size=TRAIN_BATCH,
                               image_size=TRAIN_HW, train_iters=TRAIN_ITERS,
                               num_steps=last - 1, checkpoint_dir=tmp)
-            cuda_alt.alt_corr.launches = 0
-            cuda_alt.alt_corr_backward.launches = 0
+            for fn in fns:
+                fn.launches = 0
             t0 = time.perf_counter()
             state = cli_train.train(mcfg, cfg, dataset=dataset, num_workers=0,
                                     no_validation=True, device="cuda",
                                     log_dir=os.path.join(tmp, "runs"))
-            counts[last] = (cuda_alt.alt_corr.launches,
-                            cuda_alt.alt_corr_backward.launches)
-            print(f"train() to step {state.step} in "
-                  f"{time.perf_counter() - t0:.1f}s; launches "
-                  f"alt_corr/alt_corr_bwd {counts[last]}")
+            counts[last] = tuple(fn.launches for fn in fns)
+            print(f"train() {mcfg.corr_implementation} to step {state.step} "
+                  f"in {time.perf_counter() - t0:.1f}s; launches "
+                  f"{'/'.join(fn.__name__ for fn in fns)} {counts[last]}")
             check(state.step == last, f"train() stopped at step {state.step}"
                                       f", want {last}")
         saved = sorted(os.listdir(os.path.join(tmp, "smoke")))
-        # Both calls append their per-step scalars to the run's JSONL
+        # Every call appends its per-step scalars to the run's JSONL
         # stream; a step skipped as non-finite writes no live_loss.
         loss, secs = {}, {}
         with open(os.path.join(tmp, "runs", "metrics.jsonl")) as f:
@@ -574,31 +783,36 @@ def train_phase(torch):
         print(f"train step {step}: loss {loss.get(step, float('nan')):.6g} "
               f"wall {secs[step]:.3f}s")
     print(f"train peak memory {peak_gb:.2f} GB; checkpoints {saved}")
-    steps = list(range(1, RESUME_TO + 1))
+    steps = list(range(1, runs[-1][0] + 1))
     check(sorted(secs) == steps, f"steps run {sorted(secs)}")
     check(sorted(loss) == steps and all(np.isfinite(v) for v in loss.values()),
           f"non-finite or skipped training steps: {loss}")
-    for last, first in ((TRAIN_STEPS, 0), (RESUME_TO, TRAIN_STEPS)):
+    for last, first in runs:
         want = (last - first) * TRAIN_ITERS
-        check(counts[last] == (want, want),
+        check(counts[last] == (want,) * len(fns),
               f"steps {first + 1}..{last}: lookup launches "
               f"{counts[last]}, want {want} each")
-    return {"alt_corr": sum(v[0] for v in counts.values()),
-            "alt_corr_bwd": sum(v[1] for v in counts.values())}
+    return {fn.__name__: sum(counts[last][i] for last, _ in runs)
+            for i, fn in enumerate(fns)}
 
 
-def train_step_card_vs_cpu(torch, rng):
-    """One train step's loss and gradients, card (kernels) vs CPU (plain
-    versions), flagship widths, 3 iterations, a 64x96 pair."""
-    from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig
-    from raftstereo_tpu_torch.train.loss import sequence_loss
-
-    model = RAFTStereo(RAFTStereoConfig(), device="cuda", seed=1)
-    cpu_model = copy.deepcopy(model).to("cpu")
+def step_batch(rng, torch):
+    """A 64x96 training batch: two images, a disparity target, validity."""
     batch = [torch.from_numpy(rng.uniform(0, 255, (1, 64, 96, 3))
                               .astype(np.float32)) for _ in range(2)]
-    batch += [torch.from_numpy(-rng.uniform(1, 30, (1, 64, 96, 1))
-                               .astype(np.float32)), torch.ones(1, 64, 96)]
+    return batch + [torch.from_numpy(-rng.uniform(1, 30, (1, 64, 96, 1))
+                                     .astype(np.float32)),
+                    torch.ones(1, 64, 96)]
+
+
+def train_step_card_vs_cpu(torch, batch, mcfg):
+    """One train step's loss and gradients, card (kernels) vs CPU (plain
+    versions), flagship widths, 3 iterations, a 64x96 batch."""
+    from raftstereo_tpu_torch import RAFTStereo
+    from raftstereo_tpu_torch.train.loss import sequence_loss
+
+    model = RAFTStereo(mcfg, device="cuda", seed=1)
+    cpu_model = copy.deepcopy(model).to("cpu")
     out = []
     for m, dev in ((model, "cuda"), (cpu_model, "cpu")):
         preds = m(*(t.to(dev) for t in batch[:2]), iters=3, test_mode=False)
@@ -609,7 +823,8 @@ def train_step_card_vs_cpu(torch, rng):
     (lg, gg), (lc, gc) = out
     gmax = max(float(t.abs().max()) for t in gc.values())
     gerr = max(float((gg[k] - gc[k]).abs().max()) for k in gc)
-    print(f"train step card vs cpu: loss {lg:.6g} vs {lc:.6g}; gradient "
+    print(f"train step ({mcfg.corr_implementation}) card vs cpu: loss "
+          f"{lg:.6g} vs {lc:.6g}; gradient "
           f"max_abs_err {gerr:.3e} (tol {STEP_GRAD_TOL} x {gmax:.3g})")
     check(abs(lg - lc) <= STEP_LOSS_TOL * abs(lc),
           f"train step loss differs card vs CPU: {lg} vs {lc}")
@@ -630,7 +845,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, root)
     from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig, ServeConfig
-    from raftstereo_tpu_torch.ops import _build
+    from raftstereo_tpu_torch.ops import _build, cuda_alt, cuda_vol
     from raftstereo_tpu_torch.ops.image import BucketPadder
 
     card = subprocess.run(
@@ -658,42 +873,69 @@ def main() -> int:
     print(f"bucket {bucket} -> grid {lo_hw}")
     rows = kernel_phase(model, lo_hw, torch)
     rows += encoder_kernel_phase(model, bucket, torch)
+    rows += volume_kernel_phase(cfg, lo_hw, torch)
+
+    def want(**per_request):
+        return {fn.__name__: REQUESTS * per_request.get(fn.__name__, 0)
+                for fn in serving_wrappers()}
+
+    def serve_and_check(model, per_request, rng):
+        got = serve_phase(model, scfg, pairs, torch)
+        check(got == want(**per_request), f"{model.config}: launches {got}, "
+                                          f"want {want(**per_request)}")
+        forward_card_vs_cpu(model, rng, torch)
+        return got
 
     rng = np.random.default_rng(0)
     pairs = [tuple(rng.uniform(0, 255, IMAGE_HW + (3,)).astype(np.float32)
                    for _ in range(2)) for _ in range(REQUESTS)]
-    launches = serve_phase(model, scfg, pairs, torch)
-    for name in ("alt_corr", "gru_update"):
-        check(launches[name] == REQUESTS * ITERS,
-              f"{name} launched {launches[name]} times, want "
-              f"{REQUESTS * ITERS}")
-    check(all(launches[k] == 0 for k in FUSED_PER_REQUEST),
-          f"the plain encoders launched encoder kernels: {launches}")
-    forward_card_vs_cpu(model, rng, torch)
+    by_path = {"serve": serve_and_check(
+        model, dict(alt_corr=ITERS, gru_update=ITERS), rng)}
     del model
     torch.cuda.empty_cache()
 
-    # The fused encoder stages on the same serving path.
-    fused = RAFTStereo(dataclasses.replace(cfg, fused_encoder=True),
-                       device="cuda", seed=0)
-    fused_launches = serve_phase(fused, scfg, pairs, torch)
-    want = {k: REQUESTS * v for k, v in FUSED_PER_REQUEST.items()}
-    want.update(alt_corr=REQUESTS * ITERS, gru_update=REQUESTS * ITERS)
-    check(fused_launches == want, f"fused encoder launches "
-                                  f"{fused_launches}, want {want}")
-    forward_card_vs_cpu(fused, rng, torch)
+    # The fused encoder stages, then the precomputed-volume backends, on
+    # the same serving path.  The volume backends' card-vs-CPU pairs come
+    # from their own generator: the earlier phases' inputs stay as they
+    # were.
+    vol_rng = np.random.default_rng(1)
+    for path, kw, per_request, r in (
+            ("serve_fused", dict(fused_encoder=True),
+             dict(FUSED_PER_REQUEST, alt_corr=ITERS, gru_update=ITERS), rng),
+            ("serve_pallas", dict(corr_implementation="pallas"),
+             dict(vol_lookup=ITERS, gru_update=ITERS), vol_rng),
+            ("serve_quant", dict(corr_implementation="auto",
+                                 gru_backend="auto", corr_quant=True),
+             dict(vol_lookup=ITERS, gru_update=ITERS, int8_corr_volume=1),
+             vol_rng)):
+        m = RAFTStereo(dataclasses.replace(cfg, **kw), device="cuda", seed=0)
+        by_path[path] = serve_and_check(m, per_request, r)
+        del m
+        torch.cuda.empty_cache()
+    for impl in ("reg", "alt"):  # the XLA lookups: plain PyTorch on the card
+        forward_card_vs_cpu(RAFTStereo(dataclasses.replace(
+            cfg, corr_implementation=impl), device="cuda", seed=0),
+            vol_rng, torch)
 
-    del fused
     torch.cuda.empty_cache()
-    train_launches = train_phase(torch)
-    train_step_card_vs_cpu(torch, rng)
+    batch = step_batch(rng, torch)
+    for path, impl, runs, fns in (
+            ("train", "pallas_alt",
+             ((TRAIN_STEPS, 0), (RESUME_TO, TRAIN_STEPS)),
+             (cuda_alt.alt_corr, cuda_alt.alt_corr_backward)),
+            ("train_pallas", "pallas", ((VOL_STEPS, 0),),
+             (cuda_vol.vol_lookup, cuda_vol.vol_lookup_backward))):
+        mcfg = RAFTStereoConfig(corr_implementation=impl,
+                                fused_encoder=False)
+        by_path[path] = train_phase(torch, mcfg, runs, fns)
+        train_step_card_vs_cpu(torch, batch, mcfg)
+        torch.cuda.empty_cache()
 
     # Each row's launches are those of its path's run, beside the times
     # and bound measured at that path's shapes.
-    by_path = {"serve": launches, "train": train_launches,
-               "serve_fused": fused_launches}
     for row in rows:
-        row["launches"] = by_path[row["path"]][row["name"]]
+        row["launches"] = by_path[row["path"]][COUNTER.get(row["name"],
+                                                           row["name"])]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """PyTorch + CUDA port of raftstereo_tpu for NVIDIA Hopper (H100).
 
 The JAX package ``raftstereo_tpu`` is the reference this port is held
-against; the port imports nothing from it.  This slice covers test-mode
-inference of the flagship model through the serving engine, with the
-on-demand correlation lookup and the fused finest-level GRU update as
-hand-written CUDA kernels (``csrc/``).
+against; the port imports nothing from it.  It serves and trains the
+flagship model in fp32 with all four correlation backends (and the int8
+volume in inference); every TPU kernel on those paths is a hand-written
+CUDA kernel (``csrc/``), each with a plain PyTorch version beside it.
 """
 
 from .config import RAFTStereoConfig, ServeConfig

@@ -1,22 +1,27 @@
 """Where one served request's, or one training step's, device time goes.
 
     python -m raftstereo_tpu_torch.cli.profile [--fused_encoder]
+        [--corr_implementation IMPL] [--corr_quant]
     python -m raftstereo_tpu_torch.cli.profile --train [--remat]
+        [--corr_implementation IMPL]
 
 Builds the flagship model with seeded weights on the card.  By default it
 warms the engine at the 540x960 bucket and 32 iterations (the serving
 path of ``chip_smoke.py``) and profiles one ``BatchEngine.infer_batch``
 call (``--fused_encoder``: with the fused encoder stages,
-``RAFTStereoConfig(fused_encoder=True)``); with ``--train`` it profiles one training step of the recipe (batch
-6, 320x720, 16 iterations, ``train.step.make_train_step``) after one
-warm-up step; ``--remat`` recomputes each iteration in the backward
-pass.  Either way it prints one JSON line: the
-wall time, the summed device time of the kernels, the device busy time
+``RAFTStereoConfig(fused_encoder=True)``; ``--corr_implementation`` and
+``--corr_quant`` pick the correlation backend and the int8 volume); with
+``--train`` it profiles one training step of the recipe (batch 6,
+320x720, 16 iterations, ``train.step.make_train_step``) after one warm-up
+step; ``--remat`` recomputes each iteration in the backward pass.
+Either way it prints one JSON line: the wall time, the summed device
+time of the kernels, the device busy time
 (the union of the kernels' intervals, so overlapping kernels count once)
 and idle share (1 - busy / wall), the peak device memory over the
 profiled call, and device time by kernel, grouped by the port's CUDA
 sources (``enc_conv``, ``enc_stats``, ``enc_finish``, ``alt_corr``,
-``alt_corr_bwd``, ``gru_update``) and by
+``alt_corr_bwd``, ``corr_vol``, ``corr_vol_bwd``, ``int8_volume``,
+``gru_update``) and by
 cuDNN/cuBLAS convolutions and products ("conv").  Needs a GPU.
 """
 
@@ -31,7 +36,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from ..config import RAFTStereoConfig, ServeConfig
+from ..config import CORR_IMPLEMENTATIONS, RAFTStereoConfig, ServeConfig
 from ..models import RAFTStereo
 from ..serve.engine import BatchEngine
 
@@ -42,6 +47,9 @@ _GROUPS = {"enc_conv": ("enc_conv_kernel", "enc_conv_stats_kernel"),
            "enc_finish": ("enc_finish_kernel",),
            "alt_corr": ("alt_corr_kernel",),
            "alt_corr_bwd": ("alt_corr_bwd_kernel",),
+           "corr_vol": ("corr_vol_kernel",),
+           "corr_vol_bwd": ("corr_vol_bwd_kernel",),
+           "int8_volume": ("int8_volume_kernel",),
            "gru_update": ("conv_nhwc_kernel", "reset_gate_kernel",
                           "conv3x3_few_out_kernel"),
            "conv": ("cudnn", "xmma", "conv", "gemm", "wgrad", "dgrad",
@@ -59,9 +67,12 @@ HW, ITERS, TOP = (540, 960), 32, 12
 TRAIN_BATCH, TRAIN_HW, TRAIN_ITERS = 6, (320, 720), 16
 
 
-def _serve_call(fused_encoder: bool):
+def _serve_call(fused_encoder: bool, corr_implementation: str,
+                corr_quant: bool):
     h, w = HW
-    cfg = RAFTStereoConfig(fused_encoder=True if fused_encoder else None)
+    cfg = RAFTStereoConfig(fused_encoder=True if fused_encoder else None,
+                           corr_implementation=corr_implementation,
+                           corr_quant=corr_quant)
     model = RAFTStereo(cfg, device="cuda", seed=0)
     engine = BatchEngine(model, ServeConfig(buckets=(HW,), serve_iters=ITERS))
     engine.warmup()
@@ -69,10 +80,11 @@ def _serve_call(fused_encoder: bool):
     pair = tuple(rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
                  for _ in range(2))
     return lambda: engine.infer_batch([pair]), {
-        "bucket": [h, w], "iters": ITERS, "fused_encoder": fused_encoder}
+        "bucket": [h, w], "iters": ITERS, "fused_encoder": fused_encoder,
+        "corr_implementation": corr_implementation, "corr_quant": corr_quant}
 
 
-def _train_call(remat: bool):
+def _train_call(remat: bool, corr_implementation: str):
     from ..config import TrainConfig
     from ..train.optim import make_optimizer
     from ..train.state import TrainState
@@ -80,7 +92,9 @@ def _train_call(remat: bool):
 
     cfg = TrainConfig(batch_size=TRAIN_BATCH, image_size=TRAIN_HW,
                       train_iters=TRAIN_ITERS)
-    model = RAFTStereo(RAFTStereoConfig(remat=remat), device="cuda", seed=0)
+    model = RAFTStereo(RAFTStereoConfig(
+        remat=remat, corr_implementation=corr_implementation),
+        device="cuda", seed=0)
     opt, schedule = make_optimizer(cfg, dict(model.named_parameters()))
     state = TrainState(step=0, model=model, opt=opt)
     step = make_train_step(cfg, schedule)
@@ -93,7 +107,9 @@ def _train_call(remat: bool):
     return lambda: step(state, batch), {"batch": TRAIN_BATCH,
                                         "image_hw": list(TRAIN_HW),
                                         "iters": TRAIN_ITERS,
-                                        "remat": remat}
+                                        "remat": remat,
+                                        "corr_implementation":
+                                            corr_implementation}
 
 
 def main(argv=None) -> int:
@@ -107,14 +123,21 @@ def main(argv=None) -> int:
     p.add_argument("--remat", action="store_true",
                    help="with --train: recompute each iteration in the "
                         "backward pass")
+    p.add_argument("--corr_implementation", choices=CORR_IMPLEMENTATIONS,
+                   default="auto", help="correlation backend")
+    p.add_argument("--corr_quant", action="store_true",
+                   help="serve with the int8 correlation volume")
     args = p.parse_args(argv)
     if args.remat and not args.train:
         p.error("--remat needs --train")
     if args.fused_encoder and args.train:
         p.error("--fused_encoder serves only: its stages have no backward")
+    if args.corr_quant and args.train:
+        p.error("--corr_quant serves only: training builds the fp32 volume")
     train = args.train
-    call, what = (_train_call(args.remat) if train
-                  else _serve_call(args.fused_encoder))
+    call, what = (_train_call(args.remat, args.corr_implementation) if train
+                  else _serve_call(args.fused_encoder,
+                                   args.corr_implementation, args.corr_quant))
     call()  # warm-up: kernel builds, cuDNN plans, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()

@@ -1,7 +1,8 @@
 """Serve the port over HTTP.
 
     python -m raftstereo_tpu_torch.cli.serve --port 8080 --buckets 540x960 \
-        --serve_iters 32 [--device cuda] [--weights_npz PATH]
+        --serve_iters 32 [--corr_implementation pallas] [--corr_quant] \
+        [--gru_backend fused] [--device cuda] [--weights_npz PATH]
 
 Without ``--weights_npz`` the model has seeded random weights.  ``--weights_npz`` is a flattened JAX ``variables`` tree
 (``utils.convert.flatten_variables`` saved with ``np.savez``), loaded
@@ -17,7 +18,7 @@ import signal
 import sys
 from typing import Optional, Sequence
 
-from ..config import RAFTStereoConfig, ServeConfig
+from ..config import CORR_IMPLEMENTATIONS, RAFTStereoConfig, ServeConfig
 from ..models import RAFTStereo
 from ..serve.server import build_server
 from ..utils.convert import load_weights_npz
@@ -52,6 +53,17 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     g.add_argument("--n_gru_layers", type=int, default=m.n_gru_layers)
     g.add_argument("--hidden_dims", nargs="+", type=int,
                    default=list(m.hidden_dims))
+    g.add_argument("--corr_implementation", default=m.corr_implementation,
+                   choices=CORR_IMPLEMENTATIONS,
+                   help="correlation backend; 'auto' = the on-demand "
+                        "lookup kernel (pallas_alt)")
+    g.add_argument("--corr_quant", action="store_true",
+                   help="int8-quantized correlation volume, looked up by "
+                        "the pallas backend")
+    g.add_argument("--gru_backend", default=m.gru_backend,
+                   choices=["auto", "fused", "xla"],
+                   help="test-mode GRU step: 'auto' = the fused update "
+                        "kernel")
     return p.parse_args(argv)
 
 
@@ -64,7 +76,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     cfg = RAFTStereoConfig(
         corr_levels=args.corr_levels, corr_radius=args.corr_radius,
-        n_gru_layers=args.n_gru_layers, hidden_dims=tuple(args.hidden_dims))
+        n_gru_layers=args.n_gru_layers, hidden_dims=tuple(args.hidden_dims),
+        corr_implementation=args.corr_implementation,
+        corr_quant=args.corr_quant, gru_backend=args.gru_backend)
     scfg = ServeConfig(host=args.host, port=args.port,
                        divis_by=args.divis_by,
                        bucket_multiple=args.bucket_multiple,

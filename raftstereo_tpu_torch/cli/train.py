@@ -30,7 +30,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import RAFTStereoConfig, TrainConfig, check_trainable
+from ..config import (CORR_IMPLEMENTATIONS, RAFTStereoConfig, TrainConfig,
+                      check_trainable)
 from ..data.datasets import build_aug_params, fetch_dataset
 from ..data.loader import DataLoader, prefetch_to_device
 from ..device import resolve_device
@@ -112,6 +113,13 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     m.add_argument("--hidden_dims", nargs="+", type=int,
                    default=list(mc.hidden_dims))
     m.add_argument("--context_norm", default=mc.context_norm)
+    m.add_argument("--corr_implementation", default=mc.corr_implementation,
+                   choices=CORR_IMPLEMENTATIONS,
+                   help="correlation backend; 'auto' = the on-demand "
+                        "lookup kernel (pallas_alt)")
+    m.add_argument("--corr_quant", action="store_true",
+                   help="int8 correlation volume in inference; training "
+                        "builds the fp32 volume, as the JAX package does")
     m.add_argument("--remat", action="store_true",
                    help="recompute each GRU iteration in the backward pass")
 
@@ -142,7 +150,8 @@ def model_config_from_args(args: argparse.Namespace) -> RAFTStereoConfig:
         corr_levels=args.corr_levels, corr_radius=args.corr_radius,
         n_downsample=args.n_downsample, n_gru_layers=args.n_gru_layers,
         hidden_dims=tuple(args.hidden_dims), context_norm=args.context_norm,
-        remat=args.remat)
+        corr_implementation=args.corr_implementation,
+        corr_quant=args.corr_quant, remat=args.remat)
 
 
 def check_unported(cfg: TrainConfig, no_validation: bool, profile_steps,

@@ -2,16 +2,21 @@
 
 ``RAFTStereoConfig`` and ``TrainConfig`` keep the field names and
 defaults of the JAX package's configs (``raftstereo_tpu/config.py``) so
-one set of flags describes both.  The port runs fp32 with the on-demand
-correlation lookup (CUDA kernels forward and backward); inference takes
-the fused finest-level GRU update (a CUDA kernel) or the module step,
-training always the module step.  The encoders are the plain ones, or
-with ``fused_encoder=True`` the fused stem + layer1 and layer2 stages
-(CUDA kernels) in inference; training with ``fused_encoder=True`` raises
-``NotImplementedError`` (``check_trainable``: the stages' backward is
-ROADMAP Queue 2 row 14).  Every other field value that selects another
-path raises ``NotImplementedError`` naming the ROADMAP item that will add
-it.
+one set of flags describes both.  The port runs fp32 with any of the
+four correlation backends: ``pallas_alt`` (``auto``; the on-demand lookup,
+CUDA kernels forward and backward), ``pallas`` (the precomputed volume
+and its lookup, CUDA kernels forward and backward), and ``reg`` and
+``alt`` (the JAX package's XLA lookups, plain PyTorch).  ``corr_quant``
+builds the int8 volume (a CUDA kernel) and looks it up with ``pallas``,
+in inference only; training builds the fp32 volume whatever the flag
+says, as the JAX package does.  Inference takes the fused finest-level
+GRU update (a CUDA kernel) or the module step, training always the module
+step.  The encoders are the plain ones, or with ``fused_encoder=True`` the
+fused stem + layer1 and layer2 stages (CUDA kernels) in inference;
+training with ``fused_encoder=True`` raises ``NotImplementedError``
+(``check_trainable``: the stages' backward is ROADMAP Queue 2 row 14).
+Every other field value that selects another path raises
+``NotImplementedError`` naming the ROADMAP item that will add it.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ class RAFTStereoConfig:
 
     Defaults match the JAX config except ``corr_implementation``: "auto"
     here, which resolves to the on-demand lookup kernel — the backend the
-    JAX package's "auto" takes on its accelerator."""
+    JAX package's "auto" takes on its accelerator.  ``corr_quant`` (the
+    int8 volume, test mode only) overrides the backend with "pallas", as
+    on the accelerator (``ops.corr.resolve_implementation``)."""
 
     corr_implementation: str = "auto"
     corr_levels: int = 4
@@ -69,16 +76,19 @@ class RAFTStereoConfig:
         return self.corr_levels * (2 * self.corr_radius + 1)
 
 
+# Every correlation backend of the JAX package; "auto" is "pallas_alt".
+CORR_IMPLEMENTATIONS = ("auto", "reg", "alt", "pallas", "pallas_alt")
+
 # (field, values this slice runs, ROADMAP item that adds the rest)
 _SUPPORTED = (
-    ("corr_implementation", ("auto", "pallas_alt"),
-     "Queue 2 (the reg/alt/pallas lookups)"),
+    ("corr_implementation", CORR_IMPLEMENTATIONS, "Queue 1 item 2"),
     ("gru_backend", ("auto", "fused", "xla"), "Queue 1 item 3"),
-    ("corr_quant", (False,), "Queue 1 item 7 (precision tiers)"),
+    ("corr_quant", (False, True), "Queue 1 item 7"),
     ("compute_dtype", ("float32",), "Queue 1 item 3 (bf16 compute)"),
     ("corr_dtype", ("float32",), "Queue 1 item 7 (bf16 correlation)"),
     ("corr_precision", ("highest",),
-     "Queue 2 (TF32 lookup precision policies)"),
+     "Queue 1 item 2 (corr_precision high/default: reduced-precision "
+     "volume and lookup products)"),
     ("shared_backbone", (False,), "Queue 1 item 1 (shared backbone)"),
     ("input_mode", ("passive",), "Queue 1 item 9 (structured light)"),
     ("spatial_shards", (1,), "Queue 1 item 10 (spatial sharding)"),

@@ -1,10 +1,18 @@
 """RAFT-Stereo in PyTorch: test-mode inference and train mode.
 
-The counterpart of the JAX package's ``RAFTStereo.forward`` with
-``corr_implementation="pallas_alt"``: the encoders, then per GRU
-iteration one on-demand correlation lookup (``ops.corr.corr_lookup``,
-CUDA kernels ``csrc/alt_corr.cu`` forward and ``csrc/alt_corr_bwd.cu``
-backward) and one update of the GRU levels.
+The counterpart of the JAX package's ``RAFTStereo.forward``: the
+encoders, the correlation state of the resolved backend once per pair
+(``ops.corr.build_corr_state``), then per GRU iteration one correlation
+lookup (``ops.corr.corr_lookup``) and one update of the GRU levels.
+
+* ``corr_implementation`` "auto" or "pallas_alt": the on-demand lookup
+  (CUDA kernels ``csrc/alt_corr.cu`` forward, ``csrc/alt_corr_bwd.cu``
+  backward).  "pallas": the fp32 volume and its pyramid, then the volume
+  lookup (``csrc/corr_vol.cu``, ``csrc/corr_vol_bwd.cu``).  "reg", "alt":
+  the JAX package's XLA lookups in plain PyTorch.  ``corr_quant`` in test
+  mode: the int8 volume (``csrc/int8_volume.cu``) and the "pallas"
+  lookup; train mode builds the fp32 volume of the configured backend
+  whatever the flag says, as the JAX package does.
 
 * ``fused_encoder`` None or False: plain-convolution encoders (the JAX
   package's ``fused_encoder=False`` path).  True: both encoders run their
@@ -127,8 +135,12 @@ class RAFTStereo(nn.Module):
         zqr = [torch.split(c(F.relu(o[1])), hd[i], dim=1)
                for i, (o, c) in enumerate(zip(outputs,
                                               self.context_zqr_convs))]
+        # The int8 volume is inference-only: its rounding defines no useful
+        # gradient, so train mode builds the unquantized state.
+        quant = cfg.corr_quant and test_mode
         state = build_corr_state(_nhwc(fmaps[:b]), _nhwc(fmaps[b:]),
-                                 cfg.corr_levels)
+                                 cfg.corr_levels, cfg.corr_implementation,
+                                 quant)
         h_lo, w_lo = net[0].shape[2:]
         disp = torch.zeros((b, h_lo, w_lo, 1), device=net[0].device)
         if flow_init is not None:

@@ -1,24 +1,80 @@
-"""Correlation pyramid state and the on-demand lookup over it.
+"""Correlation backends: the per-pair state and the per-iteration lookup.
 
-The counterpart of the JAX package's ``pallas_alt`` backend
-(``ops/corr.py`` ``build_corr_state`` / ``corr_fn_from_state``): fmap2 is
-average-pooled along W by 2 per level with floor halving, and each lookup
-recomputes only the correlation taps it needs.  The TPU form pads every
-level to 128 lanes and concatenates the padded levels; here the levels
-are concatenated at their real widths, which is the same function (the
-TPU's padded columns correlate to exactly zero).  The lookup is
-differentiable: its VJP is the backward kernel (``ops.cuda_alt``), and
-gradients reach fmap2 through the pooling and the concat by ordinary
+The counterpart of the JAX package's ``ops/corr.py`` (``build_corr_state``
+/ ``corr_fn_from_state``), with its four backends:
+
+* ``pallas_alt`` — on-demand: fmap2 is average-pooled along W by 2 per
+  level with floor halving, and each lookup recomputes only the
+  correlation taps it needs (CUDA kernels ``csrc/alt_corr.cu`` and
+  ``csrc/alt_corr_bwd.cu``, ``ops.cuda_alt``).
+* ``alt`` — the same state, looked up in plain PyTorch: fmap2 sampled at
+  the taps, then dotted with fmap1 (the JAX package's ``_alt_lookup``).
+* ``pallas`` — the fp32 volume (or, with ``corr_quant``, the int8 volume
+  of ``ops.quant``) built once per pair, its W2 pyramid, and one lookup
+  over all levels per iteration (CUDA kernels ``csrc/corr_vol.cu`` and
+  ``csrc/corr_vol_bwd.cu``, ``ops.cuda_vol``).
+* ``reg`` — the same state, looked up in plain PyTorch with
+  ``ops.sampler.linear_sample_1d`` (the JAX package's ``_reg_lookup``).
+
+The TPU forms pad every level to 128 lanes, W1 to the row block and rows
+to 8; here the levels are concatenated at their real widths and nothing
+is padded, which is the same function (the TPU's padded columns
+contribute exactly zero).  Every lookup is differentiable: the kernels'
+VJPs are the backward kernels, and gradients reach fmap1 and fmap2
+through the pooling, the volume product and the concat by ordinary
 autograd.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..config import CORR_IMPLEMENTATIONS
 from .cuda_alt import alt_corr_autograd
+from .cuda_vol import level_taps, vol_lookup_autograd
+from .quant import quant_corr_volume
+from .sampler import linear_sample_1d
+
+
+def resolve_implementation(implementation: str, quant: bool = False) -> str:
+    """The backend a config runs: the JAX rule on its accelerator.
+    ``quant`` (the int8 volume) overrides the configured backend with the
+    precomputed-volume kernel backend, ``pallas``; ``auto`` is the
+    on-demand kernel backend, ``pallas_alt``.  The rule does not depend on
+    the device: on the CPU the same path runs the kernels' plain
+    versions."""
+    if quant:
+        return "pallas"
+    if implementation == "auto":
+        return "pallas_alt"
+    if implementation not in CORR_IMPLEMENTATIONS:
+        raise ValueError(f"unknown corr implementation: {implementation}")
+    return implementation
+
+
+def build_corr_volume(fmap1: torch.Tensor,
+                      fmap2: torch.Tensor) -> torch.Tensor:
+    """(B, H, W1, C) x (B, H, W2, C) -> (B, H, W1, W2), scaled by
+    1/sqrt(C): one batched fp32 matmul over B*H rows, as the JAX package
+    leaves it to XLA outside any kernel.  On the card it runs in full fp32
+    (TF32 off: ``device.fp32_numerics``, set by the model)."""
+    c = fmap1.shape[-1]
+    corr = torch.matmul(fmap1.float(), fmap2.float().transpose(-1, -2))
+    return corr / torch.full((), float(c), device=corr.device).sqrt()
+
+
+def build_corr_pyramid(corr: torch.Tensor,
+                       num_levels: int) -> List[torch.Tensor]:
+    """Average-pool the W2 axis by 2 per level, floor-halving odd widths."""
+    pyramid = [corr]
+    for _ in range(num_levels - 1):
+        c = pyramid[-1]
+        w2 = c.shape[-1] // 2
+        pyramid.append(c[..., :2 * w2].reshape(*c.shape[:-1], w2, 2)
+                       .mean(dim=-1))
+    return pyramid
 
 
 def build_fmap2_pyramid(fmap2: torch.Tensor,
@@ -34,27 +90,102 @@ def build_fmap2_pyramid(fmap2: torch.Tensor,
 
 
 class CorrState(NamedTuple):
-    """On-demand lookup state: fmap1 (B, H, W1, C), the fmap2 pyramid
-    concatenated along W at its real level widths (B, H, sum(widths), C),
-    and those widths."""
+    """Per-pair lookup state of one resolved backend.
 
-    fmap1: torch.Tensor
-    f2cat: torch.Tensor
+    On-demand backends ("alt", "pallas_alt"): ``fmap1`` (B, H, W1, C) and
+    ``f2cat``, the fmap2 pyramid concatenated along W at its real level
+    widths (B, H, sum(widths), C).  Precomputed-volume backends ("reg",
+    "pallas"): ``vcat``, the volume pyramid concatenated along W2 at its
+    real level widths (B, H, W1, sum(widths)).  ``widths`` are the level
+    widths."""
+
+    fmap1: Optional[torch.Tensor]
+    f2cat: Optional[torch.Tensor]
     widths: Tuple[int, ...]
+    backend: str = "pallas_alt"
+    vcat: Optional[torch.Tensor] = None
 
 
 def build_corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor,
-                     num_levels: int) -> CorrState:
-    """Build the lookup state once per pair (fp32, contiguous)."""
+                     num_levels: int, implementation: str = "pallas_alt",
+                     quant: bool = False) -> CorrState:
+    """Build the lookup state once per pair (fp32, contiguous) for the
+    backend ``resolve_implementation(implementation, quant)``.  ``quant``
+    builds the int8 volume; the caller passes it in test mode only."""
+    backend = resolve_implementation(implementation, quant)
+    if backend in ("reg", "pallas"):
+        volume = (quant_corr_volume(fmap1, fmap2) if quant
+                  else build_corr_volume(fmap1, fmap2))
+        pyr = build_corr_pyramid(volume, num_levels)
+        return CorrState(None, None, tuple(p.shape[-1] for p in pyr),
+                         backend, torch.cat(pyr, dim=-1).contiguous())
     pyr = build_fmap2_pyramid(fmap2.float(), num_levels)
     return CorrState(fmap1.float().contiguous(),
                      torch.cat(pyr, dim=2).contiguous(),
-                     tuple(p.shape[2] for p in pyr))
+                     tuple(p.shape[2] for p in pyr), backend)
+
+
+def _levels(cat: torch.Tensor, widths, dim: int):
+    off = 0
+    for w in widths:
+        yield cat.narrow(dim, off, w)
+        off += w
+
+
+def _reg_lookup(state: CorrState, x: torch.Tensor,
+                radius: int) -> torch.Tensor:
+    """The JAX package's ``_reg_lookup``: a gather and lerp per level."""
+    return torch.cat([linear_sample_1d(vol, level_taps(x, i, radius))
+                      for i, vol in enumerate(_levels(state.vcat,
+                                                      state.widths, 3))],
+                     dim=-1)
+
+
+def _gather_rows(f2: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """fmap2 rows (B, H, w, C) at float columns ``j`` (B, H, W1, K), zero
+    where ``j`` is outside [0, w-1] (tested in float, false for NaN)."""
+    b, h, w, c = f2.shape
+    valid = (j >= 0) & (j <= w - 1)
+    zero = torch.zeros((), device=j.device)
+    idx = torch.where(valid, j, zero).long().reshape(b, h, -1, 1)
+    v = torch.gather(f2, 2, idx.expand(-1, -1, -1, c))
+    return torch.where(valid[..., None], v.reshape(j.shape + (c,)), zero)
+
+
+def _alt_lookup(state: CorrState, x: torch.Tensor,
+                radius: int) -> torch.Tensor:
+    """The JAX package's ``_alt_lookup``: fmap2 lerped at the taps (zero
+    outside the level), then dotted with fmap1 and scaled by 1/sqrt(C)."""
+    fmap1 = state.fmap1
+    scale = 1.0 / float(fmap1.shape[-1]) ** 0.5
+    out = []
+    for i, f2 in enumerate(_levels(state.f2cat, state.widths, 2)):
+        taps = level_taps(x, i, radius)                   # (B, H, W1, K)
+        if f2.shape[2] == 0:
+            out.append(torch.zeros_like(taps))
+            continue
+        x0 = torch.floor(taps)
+        dx = (taps - x0)[..., None]
+        f2_taps = (_gather_rows(f2, x0) * (1.0 - dx)
+                   + _gather_rows(f2, x0 + 1.0) * dx)     # (B, H, W1, K, C)
+        out.append(torch.matmul(f2_taps, fmap1[..., :, None])[..., 0]
+                   * scale)
+    return torch.cat(out, dim=-1)
 
 
 def corr_lookup(state: CorrState, x: torch.Tensor,
                 radius: int) -> torch.Tensor:
-    """Correlation features at level-0 x-coordinates ``x`` (B, H, W1):
-    (B, H, W1, L*(2r+1)), channels level-major, taps -r..r."""
-    return alt_corr_autograd(state.fmap1, state.f2cat, state.widths,
-                             x.float().contiguous(), radius)
+    """Correlation features at level-0 x-coordinates ``x`` (B, H, W1) by
+    the state's backend: (B, H, W1, L*(2r+1)), channels level-major, taps
+    -r..r."""
+    x = x.float().contiguous()
+    if state.backend == "pallas_alt":
+        return alt_corr_autograd(state.fmap1, state.f2cat, state.widths, x,
+                                 radius)
+    if state.backend == "pallas":
+        return vol_lookup_autograd(state.vcat, state.widths, x, radius)
+    if state.backend == "reg":
+        return _reg_lookup(state, x, radius)
+    if state.backend == "alt":
+        return _alt_lookup(state, x, radius)
+    raise ValueError(f"unknown corr backend: {state.backend}")

@@ -1,0 +1,134 @@
+"""Int8-quantized correlation volume (``corr_quant``): the CUDA kernel
+``csrc/int8_volume.cu``, its plain PyTorch version, and the row
+quantization around it.
+
+The port's copy of the JAX package's ``ops/quant.py`` numeric core:
+symmetric int8 quantization with one scale per correlation row (each
+(b, h, w) feature vector), an int8 x int8 -> int32 all-pairs product, and
+the dequant epilogue ``(acc * (s1 (x) s2)) * inv`` with inv = 1/sqrt(C)
+computed once in fp32 on the host.  The integer sum is exact and the
+epilogue is multiplies only in JAX's association, so the kernel, the
+plain version and the JAX package's ``_int8_volume_xla`` give the same
+bits.  The accuracy-tier vocabulary waits for bf16 compute (ROADMAP Queue
+1 item 7).
+
+Replaces the TPU kernel ``raftstereo_tpu/ops/quant.py``
+``_int8_volume_kernel``.  Its bound on an H100 and what the design does
+about it are in the source's note: bound by bytes (about 51 MB per call
+at the serving shape, 15 us); this first form runs on the dp4a integer
+pipes, not the tensor cores.
+
+``int8_corr_volume`` runs the plain version for CPU tensors and the
+kernel for CUDA tensors; it never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization with one scale per row (the LAST axis
+    is the feature axis).  Returns ``(q, scale)``: ``q`` int8 in [-127,
+    127], ``scale`` fp32 of ``x.shape[:-1]`` with ``q * scale ~= x``;
+    all-zero rows get scale 1.0.  Both divisions are true divisions by
+    tensors (a CUDA division by a scalar multiplies by its reciprocal);
+    ``torch.round`` rounds half to even, as ``jnp.round``."""
+    f = x.float()
+    amax = f.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q = torch.round(f / scale[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def inv_sqrt_channels(c: int) -> float:
+    """1/sqrt(C) in fp32, as the JAX epilogue forms it on the host."""
+    return float(np.float32(1.0) / np.float32(np.sqrt(np.float32(c))))
+
+
+def dequant_epilogue(acc: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor,
+                     c: int) -> torch.Tensor:
+    """``(acc * (s1 (x) s2)) * inv`` on the int32 accumulator (B, H, W1,
+    W2): multiplies only, in the JAX package's association."""
+    deq = acc.float() * (s1[..., :, None] * s2[..., None, :])
+    return deq * inv_sqrt_channels(c)
+
+
+def int8_volume_plain(q1: torch.Tensor, s1: torch.Tensor, q2: torch.Tensor,
+                      s2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: the exact integer product, then the
+    epilogue.  ``torch.matmul`` of int8 tensors returns int8 and wraps, so
+    the operands are cast first: int32 on the CPU; float64 on the card,
+    where the matrix product has no integer form (exact here: |acc| <=
+    127^2 * C < 2^53).  (B, H, W1, C) x (B, H, W2, C) -> (B, H, W1, W2)."""
+    wide = torch.float64 if q1.is_cuda else torch.int32
+    acc = torch.matmul(q1.to(wide), q2.to(wide).transpose(-1, -2))
+    if wide is torch.float64:
+        acc = acc.to(torch.int32)
+    return dequant_epilogue(acc, s1, s2, q1.shape[-1])
+
+
+def int8_corr_volume(q1: torch.Tensor, s1: torch.Tensor, q2: torch.Tensor,
+                     s2: torch.Tensor) -> torch.Tensor:
+    """Int8 volume with its dequant epilogue: the plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors (counted in
+    ``int8_corr_volume.launches``)."""
+    tensors = (q1, s1, q2, s2)
+    if all(t.device.type == "cpu" for t in tensors):
+        return int8_volume_plain(q1, s1, q2, s2)
+    dev = q1.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"int8_corr_volume: tensors on "
+                         f"{[t.device for t in tensors]}; all must be on one "
+                         f"CUDA device")
+    if q1.dtype != torch.int8 or q2.dtype != torch.int8:
+        raise ValueError("int8_corr_volume takes int8 q1 and q2")
+    if s1.dtype != torch.float32 or s2.dtype != torch.float32:
+        raise ValueError("int8_corr_volume takes float32 scales")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("int8_corr_volume takes contiguous tensors")
+    b, h, w1, c = q1.shape
+    w2 = q2.shape[2]
+    if (q2.shape != (b, h, w2, c) or s1.shape != (b, h, w1)
+            or s2.shape != (b, h, w2)):
+        raise ValueError(f"int8_corr_volume shapes {tuple(q1.shape)}, "
+                         f"{tuple(s1.shape)}, {tuple(q2.shape)}, "
+                         f"{tuple(s2.shape)} do not match")
+    if c % 16 or q1.data_ptr() % 16 or q2.data_ptr() % 16:
+        raise ValueError(f"int8_corr_volume kernel takes C a multiple of 16 "
+                         f"and 16-byte aligned features; got C={c}")
+    out = torch.empty((b, h, w1, w2), dtype=torch.float32, device=dev)
+    fn = _build.load("int8_volume").int8_volume_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_long]
+                   + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(q1.data_ptr(), q2.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+                out.data_ptr(), b * h, w1, w2, c, inv_sqrt_channels(c),
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"int8_corr_volume kernel launch failed: CUDA "
+                           f"error {rc}")
+    int8_corr_volume.launches += 1
+    return out
+
+
+int8_corr_volume.launches = 0
+
+
+def quant_corr_volume(fmap1: torch.Tensor,
+                      fmap2: torch.Tensor) -> torch.Tensor:
+    """Quantized counterpart of ``ops.corr.build_corr_volume``: per-row
+    int8 quantization of both feature maps (B, H, W, C), then the int8
+    volume (B, H, W1, W2) fp32."""
+    q1, s1 = quantize_rows(fmap1)
+    q2, s2 = quantize_rows(fmap2)
+    return int8_corr_volume(q1, s1, q2, s2)

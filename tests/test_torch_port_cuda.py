@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig
-from raftstereo_tpu_torch.ops import cuda_alt, cuda_encoder, cuda_gru
+from raftstereo_tpu_torch.ops import (cuda_alt, cuda_encoder, cuda_gru,
+                                     cuda_vol, quant)
 from raftstereo_tpu_torch.ops.corr import build_corr_state
 
 pytestmark = pytest.mark.cuda
@@ -338,3 +339,193 @@ def test_fused_encoder_on_card_never_runs_plain(dev, batch, monkeypatch):
                    "l2_finish": 2}
     torch.testing.assert_close(lo_g.cpu(), lo_c, rtol=0, atol=2e-3)
     torch.testing.assert_close(up_g.cpu(), up_c, rtol=0, atol=5e-3)
+
+
+# ------------------------------------ precomputed-volume lookup, int8 volume
+
+def _same_bits(a, b):
+    """Equal NaN positions and equal values elsewhere."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))
+
+
+def _vol_inputs(dev, rng, b, h, w, levels, radius, nan=True):
+    st = build_corr_state(_randn(rng, b, h, w, 256).to(dev),
+                          _randn(rng, b, h, w, 256).to(dev), levels,
+                          "pallas")
+    x = np.arange(w, dtype=np.float32) + rng.uniform(-w / 2, 6, (b, h, w))
+    x[0, 0, :3] = [-200.5, w + 200.25, 1e6]
+    if nan:
+        x[-1, -1, -1] = np.nan
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    g = _randn(rng, b, h, w, levels * (2 * radius + 1)).to(dev)
+    return st, x, g
+
+
+@pytest.mark.parametrize("shape,levels,radius", [
+    ((2, 11, 20), 4, 4), ((1, 36, 240), 4, 4), ((1, 2, 4), 4, 2)],
+    ids=["hostile", "serving_rows", "zero_width_level"])
+def test_vol_lookup_kernel_matches_plain(dev, shape, levels, radius):
+    """Row 5 against its plain version: bitwise (each product and the sum
+    rounded once in both), NaN where the coordinate is NaN."""
+    rng = np.random.default_rng(10)
+    st, x, _ = _vol_inputs(dev, rng, *shape, levels, radius,
+                           nan=shape[2] > 4)
+    before = cuda_vol.vol_lookup.launches
+    got = cuda_vol.vol_lookup(st.vcat, st.widths, x, radius)
+    assert cuda_vol.vol_lookup.launches == before + 1
+    want = cuda_vol.vol_lookup_plain(st.vcat, st.widths, x, radius)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    if shape[2] > 4:
+        assert torch.isnan(got[-1, -1, -1]).all()
+
+
+@pytest.mark.parametrize("shape,levels,radius", [
+    ((2, 11, 20), 4, 4), ((6, 80, 180), 4, 4), ((1, 2, 4), 4, 2)],
+    ids=["hostile", "training", "zero_width_level"])
+def test_vol_lookup_backward_kernel_matches_plain(dev, shape, levels, radius):
+    """Row 6: two calls bitwise equal (no atomics), and bitwise equal to
+    the plain version (the same ordered sum), NaN segments included."""
+    rng = np.random.default_rng(11)
+    st, x, g = _vol_inputs(dev, rng, *shape, levels, radius,
+                           nan=shape[2] > 4)
+    before = cuda_vol.vol_lookup_backward.launches
+    k1 = cuda_vol.vol_lookup_backward(x, g, st.widths, radius)
+    k2 = cuda_vol.vol_lookup_backward(x, g, st.widths, radius)
+    assert cuda_vol.vol_lookup_backward.launches == before + 2
+    want = cuda_vol.vol_lookup_backward_plain(x, g, st.widths, radius)
+    torch.cuda.synchronize()
+    assert k1.shape == st.vcat.shape
+    assert _same_bits(k1, k2) and _same_bits(k1, want)
+    assert bool(torch.isnan(k1).any()) == (shape[2] > 4)
+
+
+@pytest.mark.parametrize("b,h,w1,w2,c", [
+    (2, 3, 7, 9, 16), (1, 5, 70, 130, 256), (1, 144, 240, 240, 256)],
+    ids=["tiny", "ragged_tiles", "serving"])
+def test_int8_volume_kernel_matches_plain(dev, b, h, w1, w2, c):
+    """Row 7: bitwise equal to the plain version (exact integer sums, the
+    same three rounded multiplies)."""
+    rng = np.random.default_rng(w1)
+    q1, s1 = quant.quantize_rows(_randn(rng, b, h, w1, c).to(dev))
+    q2, s2 = quant.quantize_rows(3 * _randn(rng, b, h, w2, c).to(dev))
+    before = quant.int8_corr_volume.launches
+    got = quant.int8_corr_volume(q1, s1, q2, s2)
+    assert quant.int8_corr_volume.launches == before + 1
+    want = quant.int8_volume_plain(q1, s1, q2, s2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_vol_wrappers_raise_instead_of_falling_back(dev):
+    rng = np.random.default_rng(12)
+    st, x, g = _vol_inputs(dev, rng, 1, 2, 8, 2, 2, nan=False)
+    with pytest.raises(ValueError):  # x on the CPU, the volume on the card
+        cuda_vol.vol_lookup(st.vcat, st.widths, x.cpu(), 2)
+    with pytest.raises(ValueError):  # float64
+        cuda_vol.vol_lookup(st.vcat.double(), st.widths, x, 2)
+    with pytest.raises(ValueError):  # widths that do not sum to W2
+        cuda_vol.vol_lookup(st.vcat, (8, 3), x, 2)
+    with pytest.raises(ValueError):  # a cotangent of the wrong width
+        cuda_vol.vol_lookup_backward(x, g[..., :9].contiguous(), st.widths, 2)
+    with pytest.raises(ValueError):  # a non-contiguous cotangent
+        cuda_vol.vol_lookup_backward(x, g.transpose(1, 2), st.widths, 2)
+    q, s = quant.quantize_rows(_randn(rng, 1, 2, 8, 24).to(dev))
+    with pytest.raises(ValueError):  # C=24 is not a multiple of 16
+        quant.int8_corr_volume(q, s, q, s)
+    q, s = quant.quantize_rows(_randn(rng, 1, 2, 8, 32).to(dev))
+    with pytest.raises(ValueError):  # int32 codes
+        quant.int8_corr_volume(q.int(), s, q, s)
+    with pytest.raises(ValueError):  # scales on the CPU
+        quant.int8_corr_volume(q, s.cpu(), q, s)
+
+
+@pytest.mark.parametrize("kw", [dict(corr_implementation="pallas"),
+                                dict(corr_quant=True),
+                                dict(corr_implementation="reg"),
+                                dict(corr_implementation="alt")],
+                         ids=["pallas", "corr_quant", "reg", "alt"])
+def test_corr_backends_on_card_never_run_plain(dev, kw, monkeypatch):
+    """Each backend's forward on the card with the volume kernels' plain
+    versions patched to raise: launches counted per request, and the
+    result within the parity thresholds of the CPU forward.  With
+    ``corr_quant`` the card's and the CPU's features differ by fp32
+    rounding, which moves a few int8 codes across a rounding boundary;
+    there the card must be closer to the CPU's quantized forward than
+    the CPU's fp32 forward is (the whole quantization effect)."""
+    cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                           corr_levels=2, corr_radius=2, **kw)
+    gpu = RAFTStereo(cfg, device=dev, seed=4)
+    cpu = RAFTStereo(cfg, device="cpu", seed=4)
+    rng = np.random.default_rng(13)
+    imgs = [torch.from_numpy(rng.uniform(0, 255, (1, 32, 48, 3))
+                             .astype(np.float32)) for _ in range(2)]
+    lo_c, up_c = cpu(*imgs, iters=3)
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    monkeypatch.setattr(cuda_vol, "vol_lookup_plain", boom)
+    monkeypatch.setattr(quant, "int8_volume_plain", boom)
+    counted = (cuda_vol.vol_lookup, quant.int8_corr_volume, cuda_alt.alt_corr)
+    for fn in counted:
+        fn.launches = 0
+    lo_g, up_g = gpu(*(i.to(dev) for i in imgs), iters=3)
+    torch.cuda.synchronize()
+    vol = "corr_quant" in kw or kw.get("corr_implementation") == "pallas"
+    assert [fn.launches for fn in counted] == [
+        3 * vol, int("corr_quant" in kw), 0]
+    if "corr_quant" in kw:
+        fp32 = RAFTStereo(RAFTStereoConfig(
+            n_gru_layers=3, hidden_dims=(32, 32, 32), corr_levels=2,
+            corr_radius=2), device="cpu", seed=4)
+        lo_f, up_f = fp32(*imgs, iters=3)
+        for card, want, unquantized in ((lo_g, lo_c, lo_f),
+                                        (up_g, up_c, up_f)):
+            err = float((card.cpu() - want).abs().max())
+            assert err < float((unquantized - want).abs().max())
+        return
+    torch.testing.assert_close(lo_g.cpu(), lo_c, rtol=0, atol=2e-3)
+    torch.testing.assert_close(up_g.cpu(), up_c, rtol=0, atol=5e-3)
+
+
+def test_pallas_train_step_on_card_matches_cpu(dev, monkeypatch):
+    """A ``pallas`` train step on the card (kernels; the backward's plain
+    version patched to raise) against the CPU: loss within 1e-4
+    relative, every gradient within 1e-3 of the largest CPU entry, on
+    the inputs of ``test_train_step_on_card_matches_cpu``.  The gradient
+    gap is set by the random-weight GRU's sensitivity to fp32 rounding,
+    which moves with the inputs for every backend, the kernel-free
+    ``reg`` lookup included."""
+    from raftstereo_tpu_torch.train.loss import sequence_loss
+
+    cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                           corr_levels=2, corr_radius=2,
+                           corr_implementation="pallas")
+    rng = np.random.default_rng(6)
+    batch = [torch.from_numpy(rng.uniform(0, 255, (1, 32, 48, 3))
+                              .astype(np.float32)) for _ in range(2)]
+    batch += [torch.from_numpy(-rng.uniform(1, 20, (1, 32, 48, 1))
+                               .astype(np.float32)), torch.ones(1, 32, 48)]
+    out = []
+    for device in (torch.device("cpu"), dev):
+        if device.type == "cuda":
+            def boom(*a, **k):
+                raise AssertionError("a plain version ran on the card path")
+
+            monkeypatch.setattr(cuda_vol, "vol_lookup_backward_plain", boom)
+            cuda_vol.vol_lookup_backward.launches = 0
+        m = RAFTStereo(cfg, device=device, seed=4)
+        preds = m(*(t.to(device) for t in batch[:2]), iters=3,
+                  test_mode=False)
+        loss, _ = sequence_loss(preds, *(t.to(device) for t in batch[2:]))
+        loss.backward()
+        out.append((float(loss.detach()),
+                    {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    assert cuda_vol.vol_lookup_backward.launches == 3
+    (lc, gc), (lg, gg) = out
+    assert lg == pytest.approx(lc, rel=1e-4)
+    gmax = max(float(t.abs().max()) for t in gc.values())
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max()) <= 1e-3 * gmax, k

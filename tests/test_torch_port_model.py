@@ -152,8 +152,8 @@ def test_forward_xla_gru_matches_jax(tiny_pair):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("corr_implementation", "reg"), ("corr_implementation", "alt"),
-    ("fused_encoder", True), ("corr_quant", True),
+    ("corr_dtype", "bfloat16"), ("corr_precision", "high"),
+    ("fused_encoder", True), ("corr_precision", "default"),
     ("compute_dtype", "bfloat16"), ("shared_backbone", True),
     ("input_mode", "sl"), ("spatial_shards", 2), ("context_norm", "group"),
     ("context_norm", "none"), ("slow_fast_gru", True)])

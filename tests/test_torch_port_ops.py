@@ -227,7 +227,10 @@ def test_kernel_sources_carry_their_notes():
                              "_l2_entry_kernel", "_l2_conv_kernel",
                              "_l2_conv_res_kernel"),
                 "enc_stats": ("_in_stats_kernel", "_packed_stats"),
-                "enc_finish": ("_enc_finish_kernel", "_l2_finish_kernel")}
+                "enc_finish": ("_enc_finish_kernel", "_l2_finish_kernel"),
+                "corr_vol": ("_lookup_kernel",),
+                "corr_vol_bwd": ("_lookup_bwd_kernel",),
+                "int8_volume": ("_int8_volume_kernel",)}
     assert set(srcs) == set(replaced)
     for name, path in srcs.items():
         text = path.read_text()
