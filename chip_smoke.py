@@ -39,9 +39,18 @@ volume lookups and 32 updates per request, one int8 volume per quant
 request, no on-demand lookup; (11) hold the card's forward against the
 CPU's for ``pallas``, ``corr_quant``, ``reg`` and ``alt``; (12) train 3
 steps of the recipe with ``pallas``, 16 lookups and 16 backward lookups
-per step, and one 64x96 step card vs CPU.  Prints a ``{"kernels": [...]}``
-line, one row per kernel and path (the path's launches beside the times
-and bound at its shapes), and, last, ``{"ok": true, "device": ...}``.
+per step, and one 64x96 step card vs CPU; then training through the
+fused encoder stages: (13) hold the kernels that path launches against
+their plain versions at its shapes (fnet's 12 images of 320x720), the
+instance-norm backward's dual sums among them, bitwise repeatable; (14)
+train 3 steps of the recipe with ``fused_encoder=True``, every counted
+kernel at its exact per-step launches (``FUSED_PER_STEP`` and the
+lookup pair), step wall times and peak memory beside the plain
+training path's; (15) one 64x96 fused step card vs CPU (the conv1-stage
+backward).  Every training phase also checks that no kernel off its path
+launched.  Prints a ``{"kernels": [...]}`` line, one row per kernel and
+path (the path's launches beside the times and bound at its shapes),
+and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a GPU or without the repo.
 """
 
@@ -84,6 +93,8 @@ ENC_TOL = 1e-4         # relative to max(1, |plain|): fp32 conv sums of up
 #                        to 576 products against cuDNN's order; output
 #                        sums compared per pixel (divided by H*W)
 FINISH_TOL = 1e-5      # relative: elementwise, FMAs where plain rounds twice
+DUAL_TOL = 1e-5        # relative to max(1, |plain|), per-pixel means: fp32
+#                        sums of 230,400 terms per plane in another order
 # Per-request launches of the fused encoder kernels (fnet + cnet, one
 # each per stage call): conv1, the four layer1 convs, the finish, the
 # layer2 entry, its three convs and its finish; 0 for the stride-2 conv1
@@ -91,6 +102,15 @@ FINISH_TOL = 1e-5      # relative: elementwise, FMAs where plain rounds twice
 FUSED_PER_REQUEST = {"stem_conv7": 2, "stem_conv7_s2": 0, "stage_conv": 8,
                      "plane_stats": 0, "stage_finish": 2, "l2_entry": 2,
                      "l2_conv": 6, "l2_finish": 2}
+# Per-step launches of the fused encoder kernels on the training path at
+# the recipe (fnet 12 images, cnet 6: more than the fused conv1 takes, so
+# conv1 runs in cuDNN, fnet's stage takes its first sums from the stats
+# kernel, and the instance-norm stage backward takes its five dual sums,
+# for dc21, dc20, dc11, dc10 and dy1; cnet's frozen-BN backward takes none).
+FUSED_STEPS = 3
+FUSED_PER_STEP = {"stage_conv": 8, "plane_stats": 1, "stage_finish": 2,
+                  "l2_entry": 2, "l2_conv": 6, "l2_finish": 2,
+                  "dual_sums": 5}
 # The volume kernels are held bitwise against their plain versions: both
 # round each product and each sum once, in the same order, and the int8
 # product is exact.
@@ -352,6 +372,34 @@ def hold(label, kern, plain, n, tol, torch):
     return err0
 
 
+def conv_cost(x, wt, out_numel, n_in=1, proj_flops=0):
+    """FLOPs of an encoder conv: the MACs, the bias and the output sums,
+    the input prep."""
+    macs = out_numel * wt.shape[1] * wt.shape[2] * wt.shape[3]
+    return 2 * macs + proj_flops + 4 * out_numel + 3 * n_in * x.numel()
+
+
+def enc_row(rows, path, name, replaces, path_shape, kern, plain, n, tol,
+            nbytes, flops, torch, lib=None, reps=5):
+    """An encoder kernel held against its plain version and timed beside
+    it (and ``lib``, one library computation of the same function, where
+    there is one); appends its row for ``path``."""
+    err = hold(f"{name} {path_shape}", kern, plain, n, tol, torch)
+    ms, plain_ms = time_ms(kern, reps), time_ms(plain, reps)
+    lib_ms = time_ms(lib, reps) if lib is not None else None
+    bound_ms, bound_by = bound(nbytes, flops)
+    print(f"{name} {path_shape} ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {lib_ms} bound_ms {bound_ms:.4f} ({bound_by})")
+    src = {"stage_finish": "enc_finish", "l2_finish": "enc_finish",
+           "plane_stats": "enc_stats", "dual_sums": "enc_stats"}.get(
+               name, "enc_conv")
+    rows.append(dict(name=name, path=path, shape=path_shape, route="cuda",
+                     source=f"raftstereo_tpu_torch/csrc/{src}.cu",
+                     replaces=replaces, max_abs_err=err, ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=lib_ms))
+
+
 def encoder_kernel_phase(model, bucket, torch):
     """The fused encoder kernels against their plain versions at the fused
     serving path's shapes (fnet: 2 images, instance norm with sums; cnet:
@@ -382,28 +430,8 @@ def encoder_kernel_phase(model, bucket, torch):
     h2, w2 = h // 2, w // 2
     rows = []
 
-    def row(name, replaces, path_shape, kern, plain, n, tol, nbytes, flops,
-            lib=None, reps=5):
-        err = hold(f"{name} {path_shape}", kern, plain, n, tol, torch)
-        ms, plain_ms = time_ms(kern, reps), time_ms(plain, reps)
-        lib_ms = time_ms(lib, reps) if lib is not None else None
-        print(f"{name} {path_shape} ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"library_ms {lib_ms}")
-        src = {"stage_finish": "enc_finish", "l2_finish": "enc_finish",
-               "plane_stats": "enc_stats"}.get(name, "enc_conv")
-        rows.append(dict(name=name, path="serve_fused", shape=path_shape,
-                         route="cuda",
-                         source=f"raftstereo_tpu_torch/csrc/{src}.cu",
-                         replaces=replaces, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms,
-                         **dict(zip(("bound_ms", "bound_by"),
-                                    bound(nbytes, flops))),
-                         library_ms=lib_ms))
-
-    def conv_cost(x, wt, out_numel, n_in=1, proj_flops=0):
-        """FLOPs: the MACs, the bias and the output sums, the input prep."""
-        macs = out_numel * wt.shape[1] * wt.shape[2] * wt.shape[3]
-        return 2 * macs + proj_flops + 4 * out_numel + 3 * n_in * x.numel()
+    def row(*args, **kw):
+        enc_row(rows, "serve_fused", *args, torch=torch, **kw)
 
     # -- fnet, 2 images: conv1 (row 13), layer1 (row 9), finish (row 11)
     img = torch.tanh(randn(2, 3, h, w))
@@ -506,6 +534,100 @@ def encoder_kernel_phase(model, bucket, torch):
         lambda: ce.plane_stats(big), lambda: ce.stats_plain(big), n,
         ENC_TOL, 4 * (big.numel() + 2 * 6 * 64), 3 * big.numel(),
         lib=lambda: torch.var_mean(big, dim=(2, 3), correction=0), reps=10)
+    return rows
+
+
+def train_fused_kernel_phase(model, torch):
+    """The kernels that the fused training path launches, held against
+    their plain versions and timed at its shapes: fnet's 12 images of
+    320x720 (cnet's 6 images take the same kernels without sums), layer2
+    at 160x360, the stats kernel on conv1's output, and the backward's
+    dual sums (row 14) of two such tensors; one row per kernel."""
+    import torch.nn.functional as F
+
+    from raftstereo_tpu_torch.ops import cuda_encoder as ce
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    def aff(b, c):  # shifts > 0: padding before the prep would show
+        return ((0.5 + torch.rand((b, c), generator=g)).to(dev),
+                (0.5 * torch.rand((b, c), generator=g)).to(dev))
+
+    def wb(m):
+        return m.weight.detach(), m.bias.detach()
+
+    rows = []
+
+    def row(*args, **kw):
+        enc_row(rows, "train_fused", *args, torch=torch, **kw)
+
+    enc = model.fnet
+    l0, _ = enc.layer1
+    m0, _ = enc.layer2
+    b, (h, w) = 2 * TRAIN_BATCH, TRAIN_HW
+    h2, w2 = h // 2, w // 2
+    n, n2 = float(h * w), float(h2 * w2)
+
+    # -- the backward's dual sums (row 14), then the stage's kernels
+    u, v = randn(b, 64, h, w), randn(b, 64, h, w)
+    row("dual_sums", "raftstereo_tpu/ops/pallas_encoder.py:1148",
+        dims(u), lambda: ce.dual_sums(u, v), lambda: ce.dual_sums_plain(u, v),
+        n, DUAL_TOL, 4 * (u.numel() + v.numel() + 2 * b * 64),
+        3 * u.numel(), reps=10,
+        lib=lambda: (u.sum((2, 3)), torch.einsum("bchw,bchw->bc", u, v)))
+    del u, v
+    x = randn(b, 64, h, w)
+    row("plane_stats", "raftstereo_tpu/ops/pallas_norm.py:47 (via "
+        "pallas_encoder.py:476)", dims(x), lambda: ce.plane_stats(x),
+        lambda: ce.stats_plain(x), n, ENC_TOL,
+        4 * (x.numel() + 2 * b * 64), 3 * x.numel(), reps=10,
+        lib=lambda: torch.var_mean(x, dim=(2, 3), correction=0))
+    a = aff(b, 64)
+    wc, bc = wb(l0.conv1)
+    row("stage_conv", "raftstereo_tpu/ops/pallas_encoder.py:338, :348",
+        dims(x), lambda: ce.stage_conv(x, a, wc, bc),
+        lambda: ce.conv_plain(x, wc, bc, 1, a), n, ENC_TOL,
+        4 * (2 * x.numel() + wc.numel() + 64 + 4 * b * 64),
+        conv_cost(x, wc, x.numel(), n_in=1),
+        lib=lambda: F.conv2d(x, wc, bc, 1, 1))
+    r, c = randn(b, 64, h, w), randn(b, 64, h, w)
+    a2, a3 = aff(b, 64), aff(b, 64)
+    row("stage_finish", "raftstereo_tpu/ops/pallas_encoder.py:364",
+        dims(x), lambda: ce.stage_finish(x, a, r, a2, c, a3),
+        lambda: ce.finish_plain(x, a, r, a2, c, a3), n, FINISH_TOL,
+        4 * (4 * x.numel() + 6 * b * 64), 12 * x.numel(), reps=10)
+    del r, c
+    t = torch.relu(x)
+    del x
+    we, be = wb(m0.conv1)
+    wp, bp = wb(m0.downsample[0])
+    out2 = b * 96 * h2 * w2
+    row("l2_entry", "raftstereo_tpu/ops/pallas_layer2.py:118", dims(t),
+        lambda: ce.l2_entry(t, we, be, wp, bp),
+        lambda: ce.entry_plain(t, we, be, wp, bp), n2, ENC_TOL,
+        4 * (t.numel() + we.numel() + wp.numel() + 2 * 96 + 2 * out2
+             + 2 * 2 * b * 96),
+        conv_cost(t, we, out2, n_in=0, proj_flops=2 * out2 * 64) + 4 * out2,
+        lib=lambda: F.conv2d(t, we, be, 2, 1))
+    del t
+    y, p, q = (randn(b, 96, h2, w2) for _ in range(3))
+    b_, pb, a4 = aff(b, 96), aff(b, 96), aff(b, 96)
+    wl, bl = wb(m0.conv2)
+    row("l2_conv", "raftstereo_tpu/ops/pallas_layer2.py:201, :212",
+        dims(y), lambda: ce.l2_conv(y, b_, wl, bl),
+        lambda: ce.conv_plain(y, wl, bl, 1, b_), n2, ENC_TOL,
+        4 * (2 * y.numel() + wl.numel() + 96 + 4 * b * 96),
+        conv_cost(y, wl, y.numel(), n_in=1),
+        lib=lambda: F.conv2d(y, wl, bl, 1, 1))
+    row("l2_finish", "raftstereo_tpu/ops/pallas_layer2.py:228", dims(y),
+        lambda: ce.l2_finish(p, pb, y, b_, q, a4),
+        lambda: ce.finish_plain(p, pb, y, b_, q, a4, a_relu=False), n2,
+        FINISH_TOL, 4 * (4 * y.numel() + 6 * b * 96), 12 * y.numel(),
+        reps=10)
     return rows
 
 
@@ -735,17 +857,26 @@ def forward_card_vs_cpu(model, rng, torch):
               f"{err})")
 
 
-def train_phase(torch, mcfg, runs, fns):
+def training_wrappers():
+    """Every counted kernel wrapper a training step may launch."""
+    from raftstereo_tpu_torch.ops import cuda_alt, cuda_vol
+
+    return serving_wrappers() + (cuda_alt.alt_corr_backward,
+                                 cuda_vol.vol_lookup_backward)
+
+
+def train_phase(torch, mcfg, runs, per_step):
     """The training path of ``mcfg`` on ``ShiftStereoDataset`` at the
     recipe shape: one ``train()`` call per ``(last, first)`` in ``runs``,
-    each resuming from the previous call's checkpoint.  ``fns`` are the
-    lookup's forward and backward wrappers, which must launch exactly
-    ``TRAIN_ITERS`` times per step each.  Returns launches per wrapper
-    name over all runs."""
+    each resuming from the previous call's checkpoint.  Every counted
+    wrapper must launch exactly ``per_step[name]`` times per step (0 when
+    absent).  Returns launches per wrapper name over all runs, the steps'
+    wall times (step 1 included) and the peak device memory in GB."""
     from raftstereo_tpu_torch.cli import train as cli_train
     from raftstereo_tpu_torch.config import TrainConfig
     from raftstereo_tpu_torch.data.synthetic import ShiftStereoDataset
 
+    fns = training_wrappers()
     dataset = ShiftStereoDataset(n=2 * TRAIN_BATCH, hw=TRAIN_HW,
                                  max_disp=48.0, seed=0)
     counts = {}
@@ -762,10 +893,11 @@ def train_phase(torch, mcfg, runs, fns):
             state = cli_train.train(mcfg, cfg, dataset=dataset, num_workers=0,
                                     no_validation=True, device="cuda",
                                     log_dir=os.path.join(tmp, "runs"))
-            counts[last] = tuple(fn.launches for fn in fns)
-            print(f"train() {mcfg.corr_implementation} to step {state.step} "
-                  f"in {time.perf_counter() - t0:.1f}s; launches "
-                  f"{'/'.join(fn.__name__ for fn in fns)} {counts[last]}")
+            counts[last] = {fn.__name__: fn.launches for fn in fns}
+            print(f"train() {mcfg.corr_implementation}"
+                  f"{' fused encoder' * bool(mcfg.fused_encoder)} to step "
+                  f"{state.step} in {time.perf_counter() - t0:.1f}s; "
+                  f"launches {counts[last]}")
             check(state.step == last, f"train() stopped at step {state.step}"
                                       f", want {last}")
         saved = sorted(os.listdir(os.path.join(tmp, "smoke")))
@@ -788,12 +920,13 @@ def train_phase(torch, mcfg, runs, fns):
     check(sorted(loss) == steps and all(np.isfinite(v) for v in loss.values()),
           f"non-finite or skipped training steps: {loss}")
     for last, first in runs:
-        want = (last - first) * TRAIN_ITERS
-        check(counts[last] == (want,) * len(fns),
-              f"steps {first + 1}..{last}: lookup launches "
-              f"{counts[last]}, want {want} each")
-    return {fn.__name__: sum(counts[last][i] for last, _ in runs)
-            for i, fn in enumerate(fns)}
+        want = {fn.__name__: (last - first) * per_step.get(fn.__name__, 0)
+                for fn in fns}
+        check(counts[last] == want, f"steps {first + 1}..{last}: launches "
+                                    f"{counts[last]}, want {want}")
+    launches = {fn.__name__: sum(counts[last][fn.__name__] for last, _ in runs)
+                for fn in fns}
+    return launches, [secs[k] for k in steps], peak_gb
 
 
 def step_batch(rng, torch):
@@ -823,7 +956,8 @@ def train_step_card_vs_cpu(torch, batch, mcfg):
     (lg, gg), (lc, gc) = out
     gmax = max(float(t.abs().max()) for t in gc.values())
     gerr = max(float((gg[k] - gc[k]).abs().max()) for k in gc)
-    print(f"train step ({mcfg.corr_implementation}) card vs cpu: loss "
+    print(f"train step ({mcfg.corr_implementation}"
+          f"{', fused encoder' * bool(mcfg.fused_encoder)}) card vs cpu: loss "
           f"{lg:.6g} vs {lc:.6g}; gradient "
           f"max_abs_err {gerr:.3e} (tol {STEP_GRAD_TOL} x {gmax:.3g})")
     check(abs(lg - lc) <= STEP_LOSS_TOL * abs(lc),
@@ -845,7 +979,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, root)
     from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig, ServeConfig
-    from raftstereo_tpu_torch.ops import _build, cuda_alt, cuda_vol
+    from raftstereo_tpu_torch.ops import _build
     from raftstereo_tpu_torch.ops.image import BucketPadder
 
     card = subprocess.run(
@@ -873,6 +1007,7 @@ def main() -> int:
     print(f"bucket {bucket} -> grid {lo_hw}")
     rows = kernel_phase(model, lo_hw, torch)
     rows += encoder_kernel_phase(model, bucket, torch)
+    rows += train_fused_kernel_phase(model, torch)
     rows += volume_kernel_phase(cfg, lo_hw, torch)
 
     def want(**per_request):
@@ -919,17 +1054,25 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     batch = step_batch(rng, torch)
-    for path, impl, runs, fns in (
-            ("train", "pallas_alt",
-             ((TRAIN_STEPS, 0), (RESUME_TO, TRAIN_STEPS)),
-             (cuda_alt.alt_corr, cuda_alt.alt_corr_backward)),
-            ("train_pallas", "pallas", ((VOL_STEPS, 0),),
-             (cuda_vol.vol_lookup, cuda_vol.vol_lookup_backward))):
+    lookup = dict(alt_corr=TRAIN_ITERS, alt_corr_backward=TRAIN_ITERS)
+    walls = {}
+    for path, impl, fused, runs, per_step in (
+            ("train", "pallas_alt", False,
+             ((TRAIN_STEPS, 0), (RESUME_TO, TRAIN_STEPS)), lookup),
+            ("train_pallas", "pallas", False, ((VOL_STEPS, 0),),
+             dict(vol_lookup=TRAIN_ITERS, vol_lookup_backward=TRAIN_ITERS)),
+            ("train_fused", "pallas_alt", True, ((FUSED_STEPS, 0),),
+             dict(FUSED_PER_STEP, **lookup))):
         mcfg = RAFTStereoConfig(corr_implementation=impl,
-                                fused_encoder=False)
-        by_path[path] = train_phase(torch, mcfg, runs, fns)
+                                fused_encoder=fused)
+        by_path[path], secs, peak_gb = train_phase(torch, mcfg, runs,
+                                                   per_step)
+        walls[path] = (statistics.median(secs[1:]), peak_gb)
         train_step_card_vs_cpu(torch, batch, mcfg)
         torch.cuda.empty_cache()
+    for path in ("train", "train_fused"):
+        print(f"{path}: median step wall (steps 2 on) {walls[path][0]:.3f}s, "
+              f"peak memory {walls[path][1]:.2f} GB")
 
     # Each row's launches are those of its path's run, beside the times
     # and bound measured at that path's shapes.

@@ -3,7 +3,7 @@
     python -m raftstereo_tpu_torch.cli.profile [--fused_encoder]
         [--corr_implementation IMPL] [--corr_quant]
     python -m raftstereo_tpu_torch.cli.profile --train [--remat]
-        [--corr_implementation IMPL]
+        [--fused_encoder] [--corr_implementation IMPL]
 
 Builds the flagship model with seeded weights on the card.  By default it
 warms the engine at the 540x960 bucket and 32 iterations (the serving
@@ -13,13 +13,16 @@ call (``--fused_encoder``: with the fused encoder stages,
 ``--corr_quant`` pick the correlation backend and the int8 volume); with
 ``--train`` it profiles one training step of the recipe (batch 6,
 320x720, 16 iterations, ``train.step.make_train_step``) after one warm-up
-step; ``--remat`` recomputes each iteration in the backward pass.
+step; ``--remat`` recomputes each iteration in the backward pass, and
+``--fused_encoder`` trains through the fused encoder stages and their
+backward.
 Either way it prints one JSON line: the wall time, the summed device
 time of the kernels, the device busy time
 (the union of the kernels' intervals, so overlapping kernels count once)
 and idle share (1 - busy / wall), the peak device memory over the
 profiled call, and device time by kernel, grouped by the port's CUDA
-sources (``enc_conv``, ``enc_stats``, ``enc_finish``, ``alt_corr``,
+sources (``enc_conv``, ``enc_stats``, ``dual_sums`` (the second kernel of
+``enc_stats.cu``), ``enc_finish``, ``alt_corr``,
 ``alt_corr_bwd``, ``corr_vol``, ``corr_vol_bwd``, ``int8_volume``,
 ``gru_update``) and by
 cuDNN/cuBLAS convolutions and products ("conv").  Needs a GPU.
@@ -44,6 +47,7 @@ from ..serve.engine import BatchEngine
 # convolutions and matrix products.
 _GROUPS = {"enc_conv": ("enc_conv_kernel", "enc_conv_stats_kernel"),
            "enc_stats": ("enc_plane_stats_kernel",),
+           "dual_sums": ("enc_dual_sums_kernel",),
            "enc_finish": ("enc_finish_kernel",),
            "alt_corr": ("alt_corr_kernel",),
            "alt_corr_bwd": ("alt_corr_bwd_kernel",),
@@ -84,7 +88,8 @@ def _serve_call(fused_encoder: bool, corr_implementation: str,
         "corr_implementation": corr_implementation, "corr_quant": corr_quant}
 
 
-def _train_call(remat: bool, corr_implementation: str):
+def _train_call(remat: bool, corr_implementation: str,
+                fused_encoder: bool):
     from ..config import TrainConfig
     from ..train.optim import make_optimizer
     from ..train.state import TrainState
@@ -93,7 +98,8 @@ def _train_call(remat: bool, corr_implementation: str):
     cfg = TrainConfig(batch_size=TRAIN_BATCH, image_size=TRAIN_HW,
                       train_iters=TRAIN_ITERS)
     model = RAFTStereo(RAFTStereoConfig(
-        remat=remat, corr_implementation=corr_implementation),
+        remat=remat, corr_implementation=corr_implementation,
+        fused_encoder=True if fused_encoder else None),
         device="cuda", seed=0)
     opt, schedule = make_optimizer(cfg, dict(model.named_parameters()))
     state = TrainState(step=0, model=model, opt=opt)
@@ -108,6 +114,7 @@ def _train_call(remat: bool, corr_implementation: str):
                                         "image_hw": list(TRAIN_HW),
                                         "iters": TRAIN_ITERS,
                                         "remat": remat,
+                                        "fused_encoder": fused_encoder,
                                         "corr_implementation":
                                             corr_implementation}
 
@@ -119,7 +126,7 @@ def main(argv=None) -> int:
     p.add_argument("--train", action="store_true",
                    help="profile one training step instead of a request")
     p.add_argument("--fused_encoder", action="store_true",
-                   help="serve with the fused encoder stages")
+                   help="run the fused encoder stages")
     p.add_argument("--remat", action="store_true",
                    help="with --train: recompute each iteration in the "
                         "backward pass")
@@ -130,12 +137,11 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     if args.remat and not args.train:
         p.error("--remat needs --train")
-    if args.fused_encoder and args.train:
-        p.error("--fused_encoder serves only: its stages have no backward")
     if args.corr_quant and args.train:
         p.error("--corr_quant serves only: training builds the fp32 volume")
     train = args.train
-    call, what = (_train_call(args.remat, args.corr_implementation) if train
+    call, what = (_train_call(args.remat, args.corr_implementation,
+                              args.fused_encoder) if train
                   else _serve_call(args.fused_encoder,
                                    args.corr_implementation, args.corr_quant))
     call()  # warm-up: kernel builds, cuDNN plans, allocator

@@ -12,8 +12,7 @@ data (``data.synthetic.ShiftStereoDataset``).
 Not ported yet, and refused at startup with ``NotImplementedError``:
 in-training validation (pass ``--no_validation``), ``--metrics_port``,
 ``--profile_steps``, ``--faults``, ``--data_parallel`` > 1,
-``--device_photometric``, ``--workload sl`` and, through ``train()``, a
-model config with ``fused_encoder=True``.
+``--device_photometric`` and ``--workload sl``.
 """
 
 from __future__ import annotations
@@ -30,8 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import (CORR_IMPLEMENTATIONS, RAFTStereoConfig, TrainConfig,
-                      check_trainable)
+from ..config import CORR_IMPLEMENTATIONS, RAFTStereoConfig, TrainConfig
 from ..data.datasets import build_aug_params, fetch_dataset
 from ..data.loader import DataLoader, prefetch_to_device
 from ..device import resolve_device
@@ -200,7 +198,6 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig, dataset=None,
     boundary and return.  ``log_dir`` defaults to ``runs/<name>``."""
     check_unported(cfg, no_validation, profile_steps, fault_plan,
                    metrics_port, workload)
-    check_trainable(model_cfg)
     dev = resolve_device(device)
     np.random.seed(cfg.seed)
 

@@ -12,11 +12,10 @@ in inference only; training builds the fp32 volume whatever the flag
 says, as the JAX package does.  Inference takes the fused finest-level
 GRU update (a CUDA kernel) or the module step, training always the module
 step.  The encoders are the plain ones, or with ``fused_encoder=True`` the
-fused stem + layer1 and layer2 stages (CUDA kernels) in inference;
-training with ``fused_encoder=True`` raises ``NotImplementedError``
-(``check_trainable``: the stages' backward is ROADMAP Queue 2 row 14).
-Every other field value that selects another path raises
-``NotImplementedError`` naming the ROADMAP item that will add it.
+fused stem + layer1 and layer2 stages (CUDA kernels, and their
+hand-written backward in training).  Every other field value that
+selects another path raises ``NotImplementedError`` naming the ROADMAP
+item that will add it.
 """
 
 from __future__ import annotations
@@ -102,25 +101,13 @@ def check_supported(config: RAFTStereoConfig) -> None:
     """Raise ``NotImplementedError`` for any field value outside the
     port's paths.  ``fused_encoder`` None and False run the plain encoders
     (the JAX package's ``fused_encoder=False`` path, and its ``None`` off
-    the TPU); True runs the fused encoder stages, in inference only (see
-    ``check_trainable``)."""
+    the TPU); True runs the fused encoder stages."""
     for field, ok, item in _SUPPORTED:
         v = getattr(config, field)
         if v not in ok:
             raise NotImplementedError(
                 f"{field}={v!r} is not ported yet (supported: {list(ok)}); "
                 f"see ROADMAP.md {item}")
-
-
-def check_trainable(config: RAFTStereoConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port serves but
-    cannot train: ``fused_encoder=True``, whose stages have no backward
-    yet."""
-    if config.fused_encoder is True:
-        raise NotImplementedError(
-            "training with fused_encoder=True is not ported yet: the fused "
-            "stages' backward (_dual_sum_kernel) is ROADMAP.md Queue 2 row "
-            "14; train with fused_encoder None or False")
 
 
 @dataclasses.dataclass(frozen=True)

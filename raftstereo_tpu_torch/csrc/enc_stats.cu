@@ -1,13 +1,21 @@
-// Per-(image, channel) fp32 sum and sum of squares of an NCHW tensor, for
-// Hopper (sm_90a).
+// Per-(image, channel) fp32 plane sums of NCHW tensors, for Hopper
+// (sm_90a).  Two entry points share one design:
 //
-// Replaces the TPU kernel raftstereo_tpu/ops/pallas_norm.py
-// `_in_stats_kernel`, as the fused encoder stage reaches it through
-// raftstereo_tpu/ops/pallas_encoder.py `_packed_stats` (row 10: the
-// statistics of a conv1 output that the stage did not compute itself);
-// it is also the body of that file's stand-alone instance-norm stats.
-// Function: stats[b, 0, c] = sum_{y,x} x[b, c, y, x] and
-// stats[b, 1, c] = sum_{y,x} x[b, c, y, x]^2, in fp32.
+// * enc_stats_forward: stats[b, 0, c] = sum_{y,x} x[b, c, y, x] and
+//   stats[b, 1, c] = sum_{y,x} x[b, c, y, x]^2.  Replaces the TPU kernel
+//   raftstereo_tpu/ops/pallas_norm.py `_in_stats_kernel`, as the fused
+//   encoder stage reaches it through raftstereo_tpu/ops/pallas_encoder.py
+//   `_packed_stats` (row 10: the statistics of a conv1 output that the
+//   stage did not compute itself); it is also the body of that file's
+//   stand-alone instance-norm stats.
+// * enc_dual_sums_forward: sums[b, 0, c] = sum_{y,x} u[b, c, y, x] and
+//   sums[b, 1, c] = sum_{y,x} u[b, c, y, x] * v[b, c, y, x].  Replaces
+//   raftstereo_tpu/ops/pallas_encoder.py `_dual_sum_kernel` (row 14, the
+//   two reductions of the instance-norm VJP, mean(u) and mean(u * xhat),
+//   reached from `_in_bwd_means` five times per stage backward).  The TPU
+//   kernel sums a packed pixel-pair view and halves its channel axis
+//   afterwards; NCHW keeps a plane contiguous, so this one sums the plane
+//   directly.
 //
 // Design.  One block per (image, channel) plane, which NCHW keeps
 // contiguous: each of 256 threads sums a strided share of the plane with
@@ -16,22 +24,46 @@
 // sums keep E[x^2] - mean^2 well inside the envelope a single running sum
 // would leave, and the fixed order makes two calls bitwise equal.
 //
-// Bound on an H100 SXM (3.35 TB/s): bytes, one read of the tensor (141.6
-// MB per 64-channel 576x960 image, 42 us); two FLOPs per element.  The
-// design reads each element once; enough planes are in flight (B x 64 of
-// them) to keep every SM's loads busy.
+// Bound on an H100 SXM (3.35 TB/s): bytes, one read of each input (stats:
+// 141.6 MB per 64-channel 576x960 image, 42 us; dual sums at the training
+// recipe's fnet backward, u and v each 12x64x320x720: 1.416 GB, 0.42 ms);
+// two FLOPs per element and input.  The design reads each element once;
+// enough planes are in flight (B x 64 of them, each thread with two
+// 16-byte loads outstanding for the dual sums) to keep every SM's loads
+// busy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// Warp butterflies, then the 8 warps' partials in order; thread 0 and 1
+// store the plane's two sums at out[(b * 2 + k) * c + ch].
+__device__ __forceinline__ void block_store(float s, float q, float* out,
+                                            int c, int ch, int b) {
+  __shared__ float s_red[8][2];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, m);
+    q += __shfl_xor_sync(0xffffffffu, q, m);
+  }
+  if (lane == 0) {
+    s_red[warp][0] = s;
+    s_red[warp][1] = q;
+  }
+  __syncthreads();
+  if (tid < 2) {
+    float t = 0.f;
+    for (int w = 0; w < 8; ++w) t += s_red[w][tid];
+    out[((long)b * 2 + tid) * c + ch] = t;
+  }
+}
+
 __global__ void __launch_bounds__(256)
 enc_plane_stats_kernel(const float* __restrict__ x, float* __restrict__ stats,
                        int c, long hw) {
-  __shared__ float s_red[8][2];
-  const int ch = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ch = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const float* p = x + ((long)b * c + ch) * hw;
   float s = 0.f, q = 0.f;
   if ((hw & 3) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
@@ -50,21 +82,38 @@ enc_plane_stats_kernel(const float* __restrict__ x, float* __restrict__ stats,
       q = fmaf(v, v, q);
     }
   }
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, m);
-    q += __shfl_xor_sync(0xffffffffu, q, m);
+  block_store(s, q, stats, c, ch, b);
+}
+
+__global__ void __launch_bounds__(256)
+enc_dual_sums_kernel(const float* __restrict__ u, const float* __restrict__ v,
+                     float* __restrict__ sums, int c, long hw) {
+  const int ch = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const long off = ((long)b * c + ch) * hw;
+  const float* pu = u + off;
+  const float* pv = v + off;
+  float s = 0.f, q = 0.f;
+  if ((hw & 3) == 0 && (reinterpret_cast<uintptr_t>(pu) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(pv) & 15) == 0) {
+    const float4* u4 = reinterpret_cast<const float4*>(pu);
+    const float4* v4 = reinterpret_cast<const float4*>(pv);
+#pragma unroll 2
+    for (long i = tid; i < hw / 4; i += 256) {
+      const float4 a = __ldg(u4 + i);
+      const float4 w = __ldg(v4 + i);
+      s += a.x; q = fmaf(a.x, w.x, q);
+      s += a.y; q = fmaf(a.y, w.y, q);
+      s += a.z; q = fmaf(a.z, w.z, q);
+      s += a.w; q = fmaf(a.w, w.w, q);
+    }
+  } else {
+    for (long i = tid; i < hw; i += 256) {
+      const float a = __ldg(pu + i);
+      s += a;
+      q = fmaf(a, __ldg(pv + i), q);
+    }
   }
-  if (lane == 0) {
-    s_red[warp][0] = s;
-    s_red[warp][1] = q;
-  }
-  __syncthreads();
-  if (tid < 2) {
-    float t = 0.f;
-    for (int w = 0; w < 8; ++w) t += s_red[w][tid];
-    stats[((long)b * 2 + tid) * c + ch] = t;
-  }
+  block_store(s, q, sums, c, ch, b);
 }
 
 }  // namespace
@@ -78,5 +127,18 @@ extern "C" int enc_stats_forward(const float* x, float* stats, int batch,
   enc_plane_stats_kernel<<<dim3(c, batch), 256, 0,
                            static_cast<cudaStream_t>(stream)>>>(x, stats, c,
                                                                 hw);
+  return (int)cudaGetLastError();
+}
+
+// u, v (B, C, H*W) fp32 contiguous -> sums (B, 2, C): sums of u, then sums
+// of u * v.  Returns the CUDA error code of the launch (0 on success).
+extern "C" int enc_dual_sums_forward(const float* u, const float* v,
+                                     float* sums, int batch, int c, long hw,
+                                     void* stream) {
+  if (batch < 1 || c < 1 || hw < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  enc_dual_sums_kernel<<<dim3(c, batch), 256, 0,
+                         static_cast<cudaStream_t>(stream)>>>(u, v, sums, c,
+                                                              hw);
   return (int)cudaGetLastError();
 }

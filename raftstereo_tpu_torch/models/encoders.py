@@ -3,9 +3,11 @@ PyTorch RAFT-Stereo so the weight bridge maps one to one.
 
 ``fused_stem=True`` (``config.fused_encoder``) runs the stem + layer1 and
 layer2 through the fused stages (``ops.encoder_stage``, CUDA kernels
-``csrc/enc_*.cu``); otherwise the plain convolutions and norms run (the
-JAX package's ``_plain_stem`` path).  The fused stages run inference
-only."""
+``csrc/enc_*.cu``, with the JAX package's hand-written backward); otherwise
+the plain convolutions and norms run (the JAX package's ``_plain_stem``
+path).  In training, gradients reach the frozen batch norms' weight and
+bias through ``encoder_stage.bn_affine``; their running statistics are
+buffers and get none."""
 
 from __future__ import annotations
 

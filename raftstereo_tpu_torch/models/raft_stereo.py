@@ -18,8 +18,9 @@ lookup (``ops.corr.corr_lookup``) and one update of the GRU levels.
   package's ``fused_encoder=False`` path).  True: both encoders run their
   stem + layer1 and layer2 through the fused stages
   (``ops.encoder_stage``, CUDA kernels ``csrc/enc_conv.cu``,
-  ``enc_stats.cu``, ``enc_finish.cu``), in test mode only: train mode
-  raises ``NotImplementedError`` (``config.check_trainable``).
+  ``enc_stats.cu``, ``enc_finish.cu``); in train mode their backward is
+  the JAX package's hand-written one (``ops.encoder_bwd``, with the
+  instance-norm backward's sums as ``enc_stats.cu``'s second kernel).
 
 * Test mode with ``gru_backend`` "auto" or "fused": the coarser levels,
   then one fused finest-level update (``ops.cuda_gru.gru_update``, CUDA
@@ -44,7 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import RAFTStereoConfig, check_supported, check_trainable
+from ..config import RAFTStereoConfig, check_supported
 from ..device import fp32_numerics, resolve_device
 from ..ops.corr import build_corr_state, corr_lookup
 from ..ops.cuda_gru import gru_update, pack_update_params
@@ -117,7 +118,6 @@ class RAFTStereo(nn.Module):
         if test_mode:
             with torch.inference_mode():
                 return self._forward(image1, image2, iters, flow_init, True)
-        check_trainable(self.config)
         return self._forward(image1, image2, iters, flow_init, False)
 
     def _forward(self, image1, image2, iters, flow_init, test_mode):

@@ -1,9 +1,9 @@
 """The fused encoder stages' kernels: ``csrc/enc_conv.cu`` (prep ->
 direct convolution -> + bias, with per-(image, channel) output sums),
-``csrc/enc_stats.cu`` (the sums of a tensor) and ``csrc/enc_finish.cu``
-(the stages' last elementwise pass), their plain PyTorch versions, and
-one wrapper per TPU kernel they replace, each with its own ``launches``
-count:
+``csrc/enc_stats.cu`` (the plane sums of a tensor, and the two sums of
+the instance-norm backward) and ``csrc/enc_finish.cu`` (the stages' last
+elementwise pass), their plain PyTorch versions, and one wrapper per TPU
+kernel they replace, each with its own ``launches`` count:
 
 =====================  ==================================================
 wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
@@ -15,6 +15,7 @@ wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
 ``plane_stats``        row 10, ``pallas_norm.py`` ``_in_stats_kernel`` as
                        ``pallas_encoder.py`` ``_packed_stats`` reaches it
 ``stage_finish``       row 11, ``pallas_encoder.py`` ``_enc_finish_kernel``
+``dual_sums``          row 14, ``pallas_encoder.py`` ``_dual_sum_kernel``
 ``l2_entry``           row 15, ``pallas_layer2.py`` ``_l2_entry_kernel``
 ``l2_conv``            row 16, ``pallas_layer2.py`` ``_l2_conv_kernel``,
                        ``_l2_conv_res_kernel``
@@ -65,6 +66,12 @@ def prep(x: torch.Tensor, aff: Affine, relu: bool = True) -> torch.Tensor:
 def stats_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 (sum, sum of squares) over (H, W), each (B, C)."""
     return y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
+
+
+def dual_sums_plain(u: torch.Tensor, v: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (sum of u, sum of u*v) over (H, W), each (B, C)."""
+    return u.sum(dim=(2, 3)), (u * v).sum(dim=(2, 3))
 
 
 def conv_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -283,6 +290,34 @@ def plane_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return stats[:, 0], stats[:, 1]
 
 
+def dual_sums(u: torch.Tensor, v: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (sum of u, sum of u*v) of each (image, channel) plane of two
+    tensors of one shape: the instance-norm backward's two reductions
+    (row 14)."""
+    if _on_cpu(u, v):
+        return dual_sums_plain(u, v)
+    dev = _check("dual_sums", u, v)
+    if u.shape != v.shape or u.dim() != 4:
+        raise ValueError(f"dual_sums: shapes {tuple(u.shape)} and "
+                         f"{tuple(v.shape)}; want one (B, C, H, W) shape")
+    b, c, h, w = u.shape
+    sums = torch.empty((b, 2, c), dtype=torch.float32, device=dev)
+    fn = _build.load("enc_stats").enc_dual_sums_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                           ctypes.c_long, ctypes.c_void_p]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(u.data_ptr(), v.data_ptr(), sums.data_ptr(), b, c, h * w,
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"dual_sums kernel launch failed: CUDA error "
+                           f"{rc}")
+    dual_sums.launches += 1
+    return sums[:, 0], sums[:, 1]
+
+
 def _finish_cuda(name, a, aff_a, b, aff_b, c, aff_c, a_relu):
     dev = _check(name, a, b, c, *aff_a, *aff_b, *aff_c)
     if not a.shape == b.shape == c.shape:
@@ -333,6 +368,6 @@ def l2_finish(p: torch.Tensor, aff_p: Affine, c2: torch.Tensor,
 
 
 WRAPPERS = (stem_conv7, stem_conv7_s2, stage_conv, plane_stats,
-            stage_finish, l2_entry, l2_conv, l2_finish)
+            stage_finish, l2_entry, l2_conv, l2_finish, dual_sums)
 for _fn in WRAPPERS:
     _fn.launches = 0

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_encoder_train import few_threads  # noqa: F401 autouse
 
 from raftstereo_tpu import RAFTStereoConfig as JaxConfig
 from raftstereo_tpu.models import RAFTStereo as JaxModel

@@ -304,6 +304,73 @@ def test_encoder_wrappers_raise_instead_of_falling_back(dev):
                                 bias)
     with pytest.raises(ValueError):  # float64
         cuda_encoder.plane_stats(x.double())
+    with pytest.raises(ValueError):  # one operand on the CPU
+        cuda_encoder.dual_sums(x, x.cpu())
+    with pytest.raises(ValueError):  # shapes differ
+        cuda_encoder.dual_sums(x, x[:, :32].contiguous())
+    with pytest.raises(ValueError):  # a non-contiguous operand
+        cuda_encoder.dual_sums(x, x.transpose(2, 3))
+
+
+# Hostile shapes: H*W odd and not a multiple of 4 (the scalar path), one
+# plane smaller than the block, the recipe's 230,400-pixel planes.
+@pytest.mark.parametrize("shape", [(2, 64, 13, 7), (1, 8, 3, 5),
+                                   (2, 64, 320, 720)])
+def test_dual_sums_kernel_matches_plain(dev, shape):
+    """Row 14: (sum of u, sum of u*v) per plane, bitwise repeatable,
+    within 1e-5 of max(1, |plain|) per pixel (fp32 sums of up to 230,400
+    terms in another order)."""
+    rng = np.random.default_rng(shape[2])
+    u = _randn(rng, *shape).to(dev)
+    v = (_randn(rng, *shape) * 2 + 0.5).to(dev)
+    k1, k2, want = _twice(cuda_encoder.dual_sums, u, v)
+    n = shape[2] * shape[3]
+    for a, b, w in zip(k1, k2, want):
+        assert torch.equal(a, b)
+        scale = max(1.0, float((w / n).abs().max()))
+        assert float(((a.cpu() - w) / n).abs().max()) <= 1e-5 * scale
+
+
+def test_fused_train_step_on_card_matches_cpu(dev, monkeypatch):
+    """A ``fused_encoder=True`` train step on the card (kernels, every
+    plain version patched to raise) against the CPU (plain versions):
+    loss within 1e-4 relative, every gradient within 1e-3 of the largest
+    CPU entry.  At batch 1 fnet's 2 images take the conv1 stage, whose
+    backward takes 5 dual sums; cnet's frozen-BN stage takes none."""
+    from raftstereo_tpu_torch.train.loss import sequence_loss
+
+    cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                           corr_levels=2, corr_radius=2, fused_encoder=True)
+    rng = np.random.default_rng(6)
+    batch = [torch.from_numpy(rng.uniform(0, 255, (1, 32, 48, 3))
+                              .astype(np.float32)) for _ in range(2)]
+    batch += [torch.from_numpy(-rng.uniform(1, 20, (1, 32, 48, 1))
+                               .astype(np.float32)), torch.ones(1, 32, 48)]
+    out = []
+    for device in (torch.device("cpu"), dev):
+        if device.type == "cuda":
+            def boom(*a, **k):
+                raise AssertionError("a plain version ran on the card path")
+
+            for name in ("conv_plain", "entry_plain", "finish_plain",
+                         "stats_plain", "dual_sums_plain", "prep"):
+                monkeypatch.setattr(cuda_encoder, name, boom)
+            for fn in cuda_encoder.WRAPPERS:
+                fn.launches = 0
+        m = RAFTStereo(cfg, device=device, seed=4)
+        preds = m(*(t.to(device) for t in batch[:2]), iters=3,
+                  test_mode=False)
+        loss, _ = sequence_loss(preds, *(t.to(device) for t in batch[2:]))
+        loss.backward()
+        out.append((float(loss.detach()),
+                    {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    assert cuda_encoder.dual_sums.launches == 5
+    assert cuda_encoder.stem_conv7.launches == 2
+    (lc, gc), (lg, gg) = out
+    assert lg == pytest.approx(lc, rel=1e-4)
+    gmax = max(float(t.abs().max()) for t in gc.values())
+    for k in gc:
+        assert float((gg[k] - gc[k]).abs().max()) <= 1e-3 * gmax, k
 
 
 @pytest.mark.parametrize("batch", [1, 3])
@@ -336,7 +403,7 @@ def test_fused_encoder_on_card_never_runs_plain(dev, batch, monkeypatch):
     assert got == {"stem_conv7": 2 - big, "stem_conv7_s2": 0,
                    "stage_conv": 8, "plane_stats": int(big),
                    "stage_finish": 2, "l2_entry": 2, "l2_conv": 6,
-                   "l2_finish": 2}
+                   "l2_finish": 2, "dual_sums": 0}
     torch.testing.assert_close(lo_g.cpu(), lo_c, rtol=0, atol=2e-3)
     torch.testing.assert_close(up_g.cpu(), up_c, rtol=0, atol=5e-3)
 

@@ -252,17 +252,3 @@ def test_model_fused_encoder_matches_jax(fused_pair, batch):
     assert np.abs(np.asarray(lo)).max() > 1.0
     np.testing.assert_allclose(plo.numpy(), np.asarray(lo), rtol=0, atol=2e-3)
     np.testing.assert_allclose(pup.numpy(), np.asarray(up), rtol=0, atol=5e-3)
-
-
-def test_train_refuses_fused_encoder(tmp_path):
-    """Training through the fused stages waits for their backward (ROADMAP
-    Queue 2 row 14): ``cli.train.train`` refuses before its first step."""
-    from raftstereo_tpu_torch.cli.train import train
-    from raftstereo_tpu_torch.config import TrainConfig
-
-    cfg = TrainConfig(checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="Queue 2 row 14"):
-        train(RAFTStereoConfig(fused_encoder=True, **TINY), cfg,
-              no_validation=True, device="cpu", log_dir=str(tmp_path))
-    assert not any(tmp_path.iterdir())
-

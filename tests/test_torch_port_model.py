@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_encoder_train import few_threads  # noqa: F401 autouse
 
 from raftstereo_tpu import RAFTStereoConfig as JaxConfig
 from raftstereo_tpu.models import RAFTStereo as JaxModel
@@ -153,14 +154,13 @@ def test_forward_xla_gru_matches_jax(tiny_pair):
 
 @pytest.mark.parametrize("field,value", [
     ("corr_dtype", "bfloat16"), ("corr_precision", "high"),
-    ("fused_encoder", True), ("corr_precision", "default"),
+    ("corr_precision", "default"),
     ("compute_dtype", "bfloat16"), ("shared_backbone", True),
     ("input_mode", "sl"), ("spatial_shards", 2), ("context_norm", "group"),
     ("context_norm", "none"), ("slow_fast_gru", True)])
 def test_unported_config_raises(field, value):
-    """Every listed value is refused, naming its ROADMAP item.
-    ``fused_encoder=True`` builds and serves, but a train-mode forward
-    raises (its stages' backward is not ported)."""
+    """Every listed value is refused, naming its ROADMAP item, by the
+    constructor or at the latest by a train-mode forward."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model = RAFTStereo(RAFTStereoConfig(**{field: value}), device="cpu")
         img = torch.zeros((1, 32, 48, 3))

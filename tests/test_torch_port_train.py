@@ -24,6 +24,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from test_torch_port_encoder_train import few_threads  # noqa: F401 autouse
 
 from raftstereo_tpu import RAFTStereoConfig as JaxConfig
 from raftstereo_tpu.config import TrainConfig as JaxTrainConfig
