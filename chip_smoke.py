@@ -48,9 +48,18 @@ kernel at its exact per-step launches (``FUSED_PER_STEP`` and the
 lookup pair), step wall times and peak memory beside the plain
 training path's; (15) one 64x96 fused step card vs CPU (the conv1-stage
 backward).  Every training phase also checks that no kernel off its path
-launched.  Prints a ``{"kernels": [...]}`` line, one row per kernel and
-path (the path's launches beside the times and bound at its shapes),
-and, last, ``{"ok": true, "device": ...}``.
+launched.  Then bf16 serving (``compute_dtype="bfloat16"``, the JAX
+package's ``--mixed_precision``): (16) hold the bf16 forms of the lookup
+and the fused update and the lookup with convc1 fused in (bf16 feature
+maps, the serving shapes) against their plain versions, in bf16 ulps;
+(17) serve three requests with bf16 compute and bf16 feature maps through
+the fused update (32 bf16 lookups and 32 bf16 updates per request) and
+three through the module step (32 fused-convc1 lookups per request, no
+other counted kernel), replies bitwise equal to direct engine calls;
+(18) hold each bf16 path's card forward against the CPU's with the card's
+encoder outputs pinned.  Prints a ``{"kernels": [...]}`` line, one row
+per kernel and path (the path's launches beside the times and bound at
+its shapes), and, last, ``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a GPU or without the repo.
 """
 
@@ -71,9 +80,11 @@ import urllib.request
 import numpy as np
 
 # H100 SXM data sheet: HBM rate, fp32 rate outside the tensor cores (TF32
-# is off on the port's fp32 path) and the dense int8 tensor-core rate.
+# is off on the port's fp32 path), the dense bf16 and int8 tensor-core
+# rates.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_INT8_OPS_PER_S = 1979e12
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the card's clock: time_ms's stream hold
 
@@ -115,6 +126,21 @@ FUSED_PER_STEP = {"stage_conv": 8, "plane_stats": 1, "stage_finish": 2,
 # round each product and each sum once, in the same order, and the int8
 # product is exact.
 VOL_STEPS = 3          # training steps with corr_implementation="pallas"
+# bf16 kernels against their plain versions, in bf16 ulps of max(1,
+# |plain|) per element (2^-7): the lookup's fp32 sums in another order
+# round to the same bf16 value but at a rounding boundary; the fused
+# convc1 adds a 36-term sum; the update carries a flip in one conv's
+# output through the six convs after it (measured 5.5 ulps at most at
+# the serving shapes), so it is also held to a share of elements equal.
+BF16_ULP = 2.0 ** -7
+LOOKUP_BF16_ULPS, EPI_ULPS, UPDATE_BF16_ULPS = 1.0, 2.0, 8.0
+UPDATE_BF16_EQUAL = 0.8
+BF16_ITERS = 2   # card-vs-CPU bf16 forwards: iterations
+# px, low-res / full-res, encoders pinned: on the CPU, the same forward
+# with the loop's bf16 convs summed in another order moved the flagship's
+# O(45) px disparities by 0.13-0.38 / 0.17-0.64 px after 2 iterations,
+# against a bf16-vs-fp32 gap of 2.2-2.4 / 3.3-3.6 px.
+BF16_FORWARD_TOL = (1.0, 1.5)
 # Source and replaced TPU kernel of each volume kernel row.
 VOLUME_SITES = {
     "vol_lookup": ("corr_vol", "raftstereo_tpu/ops/pallas_corr.py:262"),
@@ -165,9 +191,10 @@ def time_ms(fn, reps: int, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float, int8_ops: float = 0.0):
+def bound(nbytes: float, flops: float, int8_ops: float = 0.0,
+          bf16_flops: float = 0.0):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_FP32_FLOP_PER_S
+    t_ops = (flops / PEAK_FP32_FLOP_PER_S + bf16_flops / PEAK_BF16_FLOP_PER_S
              + int8_ops / PEAK_INT8_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -757,13 +784,173 @@ def volume_kernel_phase(cfg, lo_hw, torch):
     return rows
 
 
+def ulps(got, want) -> float:
+    """Largest difference in bf16 ulps of max(1, |want|) (2^-7 each)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max()
+                 ) / BF16_ULP
+
+
+def bf16_kernel_phase(model, lo_hw, torch):
+    """The bf16 kernels against their plain versions at the bf16 serving
+    shapes (144x240, C=256, bf16 feature maps, hidden 128): the lookup's
+    bf16 form (path ``serve_bf16``), the lookup with convc1 fused in
+    (``serve_bf16_xla``) and the update's bf16 form (``serve_bf16``);
+    one timed row each."""
+    from raftstereo_tpu_torch.ops import cuda_alt, cuda_gru
+    from raftstereo_tpu_torch.ops.corr import build_corr_state
+
+    cfg = model.config
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(4)
+    h, w = lo_hw
+    c, hd, r = model.feature_dim, cfg.hidden_dims[0], cfg.corr_radius
+    k = 2 * r + 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    state = build_corr_state(randn(1, h, w, c), randn(1, h, w, c),
+                             cfg.corr_levels, corr_dtype=bf)
+    disp = -60.0 * torch.rand((1, h, w), generator=g).to(dev)
+    x = (torch.arange(w, device=dev, dtype=torch.float32) + disp).contiguous()
+    valid = 0  # (pixel, level, column) window dots inside the level
+    for lvl, w2 in enumerate(state.widths):
+        b0 = torch.floor(x / 2 ** lvl)
+        for d in range(k + 1):
+            j = b0 + (d - r)
+            valid += int(((j >= 0) & (j <= w2 - 1)).sum())
+    npix, lk = x.numel(), cfg.cor_planes
+    fbytes = 2 * (state.fmap1.numel() + state.f2cat.numel()) + 4 * npix
+    rows = []
+
+    def row(name, path, src, replaces, kern, plain, tol, nbytes, flops,
+            bf16_flops, reps, min_equal=0.0, **extra):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        outs = list(zip(_leaves(got), _leaves(want)))
+        err = max(ulps(a, b) for a, b in outs)
+        abs_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in outs)
+        equal = min(float((a == b).float().mean()) for a, b in outs)
+        print(f"{name} ({path}) max {err:.3f} bf16 ulps, max_abs_err "
+              f"{abs_err:.3e}, {equal:.5f} of elements equal (tol {tol} "
+              f"ulps, {min_equal} equal)")
+        check(all(a.dtype == bf for a, _ in outs), f"{name}: not bf16")
+        check(err <= tol and equal >= min_equal,
+              f"{name} ({path}) disagrees with its plain version by {err} "
+              f"bf16 ulps, {equal} of elements equal")
+        ms, plain_ms = time_ms(kern, reps), time_ms(plain, 5)
+        bound_ms, bound_by = bound(nbytes, flops, bf16_flops=bf16_flops)
+        print(f"{name} ({path}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bound_ms:.4f} ({bound_by}) {extra}")
+        rows.append(dict(name=name, path=path, route="cuda",
+                         source=f"raftstereo_tpu_torch/csrc/{src}.cu",
+                         replaces=replaces, max_abs_err=abs_err,
+                         max_bf16_ulps=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None, **extra))
+
+    row("alt_corr", "serve_bf16", "alt_corr",
+        "raftstereo_tpu/ops/pallas_alt.py:158",
+        lambda: cuda_alt.alt_corr(state.fmap1, state.f2cat, state.widths, x,
+                                  r, bf),
+        lambda: cuda_alt.alt_corr_plain(state.fmap1, state.f2cat,
+                                        state.widths, x, r, bf),
+        LOOKUP_BF16_ULPS, fbytes + 2 * npix * lk, 3 * npix * lk,
+        2 * c * valid, 50)
+    c1 = model.update_block.encoder.convc1
+    ew = c1.weight.detach()[:, :, 0, 0].t().to(bf).contiguous()
+    eb = c1.bias.detach().to(bf).contiguous()
+    row("alt_corr_epi", "serve_bf16_xla", "alt_corr_epi",
+        "raftstereo_tpu/ops/pallas_alt.py:172",
+        lambda: cuda_alt.alt_corr_epi(state.fmap1, state.f2cat, state.widths,
+                                      x, r, ew, eb),
+        lambda: cuda_alt.alt_corr_epi_plain(state.fmap1, state.f2cat,
+                                            state.widths, x, r, ew, eb),
+        EPI_ULPS, fbytes + 2 * (ew.numel() + eb.numel() + npix * 64),
+        3 * npix * lk + 2 * npix * 64, 2 * c * valid + 2 * npix * lk * 64,
+        50)
+
+    n = cfg.n_gru_layers
+    e = cfg.hidden_dims[1] if n > 1 else 0
+    wpack = cuda_gru.pack_update_params(model.update_block, e, bf)
+    args = (torch.tanh(randn(1, h, w, hd)).to(bf),
+            torch.tanh(randn(1, h, w, e)).to(bf) if e else None,
+            randn(1, h, w, lk).to(bf), disp[..., None].contiguous(),
+            randn(1, h, w, hd).to(bf), randn(1, h, w, hd).to(bf),
+            randn(1, h, w, hd).to(bf))
+    macs = (lk * 64 + 9 * 64 * 64 + 49 * 64 + 9 * 64 * 64 + 9 * 128 * 126
+            + 9 * (hd + 127 + e) * 3 * hd + 9 * hd * 256 + 9 * 256 * 2)
+    nbytes = (2 * sum(a.numel() for a in args if a is not None)
+              - 2 * npix + 4 * npix
+              + 2 * sum(v.numel() for v in wpack.values())
+              + 2 * npix * (hd + 2))
+    row("gru_update", "serve_bf16", "gru_update",
+        "raftstereo_tpu/ops/pallas_gru.py:261",
+        lambda: cuda_gru.gru_update(*args, wpack),
+        lambda: cuda_gru.gru_update_plain(*args, wpack),
+        UPDATE_BF16_ULPS, nbytes, npix * 12 * hd, 2 * macs * npix, 20,
+        min_equal=UPDATE_BF16_EQUAL,
+        bound_cuda_core_ms=bound(nbytes, npix * (2 * macs + 12 * hd))[0])
+    return rows
+
+
+def bf16_forward_card_vs_cpu(model, rng, torch):
+    """A bf16 model's card forward (kernels) against the CPU's (plain
+    versions) on a 64x96 pair, with the card's encoder outputs pinned in
+    the CPU forward: the encoders' bf16 convs round about one output in
+    10^4 to the other side on the card, instance norm spreads such a flip
+    over its channel, and the random-weight GRU grows that noise as fast
+    as bf16's own rounding.  Pinned, what is compared is the rest of the
+    forward: the context convs, the bf16 correlation state, every
+    iteration's kernels and the upsampling.  The gap of the CPU's bf16
+    forward to its fp32 one (unpinned) is printed beside the tolerance,
+    which must lie below it."""
+    from raftstereo_tpu_torch import RAFTStereo
+
+    cfg = model.config
+    cpu_model = copy.deepcopy(model).to("cpu")
+    f32_model = RAFTStereo(dataclasses.replace(
+        cfg, compute_dtype="float32", corr_dtype="float32"), device="cpu")
+    f32_model.load_state_dict(cpu_model.state_dict())
+    i1, i2 = (torch.from_numpy(rng.uniform(0, 255, (1, 64, 96, 3))
+                               .astype(np.float32)) for _ in range(2))
+    seen = {}
+    cnet, fnet = model.cnet.forward, model.fnet.forward
+    model.cnet.forward = lambda x: seen.setdefault("cnet", cnet(x))
+    model.fnet.forward = lambda x: seen.setdefault("fnet", fnet(x))
+    try:
+        lo_g, up_g = model(i1.cuda(), i2.cuda(), iters=BF16_ITERS)
+    finally:
+        del model.cnet.forward, model.fnet.forward
+    cpu_model.cnet.forward = lambda x: [[t.cpu() for t in lvl]
+                                        for lvl in seen["cnet"]]
+    cpu_model.fnet.forward = lambda x: seen["fnet"].cpu()
+    lo_c, up_c = cpu_model(i1, i2, iters=BF16_ITERS)
+    lo_f, up_f = f32_model(i1, i2, iters=BF16_ITERS)
+    tag = f"bf16 {cfg.corr_dtype} corr, {cfg.gru_backend} GRU "
+    for name, a, b, f, tol in (
+            ("low-res", lo_g.cpu(), lo_c, lo_f, BF16_FORWARD_TOL[0]),
+            ("full-res", up_g.cpu(), up_c, up_f, BF16_FORWARD_TOL[1])):
+        err = float((a - b).abs().max())
+        gap = float((b - f).abs().max())
+        print(f"{tag}forward {name} card vs cpu (encoders pinned) max_abs_err "
+              f"{err:.3e} (tol {tol}); cpu bf16 vs fp32 {gap:.3e}")
+        check(bool(torch.isfinite(a).all()) and err <= tol < gap,
+              f"card {tag}forward differs from the CPU forward ({name}: "
+              f"{err}, tol {tol}, bf16-vs-fp32 gap {gap})")
+
+
 def serving_wrappers():
     """Every counted kernel wrapper a served request may launch."""
     from raftstereo_tpu_torch.ops import (cuda_alt, cuda_encoder, cuda_gru,
                                          cuda_vol, quant)
 
-    return ((cuda_alt.alt_corr, cuda_gru.gru_update, cuda_vol.vol_lookup,
-             quant.int8_corr_volume) + cuda_encoder.WRAPPERS)
+    return ((cuda_alt.alt_corr, cuda_alt.alt_corr_epi, cuda_gru.gru_update,
+             cuda_vol.vol_lookup, quant.int8_corr_volume)
+            + cuda_encoder.WRAPPERS)
 
 
 def serve_phase(model, scfg, pairs, torch):
@@ -1009,6 +1196,7 @@ def main() -> int:
     rows += encoder_kernel_phase(model, bucket, torch)
     rows += train_fused_kernel_phase(model, torch)
     rows += volume_kernel_phase(cfg, lo_hw, torch)
+    rows += bf16_kernel_phase(model, lo_hw, torch)
 
     def want(**per_request):
         return {fn.__name__: REQUESTS * per_request.get(fn.__name__, 0)
@@ -1018,7 +1206,10 @@ def main() -> int:
         got = serve_phase(model, scfg, pairs, torch)
         check(got == want(**per_request), f"{model.config}: launches {got}, "
                                           f"want {want(**per_request)}")
-        forward_card_vs_cpu(model, rng, torch)
+        if model.config.compute_dtype == "bfloat16":
+            bf16_forward_card_vs_cpu(model, rng, torch)
+        else:
+            forward_card_vs_cpu(model, rng, torch)
         return got
 
     rng = np.random.default_rng(0)
@@ -1029,11 +1220,12 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
-    # The fused encoder stages, then the precomputed-volume backends, on
-    # the same serving path.  The volume backends' card-vs-CPU pairs come
-    # from their own generator: the earlier phases' inputs stay as they
-    # were.
-    vol_rng = np.random.default_rng(1)
+    # The fused encoder stages, then the precomputed-volume backends, then
+    # bf16 serving, on the same serving path.  The volume backends' and
+    # the bf16 paths' card-vs-CPU pairs come from their own generators:
+    # the earlier phases' inputs stay as they were.
+    vol_rng, bf16_rng = np.random.default_rng(1), np.random.default_rng(2)
+    bf16 = dict(compute_dtype="bfloat16", corr_dtype="bfloat16")
     for path, kw, per_request, r in (
             ("serve_fused", dict(fused_encoder=True),
              dict(FUSED_PER_REQUEST, alt_corr=ITERS, gru_update=ITERS), rng),
@@ -1042,7 +1234,11 @@ def main() -> int:
             ("serve_quant", dict(corr_implementation="auto",
                                  gru_backend="auto", corr_quant=True),
              dict(vol_lookup=ITERS, gru_update=ITERS, int8_corr_volume=1),
-             vol_rng)):
+             vol_rng),
+            ("serve_bf16", bf16, dict(alt_corr=ITERS, gru_update=ITERS),
+             bf16_rng),
+            ("serve_bf16_xla", dict(bf16, gru_backend="xla"),
+             dict(alt_corr_epi=ITERS), bf16_rng)):
         m = RAFTStereo(dataclasses.replace(cfg, **kw), device="cuda", seed=0)
         by_path[path] = serve_and_check(m, per_request, r)
         del m

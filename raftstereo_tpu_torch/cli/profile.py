@@ -1,7 +1,8 @@
 """Where one served request's, or one training step's, device time goes.
 
     python -m raftstereo_tpu_torch.cli.profile [--fused_encoder]
-        [--corr_implementation IMPL] [--corr_quant]
+        [--corr_implementation IMPL] [--corr_quant] [--gru_backend GRU]
+        [--mixed_precision [--corr_dtype bfloat16]]
     python -m raftstereo_tpu_torch.cli.profile --train [--remat]
         [--fused_encoder] [--corr_implementation IMPL]
 
@@ -10,7 +11,9 @@ warms the engine at the 540x960 bucket and 32 iterations (the serving
 path of ``chip_smoke.py``) and profiles one ``BatchEngine.infer_batch``
 call (``--fused_encoder``: with the fused encoder stages,
 ``RAFTStereoConfig(fused_encoder=True)``; ``--corr_implementation`` and
-``--corr_quant`` pick the correlation backend and the int8 volume); with
+``--corr_quant`` pick the correlation backend and the int8 volume,
+``--gru_backend`` the GRU step, ``--mixed_precision`` and ``--corr_dtype``
+bf16 serving); with
 ``--train`` it profiles one training step of the recipe (batch 6,
 320x720, 16 iterations, ``train.step.make_train_step``) after one warm-up
 step; ``--remat`` recomputes each iteration in the backward pass, and
@@ -22,7 +25,7 @@ time of the kernels, the device busy time
 and idle share (1 - busy / wall), the peak device memory over the
 profiled call, and device time by kernel, grouped by the port's CUDA
 sources (``enc_conv``, ``enc_stats``, ``dual_sums`` (the second kernel of
-``enc_stats.cu``), ``enc_finish``, ``alt_corr``,
+``enc_stats.cu``), ``enc_finish``, ``alt_corr``, ``alt_corr_epi``,
 ``alt_corr_bwd``, ``corr_vol``, ``corr_vol_bwd``, ``int8_volume``,
 ``gru_update``) and by
 cuDNN/cuBLAS convolutions and products ("conv").  Needs a GPU.
@@ -50,12 +53,13 @@ _GROUPS = {"enc_conv": ("enc_conv_kernel", "enc_conv_stats_kernel"),
            "dual_sums": ("enc_dual_sums_kernel",),
            "enc_finish": ("enc_finish_kernel",),
            "alt_corr": ("alt_corr_kernel",),
+           "alt_corr_epi": ("alt_corr_epi_kernel",),
            "alt_corr_bwd": ("alt_corr_bwd_kernel",),
            "corr_vol": ("corr_vol_kernel",),
            "corr_vol_bwd": ("corr_vol_bwd_kernel",),
            "int8_volume": ("int8_volume_kernel",),
            "gru_update": ("conv_nhwc_kernel", "reset_gate_kernel",
-                          "conv3x3_few_out_kernel"),
+                          "conv3x3_few_out_kernel", "round_disp_kernel"),
            "conv": ("cudnn", "xmma", "conv", "gemm", "wgrad", "dgrad",
                     "fprop", "sgemm")}
 
@@ -72,11 +76,14 @@ TRAIN_BATCH, TRAIN_HW, TRAIN_ITERS = 6, (320, 720), 16
 
 
 def _serve_call(fused_encoder: bool, corr_implementation: str,
-                corr_quant: bool):
+                corr_quant: bool, gru_backend: str = "auto",
+                mixed_precision: bool = False, corr_dtype: str = "float32"):
     h, w = HW
+    compute = "bfloat16" if mixed_precision else "float32"
     cfg = RAFTStereoConfig(fused_encoder=True if fused_encoder else None,
                            corr_implementation=corr_implementation,
-                           corr_quant=corr_quant)
+                           corr_quant=corr_quant, gru_backend=gru_backend,
+                           compute_dtype=compute, corr_dtype=corr_dtype)
     model = RAFTStereo(cfg, device="cuda", seed=0)
     engine = BatchEngine(model, ServeConfig(buckets=(HW,), serve_iters=ITERS))
     engine.warmup()
@@ -85,7 +92,9 @@ def _serve_call(fused_encoder: bool, corr_implementation: str,
                  for _ in range(2))
     return lambda: engine.infer_batch([pair]), {
         "bucket": [h, w], "iters": ITERS, "fused_encoder": fused_encoder,
-        "corr_implementation": corr_implementation, "corr_quant": corr_quant}
+        "corr_implementation": corr_implementation, "corr_quant": corr_quant,
+        "gru_backend": gru_backend, "compute_dtype": compute,
+        "corr_dtype": corr_dtype}
 
 
 def _train_call(remat: bool, corr_implementation: str,
@@ -134,16 +143,29 @@ def main(argv=None) -> int:
                    default="auto", help="correlation backend")
     p.add_argument("--corr_quant", action="store_true",
                    help="serve with the int8 correlation volume")
+    p.add_argument("--gru_backend", choices=["auto", "fused", "xla"],
+                   default="auto", help="test-mode GRU step")
+    p.add_argument("--mixed_precision", action="store_true",
+                   help="serve in bf16 (compute_dtype='bfloat16')")
+    p.add_argument("--corr_dtype", choices=["float32", "bfloat16"],
+                   default="float32",
+                   help="storage dtype of the lookup's feature maps")
     args = p.parse_args(argv)
     if args.remat and not args.train:
         p.error("--remat needs --train")
     if args.corr_quant and args.train:
         p.error("--corr_quant serves only: training builds the fp32 volume")
+    if args.train and (args.mixed_precision or args.corr_dtype != "float32"
+                       or args.gru_backend != "auto"):
+        p.error("--mixed_precision, --corr_dtype and --gru_backend are "
+                "serving options")
     train = args.train
     call, what = (_train_call(args.remat, args.corr_implementation,
                               args.fused_encoder) if train
                   else _serve_call(args.fused_encoder,
-                                   args.corr_implementation, args.corr_quant))
+                                   args.corr_implementation, args.corr_quant,
+                                   args.gru_backend, args.mixed_precision,
+                                   args.corr_dtype))
     call()  # warm-up: kernel builds, cuDNN plans, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()

@@ -2,7 +2,12 @@
 
     python -m raftstereo_tpu_torch.cli.serve --port 8080 --buckets 540x960 \
         --serve_iters 32 [--corr_implementation pallas] [--corr_quant] \
-        [--gru_backend fused] [--device cuda] [--weights_npz PATH]
+        [--gru_backend fused] [--mixed_precision [--corr_dtype bfloat16]] \
+        [--device cuda] [--weights_npz PATH]
+
+``--mixed_precision`` serves in bf16 (``compute_dtype="bfloat16"``, the
+JAX package's flag); ``--corr_dtype bfloat16`` also stores the on-demand
+lookup's feature maps in bf16.  Replies are fp32 either way.
 
 Without ``--weights_npz`` the model has seeded random weights.  ``--weights_npz`` is a flattened JAX ``variables`` tree
 (``utils.convert.flatten_variables`` saved with ``np.savez``), loaded
@@ -64,6 +69,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    choices=["auto", "fused", "xla"],
                    help="test-mode GRU step: 'auto' = the fused update "
                         "kernel")
+    g.add_argument("--mixed_precision", action="store_true",
+                   help="bfloat16 compute for encoders and GRUs")
+    g.add_argument("--corr_dtype", choices=["float32", "bfloat16"],
+                   default=m.corr_dtype,
+                   help="storage dtype of the correlation lookup's "
+                        "feature maps")
     return p.parse_args(argv)
 
 
@@ -78,7 +89,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         corr_levels=args.corr_levels, corr_radius=args.corr_radius,
         n_gru_layers=args.n_gru_layers, hidden_dims=tuple(args.hidden_dims),
         corr_implementation=args.corr_implementation,
-        corr_quant=args.corr_quant, gru_backend=args.gru_backend)
+        corr_quant=args.corr_quant, gru_backend=args.gru_backend,
+        compute_dtype="bfloat16" if args.mixed_precision else "float32",
+        corr_dtype=args.corr_dtype)
     scfg = ServeConfig(host=args.host, port=args.port,
                        divis_by=args.divis_by,
                        bucket_multiple=args.bucket_multiple,

@@ -13,9 +13,16 @@ says, as the JAX package does.  Inference takes the fused finest-level
 GRU update (a CUDA kernel) or the module step, training always the module
 step.  The encoders are the plain ones, or with ``fused_encoder=True`` the
 fused stem + layer1 and layer2 stages (CUDA kernels, and their
-hand-written backward in training).  Every other field value that
-selects another path raises ``NotImplementedError`` naming the ROADMAP
-item that will add it.
+hand-written backward in training).
+
+``compute_dtype="bfloat16"`` (the JAX package's ``--mixed_precision``)
+runs test-mode inference in bf16 with the plain encoders and any backend;
+``corr_dtype="bfloat16"`` then stores the on-demand lookup's feature maps
+in bf16 (``pallas_alt``; ``reg`` and ``alt`` build in fp32 whatever it
+says, as the JAX package does).  ``check_dtypes`` refuses the bf16
+combinations outside those paths, and a bf16 model refuses a train-mode
+forward.  Every other field value that selects another path raises
+``NotImplementedError`` naming the ROADMAP item that will add it.
 """
 
 from __future__ import annotations
@@ -83,8 +90,8 @@ _SUPPORTED = (
     ("corr_implementation", CORR_IMPLEMENTATIONS, "Queue 1 item 2"),
     ("gru_backend", ("auto", "fused", "xla"), "Queue 1 item 3"),
     ("corr_quant", (False, True), "Queue 1 item 7"),
-    ("compute_dtype", ("float32",), "Queue 1 item 3 (bf16 compute)"),
-    ("corr_dtype", ("float32",), "Queue 1 item 7 (bf16 correlation)"),
+    ("compute_dtype", ("float32", "bfloat16"), "Queue 1 item 3"),
+    ("corr_dtype", ("float32", "bfloat16"), "Queue 1 item 7"),
     ("corr_precision", ("highest",),
      "Queue 1 item 2 (corr_precision high/default: reduced-precision "
      "volume and lookup products)"),
@@ -108,6 +115,37 @@ def check_supported(config: RAFTStereoConfig) -> None:
             raise NotImplementedError(
                 f"{field}={v!r} is not ported yet (supported: {list(ok)}); "
                 f"see ROADMAP.md {item}")
+    check_dtypes(config)
+
+
+def check_dtypes(config: RAFTStereoConfig) -> None:
+    """The bf16 paths of this slice: bf16 compute with the plain encoders,
+    the on-demand lookup with bf16 or fp32 feature maps, ``reg``/``alt``
+    (fp32 lookups cast to bf16) and ``pallas`` with its fp32 volume.  Train
+    mode in bf16 is refused at ``forward`` (``RAFTStereo``)."""
+    from .ops.corr import resolve_implementation
+
+    bf16 = config.compute_dtype == "bfloat16"
+    corr_bf16 = config.corr_dtype == "bfloat16"
+    backend = resolve_implementation(config.corr_implementation,
+                                     config.corr_quant)
+    refusals = (
+        (corr_bf16 and not bf16,
+         "corr_dtype='bfloat16' with compute_dtype='float32' (bf16 "
+         "correlation at fp32 compute) is not ported yet; see ROADMAP.md "
+         "Queue 1 item 7"),
+        (bf16 and config.corr_quant,
+         "corr_quant=True with compute_dtype='bfloat16' (the int8 tier) is "
+         "not ported yet; see ROADMAP.md Queue 1 item 7"),
+        (bf16 and corr_bf16 and backend == "pallas",
+         "corr_implementation='pallas' with corr_dtype='bfloat16' (the bf16 "
+         "volume) is not ported yet; see ROADMAP.md Queue 1 item 7"),
+        (bf16 and config.fused_encoder is True,
+         "fused_encoder=True with compute_dtype='bfloat16' (bf16 forms of "
+         "the encoder kernels) is not ported yet; see ROADMAP.md Queue 2"))
+    for refused, msg in refusals:
+        if refused:
+            raise NotImplementedError(msg)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,6 +32,15 @@ lookup (``ops.corr.corr_lookup``) and one update of the GRU levels.
   with that iteration's mask, and with ``remat`` recomputes each
   iteration in the backward pass (``torch.utils.checkpoint``).
 
+* ``compute_dtype="bfloat16"`` (test mode only): the images are
+  normalised in fp32 and cast, the encoders and GRUs run in bf16 (fp32
+  parameters cast at use, as flax does), the disparity stays fp32 and
+  each delta is cast to fp32, and the mask is cast to fp32 before the
+  convex upsampling.  The fused step takes the bf16 forms of the lookup
+  and update kernels; the module step of ``pallas_alt`` takes the lookup
+  with convc1 fused in (``ops.cuda_alt.alt_corr_epi``), the JAX
+  package's ``use_epi`` gate.
+
 Images and disparities are NHWC at this interface, as in the JAX package;
 the encoders and GRUs run NCHW.
 """
@@ -47,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import RAFTStereoConfig, check_supported
 from ..device import fp32_numerics, resolve_device
-from ..ops.corr import build_corr_state, corr_lookup
+from ..ops.corr import build_corr_state, corr_lookup, corr_lookup_epi
 from ..ops.cuda_gru import gru_update, pack_update_params
 from ..ops.image import coords_grid_x, resize_nchw
 from ..ops.upsample import convex_upsample
@@ -94,6 +103,12 @@ class RAFTStereo(nn.Module):
             conv(cfg.hidden_dims[i], cfg.hidden_dims[i] * 3, 3)
             for i in range(n))
         self.update_block = BasicMultiUpdateBlock(cfg)
+        # Parameters stay fp32 whatever the compute dtype: the bf16 forms
+        # cast them at use, as flax's dtype=bfloat16 modules do.
+        self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                      else torch.float32)
+        self.corr_dtype = (torch.bfloat16 if cfg.corr_dtype == "bfloat16"
+                           else torch.float32)
         init_weights(self, torch.Generator().manual_seed(seed))
         self.eval()
         self.to(dev)
@@ -114,7 +129,13 @@ class RAFTStereo(nn.Module):
         ``test_mode=False`` (training): returns every iteration's
         full-resolution prediction, (iters, B, H, W, 1), differentiable.
         ``flow_init`` is an optional (B, H/f, W/f, 1) warm start added to
-        the zero initialisation."""
+        the zero initialisation.  A bf16 model runs test mode only."""
+        if not test_mode and self.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "train mode with compute_dtype='bfloat16' (bf16 training: "
+                "bf16 forms of the lookup's backward and of the module "
+                "step's backward) is not ported yet; see ROADMAP.md Queue 1 "
+                "item 3")
         if test_mode:
             with torch.inference_mode():
                 return self._forward(image1, image2, iters, flow_init, True)
@@ -126,7 +147,8 @@ class RAFTStereo(nn.Module):
         b = image1.shape[0]
 
         def norm(img):
-            return (2.0 * (img.float() / 255.0) - 1.0).permute(0, 3, 1, 2)
+            return (2.0 * (img.float() / 255.0) - 1.0).to(
+                self.dtype).permute(0, 3, 1, 2)
 
         img1, img2 = norm(image1), norm(image2)
         outputs = self.cnet(img1.contiguous())
@@ -140,27 +162,42 @@ class RAFTStereo(nn.Module):
         quant = cfg.corr_quant and test_mode
         state = build_corr_state(_nhwc(fmaps[:b]), _nhwc(fmaps[b:]),
                                  cfg.corr_levels, cfg.corr_implementation,
-                                 quant)
+                                 quant, self.corr_dtype)
         h_lo, w_lo = net[0].shape[2:]
         disp = torch.zeros((b, h_lo, w_lo, 1), device=net[0].device)
         if flow_init is not None:
             disp = disp + flow_init.float()
         grid = coords_grid_x(b, h_lo, w_lo, device=disp.device)[..., 0]
         blk = self.update_block
+        dtype = self.dtype
 
         if test_mode and cfg.gru_backend != "xla":
             return self._fused_loop(state, net, zqr, disp, grid, iters)
+
+        # bf16 test mode fuses the motion encoder's convc1 into the lookup
+        # where the backend can (the JAX package's use_epi gate).
+        epi = None
+        if (test_mode and dtype == torch.bfloat16
+                and state.backend == "pallas_alt"):
+            c1 = blk.encoder.convc1
+            epi = (c1.weight[:, :, 0, 0].t().to(dtype).contiguous(),
+                   c1.bias.to(dtype).contiguous())
 
         def step(disp, *net):
             """One module-step iteration (NCHW states, NHWC disparity);
             train mode also returns this iteration's upsampled
             prediction."""
             disp = disp.detach()
-            corr = corr_lookup(state, grid + disp[..., 0], cfg.corr_radius)
+            x = grid + disp[..., 0]
+            if epi is None:
+                corr = corr_lookup(state, x, cfg.corr_radius, dtype)
+            else:
+                corr = corr_lookup_epi(state, x, cfg.corr_radius, *epi)
             flow = torch.cat([disp, torch.zeros_like(disp)], dim=-1)
             net, delta = blk(net, zqr, corr.permute(0, 3, 1, 2),
-                             flow.permute(0, 3, 1, 2))
-            disp = disp + _nhwc(delta[:, :1])
+                             flow.to(dtype).permute(0, 3, 1, 2),
+                             corr_preact=epi is not None)
+            disp = disp + _nhwc(delta[:, :1]).float()
             if test_mode:
                 return (disp, *net)
             mask = _nhwc(blk.upsample_mask(net[0]))
@@ -177,7 +214,7 @@ class RAFTStereo(nn.Module):
                 preds.append(out[-1])
         if not test_mode:
             return torch.stack(preds)
-        mask = _nhwc(blk.upsample_mask(net[0]))
+        mask = _nhwc(blk.upsample_mask(net[0])).float()
         return disp, convex_upsample(disp, mask, cfg.factor)
 
     def _fused_loop(self, state, net, zqr, disp, grid, iters):
@@ -189,16 +226,17 @@ class RAFTStereo(nn.Module):
         cz0, cr0, cq0 = (_nhwc(t) for t in zqr[0])
         h_lo, w_lo = h0.shape[1:3]
         wpack = pack_update_params(self.update_block,
-                                   hd[1] if n > 1 else 0)
+                                   hd[1] if n > 1 else 0, self.dtype)
         blk = self.update_block
         for _ in range(iters):
-            corr = corr_lookup(state, grid + disp[..., 0], cfg.corr_radius)
+            corr = corr_lookup(state, grid + disp[..., 0], cfg.corr_radius,
+                               self.dtype)
             ext = None
             if n >= 2:
                 net[0] = h0.permute(0, 3, 1, 2)
                 blk.update_coarse(net, zqr)
                 ext = _nhwc(resize_nchw(net[1], (h_lo, w_lo)))
             h0, delta = gru_update(h0, ext, corr, disp, cz0, cr0, cq0, wpack)
-            disp = disp + delta[..., :1]
-        mask = _nhwc(blk.upsample_mask(h0.permute(0, 3, 1, 2)))
+            disp = disp + delta[..., :1].float()
+        mask = _nhwc(blk.upsample_mask(h0.permute(0, 3, 1, 2))).float()
         return disp, convex_upsample(disp, mask, cfg.factor)

@@ -11,7 +11,12 @@ Two forms of one GRU iteration, as in the JAX package
   ``BasicMultiUpdateBlock.__call__``): every level through the modules,
   differentiable; training always takes it.
 
-Everything here is NCHW; levels update coarsest first."""
+Everything here is NCHW; levels update coarsest first.  Each module
+computes in its input's dtype; bf16 inputs take the JAX package's bf16
+forms, rounding where it rounds (``layers.conv_bf16``): the GRU gates as
+two convs (h and x), each rounded, summed in bf16, the bias on the x
+part, the sigmoid as XLA computes it in bf16 (``sigmoid_bf16``); the
+motion encoder's convf1 on the x-flow channel alone."""
 
 from __future__ import annotations
 
@@ -22,8 +27,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import RAFTStereoConfig
+from ..ops.cuda_gru import sigmoid_bf16
 from ..ops.image import avg_pool2x, resize_nchw
-from .layers import conv
+from .layers import BF16, conv, conv_bf16
 
 
 def interp_to(x: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
@@ -44,16 +50,32 @@ class ConvGRU(nn.Module):
     def forward(self, h, cz, cr, cq, *x_list):
         hd = self.hidden_dim
         x = torch.cat(x_list, dim=1)
+        if h.dtype == BF16:
+            zr = self._sliced(self.convzr, h, x)
+            z = sigmoid_bf16(zr[:, :hd] + cz)
+            r = sigmoid_bf16(zr[:, hd:] + cr)
+            q = torch.tanh(self._sliced(self.convq, r * h, x) + cq)
+            return (1 - z) * h + z * q
         zr = self.convzr(torch.cat([h, x], dim=1))
         z = torch.sigmoid(zr[:, :hd] + cz)
         r = torch.sigmoid(zr[:, hd:] + cr)
         q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)) + cq)
         return (1 - z) * h + z * q
 
+    def _sliced(self, m: nn.Conv2d, h, x):
+        """The JAX package's two ``_sliced_conv``s in bf16: the conv of h
+        and the conv of x (with the bias), each rounded, summed in bf16."""
+        hd = self.hidden_dim
+        return (conv_bf16(h, m.weight[:, :hd], None, padding=1)
+                + conv_bf16(x, m.weight[:, hd:], m.bias, padding=1))
+
 
 class BasicMotionEncoder(nn.Module):
     """Correlation + flow -> 128 motion channels (126 learned + the 2-channel
-    flow).  The fp32 form: convf1 runs on the full [d, 0] flow."""
+    flow).  The fp32 form: convf1 runs on the full [d, 0] flow; the bf16
+    form on the x-flow channel alone (the y channel is a structural
+    zero), as the JAX package's bf16 form does.  ``preact``: ``corr`` is
+    already relu(convc1(corr)), the fused lookup's output."""
 
     def __init__(self, cor_planes: int):
         super().__init__()
@@ -63,9 +85,15 @@ class BasicMotionEncoder(nn.Module):
         self.convf2 = conv(64, 64, 3)
         self.conv = conv(128, 128 - 2, 3)
 
-    def forward(self, flow, corr):
-        cor = F.relu(self.convc2(F.relu(self.convc1(corr))))
-        flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
+    def forward(self, flow, corr, preact: bool = False):
+        c1 = corr if preact else F.relu(self.convc1(corr))
+        cor = F.relu(self.convc2(c1))
+        if flow.dtype == BF16:
+            f1 = conv_bf16(flow[:, :1], self.convf1.weight[:, :1],
+                           self.convf1.bias, padding=3)
+        else:
+            f1 = self.convf1(flow)
+        flo = F.relu(self.convf2(F.relu(f1)))
         out = F.relu(self.conv(torch.cat([cor, flo], dim=1)))
         return torch.cat([out, flow], dim=1)
 
@@ -112,15 +140,17 @@ class BasicMultiUpdateBlock(nn.Module):
         net[1] = self.gru16(net[1], *zqr[1], *xs)
 
     def forward(self, net: List[torch.Tensor], zqr: Sequence,
-                corr: torch.Tensor, flow: torch.Tensor
+                corr: torch.Tensor, flow: torch.Tensor,
+                corr_preact: bool = False
                 ) -> Tuple[List[torch.Tensor], torch.Tensor]:
         """The module step: coarser levels, then the motion encoder on
         (flow, corr), gru08 with the upsampled next level, and the flow
-        head.  Returns the new states and the 2-channel delta (NCHW)."""
+        head.  Returns the new states and the 2-channel delta (NCHW).
+        ``corr_preact``: ``corr`` is the fused lookup's relu(convc1(.))."""
         net = list(net)
         if self.n >= 2:
             self.update_coarse(net, zqr)
-        xs = [self.encoder(flow, corr)]
+        xs = [self.encoder(flow, corr, corr_preact)]
         if self.n >= 2:
             xs.append(interp_to(net[1], net[0]))
         net[0] = self.gru08(net[0], *zqr[0], *xs)

@@ -19,10 +19,18 @@ The counterpart of the JAX package's ``ops/corr.py`` (``build_corr_state``
 The TPU forms pad every level to 128 lanes, W1 to the row block and rows
 to 8; here the levels are concatenated at their real widths and nothing
 is padded, which is the same function (the TPU's padded columns
-contribute exactly zero).  Every lookup is differentiable: the kernels'
-VJPs are the backward kernels, and gradients reach fmap1 and fmap2
-through the pooling, the volume product and the concat by ordinary
+contribute exactly zero).  Every fp32 lookup is differentiable: the
+kernels' VJPs are the backward kernels, and gradients reach fmap1 and
+fmap2 through the pooling, the volume product and the concat by ordinary
 autograd.
+
+bf16 (inference): the ``pallas_alt`` state stores fmap1 and the fmap2
+pyramid in ``corr_dtype``, pooled in fp32 first and rounded after, and
+the lookup emits the compute dtype (``out_dtype``).  The other backends
+build and look up in fp32 and cast the features, as the JAX package's
+``make_corr_fn`` does.  ``corr_lookup_epi`` is the lookup with the motion
+encoder's convc1 fused in (``ops.cuda_alt.alt_corr_epi``), for
+``pallas_alt`` states: the JAX package's ``corr_epilogue_active`` rule.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 
 from ..config import CORR_IMPLEMENTATIONS
-from .cuda_alt import alt_corr_autograd
+from .cuda_alt import alt_corr, alt_corr_autograd, alt_corr_epi
 from .cuda_vol import level_taps, vol_lookup_autograd
 from .quant import quant_corr_volume
 from .sampler import linear_sample_1d
@@ -108,10 +116,13 @@ class CorrState(NamedTuple):
 
 def build_corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor,
                      num_levels: int, implementation: str = "pallas_alt",
-                     quant: bool = False) -> CorrState:
-    """Build the lookup state once per pair (fp32, contiguous) for the
-    backend ``resolve_implementation(implementation, quant)``.  ``quant``
-    builds the int8 volume; the caller passes it in test mode only."""
+                     quant: bool = False,
+                     corr_dtype: torch.dtype = torch.float32) -> CorrState:
+    """Build the lookup state once per pair (contiguous) for the backend
+    ``resolve_implementation(implementation, quant)``.  ``quant`` builds
+    the int8 volume; the caller passes it in test mode only.  The
+    ``pallas_alt`` state is stored in ``corr_dtype`` (pooled in fp32
+    first); every other state is fp32."""
     backend = resolve_implementation(implementation, quant)
     if backend in ("reg", "pallas"):
         volume = (quant_corr_volume(fmap1, fmap2) if quant
@@ -120,8 +131,9 @@ def build_corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor,
         return CorrState(None, None, tuple(p.shape[-1] for p in pyr),
                          backend, torch.cat(pyr, dim=-1).contiguous())
     pyr = build_fmap2_pyramid(fmap2.float(), num_levels)
-    return CorrState(fmap1.float().contiguous(),
-                     torch.cat(pyr, dim=2).contiguous(),
+    dt = corr_dtype if backend == "pallas_alt" else torch.float32
+    return CorrState(fmap1.float().to(dt).contiguous(),
+                     torch.cat(pyr, dim=2).to(dt).contiguous(),
                      tuple(p.shape[2] for p in pyr), backend)
 
 
@@ -173,19 +185,37 @@ def _alt_lookup(state: CorrState, x: torch.Tensor,
     return torch.cat(out, dim=-1)
 
 
-def corr_lookup(state: CorrState, x: torch.Tensor,
-                radius: int) -> torch.Tensor:
+def corr_lookup(state: CorrState, x: torch.Tensor, radius: int,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Correlation features at level-0 x-coordinates ``x`` (B, H, W1) by
-    the state's backend: (B, H, W1, L*(2r+1)), channels level-major, taps
-    -r..r."""
+    the state's backend: (B, H, W1, L*(2r+1)) in ``out_dtype``, channels
+    level-major, taps -r..r.  The fp32 on-demand lookup of fp32 feature
+    maps is differentiable through its backward kernel."""
     x = x.float().contiguous()
     if state.backend == "pallas_alt":
-        return alt_corr_autograd(state.fmap1, state.f2cat, state.widths, x,
-                                 radius)
+        if out_dtype == torch.float32 and state.fmap1.dtype == torch.float32:
+            return alt_corr_autograd(state.fmap1, state.f2cat, state.widths,
+                                     x, radius)
+        return alt_corr(state.fmap1, state.f2cat, state.widths, x, radius,
+                        out_dtype)
     if state.backend == "pallas":
-        return vol_lookup_autograd(state.vcat, state.widths, x, radius)
-    if state.backend == "reg":
-        return _reg_lookup(state, x, radius)
-    if state.backend == "alt":
-        return _alt_lookup(state, x, radius)
-    raise ValueError(f"unknown corr backend: {state.backend}")
+        out = vol_lookup_autograd(state.vcat, state.widths, x, radius)
+    elif state.backend == "reg":
+        out = _reg_lookup(state, x, radius)
+    elif state.backend == "alt":
+        out = _alt_lookup(state, x, radius)
+    else:
+        raise ValueError(f"unknown corr backend: {state.backend}")
+    return out.to(out_dtype)
+
+
+def corr_lookup_epi(state: CorrState, x: torch.Tensor, radius: int,
+                    w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``relu(corr_lookup(...) @ w + b)`` in bf16 through the fused
+    kernel (``pallas_alt`` states only; inference): w (L*(2r+1), Co) and
+    b (Co) bf16 -> (B, H, W1, Co) bf16."""
+    if state.backend != "pallas_alt":
+        raise ValueError(f"the fused convc1 needs the pallas_alt state, not "
+                         f"{state.backend}")
+    return alt_corr_epi(state.fmap1, state.f2cat, state.widths,
+                        x.float().contiguous(), radius, w, b)

@@ -1,6 +1,8 @@
 """On-demand correlation lookup: the CUDA kernels ``csrc/alt_corr.cu``
-(forward) and ``csrc/alt_corr_bwd.cu`` (its VJP), their plain PyTorch
-versions, and the ``torch.autograd.Function`` that joins the two.
+(forward), ``csrc/alt_corr_epi.cu`` (forward with the motion encoder's
+convc1 fused in) and ``csrc/alt_corr_bwd.cu`` (its VJP), their plain
+PyTorch versions, and the ``torch.autograd.Function`` that joins the
+forward and the VJP.
 
 Replaces the TPU kernel ``raftstereo_tpu/ops/pallas_alt.py``
 ``_alt_pyr_radial_kernel`` (core ``_radial_cols``).  The function, for
@@ -18,9 +20,20 @@ radial taps of ``_make_alt_pyr_radial``'s VJP: bytes bound (about 521 MB
 per call at the training shapes, about 0.16 ms); deterministic, with no
 floating-point atomics (see the source's note).
 
-``alt_corr`` and ``alt_corr_backward`` run the plain version for CPU
-tensors and the kernel for CUDA tensors; they never fall back from one to
-the other.  ``alt_corr_autograd`` is the differentiable lookup.
+The forward takes fp32 or bf16 feature maps and emits fp32 or bf16
+features (``out_dtype``), accumulating in fp32 and rounding once; the
+bf16 serving path's form reads about 53 MB per call (about 16 us).
+
+``alt_corr_epi`` replaces ``_alt_pyr_radial_epi_kernel`` of the same
+file: the lookup's columns rounded to bf16, then ``relu(cols @ W + b)``
+with bf16 W and b, fp32 sums, bf16 out.  Inference-only, as in the JAX
+package (training keeps the module conv).  Bytes bound: about 55 MB per
+call at the bf16 serving shapes, about 17 us.
+
+``alt_corr``, ``alt_corr_epi`` and ``alt_corr_backward`` run the plain
+version for CPU tensors and the kernel for CUDA tensors; they never fall
+back from one to the other.  ``alt_corr_autograd`` is the differentiable
+lookup.
 """
 
 from __future__ import annotations
@@ -34,12 +47,16 @@ from . import _build
 
 
 def alt_corr_plain(fmap1: torch.Tensor, f2cat: torch.Tensor,
-                   widths: Sequence[int], x: torch.Tensor,
-                   radius: int) -> torch.Tensor:
+                   widths: Sequence[int], x: torch.Tensor, radius: int,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain PyTorch version: each level's correlation rows as one fp32
     matmul, then the K+1 integer windows around floor(x_l) and the lerp
     by frac(x_l) — the TPU kernel's arithmetic.  fmap1 (B, H, W1, C),
-    f2cat (B, H, sum(widths), C), x (B, H, W1) -> (B, H, W1, L*(2r+1))."""
+    f2cat (B, H, sum(widths), C), x (B, H, W1) -> (B, H, W1, L*(2r+1)) in
+    ``out_dtype``.  bf16 feature maps are widened to fp32 first (never a
+    bf16 matmul, which would round each correlation row before the lerp);
+    a bf16 output is the fp32 result rounded once."""
+    fmap1, f2cat = fmap1.float(), f2cat.float()
     c = fmap1.shape[-1]
     scale = 1.0 / float(c) ** 0.5
     k = 2 * radius + 1
@@ -66,10 +83,14 @@ def alt_corr_plain(fmap1: torch.Tensor, f2cat: torch.Tensor,
         for t in range(k):
             cols.append(wins[t] * (1.0 - fr) + wins[t + 1] * fr)
         off += w2
-    return torch.stack(cols, dim=-1)
+    return torch.stack(cols, dim=-1).to(out_dtype)
 
 
-def _check_cuda(name, fmap1, f2cat, widths, x, radius, extra=()):
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_cuda(name, fmap1, f2cat, widths, x, radius, extra=(),
+                fmap_dtypes=(torch.float32,)):
     """Validate the kernels' operands; returns (b, h, w1, c, widths)."""
     tensors = (fmap1, f2cat, x) + tuple(extra)
     dev = fmap1.device
@@ -84,11 +105,18 @@ def _check_cuda(name, fmap1, f2cat, widths, x, radius, extra=()):
     if x.shape != (b, h, w1):
         raise ValueError(f"x {tuple(x.shape)} != {(b, h, w1)}")
     for t in tensors:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous float32 tensors")
-    if c % 128 or c > 512 or not 1 <= radius <= 8 or not 1 <= len(widths) <= 8:
-        raise ValueError(f"{name} kernel takes C in {{128..512}} step 128, "
-                         f"radius 1..8 and 1..8 levels; got C={c}, "
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+    if (fmap1.dtype not in fmap_dtypes or f2cat.dtype != fmap1.dtype
+            or x.dtype != torch.float32):
+        raise ValueError(f"{name} takes fmap1 and f2cat of one dtype in "
+                         f"{fmap_dtypes} and float32 x; got {fmap1.dtype}, "
+                         f"{f2cat.dtype}, {x.dtype}")
+    chunk = 256 if fmap1.dtype == torch.bfloat16 else 128
+    if (c % chunk or c > 512 or not 1 <= radius <= 8
+            or not 1 <= len(widths) <= 8):
+        raise ValueError(f"{name} kernel takes C in {{{chunk}..512}} step "
+                         f"{chunk}, radius 1..8 and 1..8 levels; got C={c}, "
                          f"radius={radius}, levels={len(widths)}")
     if fmap1.data_ptr() % 16 or f2cat.data_ptr() % 16:
         raise ValueError(f"{name} needs 16-byte aligned feature maps")
@@ -96,18 +124,22 @@ def _check_cuda(name, fmap1, f2cat, widths, x, radius, extra=()):
 
 
 def alt_corr(fmap1: torch.Tensor, f2cat: torch.Tensor,
-             widths: Sequence[int], x: torch.Tensor,
-             radius: int) -> torch.Tensor:
+             widths: Sequence[int], x: torch.Tensor, radius: int,
+             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """On-demand lookup: the plain version for CPU tensors, the CUDA
-    kernel for CUDA tensors (counted in ``alt_corr.launches``)."""
+    kernel for CUDA tensors (counted in ``alt_corr.launches``).  fmap1
+    and f2cat fp32 or bf16; the output in ``out_dtype`` (fp32 or bf16)."""
     if all(t.device.type == "cpu" for t in (fmap1, f2cat, x)):
-        return alt_corr_plain(fmap1, f2cat, widths, x, radius)
+        return alt_corr_plain(fmap1, f2cat, widths, x, radius, out_dtype)
     b, h, w1, c, widths = _check_cuda("alt_corr", fmap1, f2cat, widths, x,
-                                      radius)
+                                      radius, fmap_dtypes=_DTYPES)
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"alt_corr emits float32 or bfloat16, not "
+                         f"{out_dtype}")
     dev = fmap1.device
     nlev = len(widths)
-    out = torch.empty((b, h, w1, nlev * (2 * radius + 1)),
-                      dtype=torch.float32, device=dev)
+    out = torch.empty((b, h, w1, nlev * (2 * radius + 1)), dtype=out_dtype,
+                      device=dev)
     offs = [sum(widths[:i]) for i in range(nlev)]
     lib = _build.load("alt_corr")
     fn = lib.alt_corr_forward
@@ -115,6 +147,7 @@ def alt_corr(fmap1: torch.Tensor, f2cat: torch.Tensor,
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_long]
                    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                            ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_int,
                                            ctypes.c_void_p])
     ints = ctypes.c_int * nlev
     with torch.cuda.device(dev):
@@ -122,7 +155,8 @@ def alt_corr(fmap1: torch.Tensor, f2cat: torch.Tensor,
         rc = fn(fmap1.data_ptr(), f2cat.data_ptr(), x.data_ptr(),
                 out.data_ptr(), b * h * w1, w1, f2cat.shape[2], c, radius,
                 1.0 / float(c) ** 0.5, nlev, ints(*offs), ints(*widths),
-                stream)
+                int(fmap1.dtype == torch.bfloat16),
+                int(out_dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"alt_corr kernel launch failed: CUDA error {rc}")
     alt_corr.launches += 1
@@ -130,6 +164,66 @@ def alt_corr(fmap1: torch.Tensor, f2cat: torch.Tensor,
 
 
 alt_corr.launches = 0
+
+
+def alt_corr_epi_plain(fmap1: torch.Tensor, f2cat: torch.Tensor,
+                       widths: Sequence[int], x: torch.Tensor, radius: int,
+                       w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the lookup with convc1 fused: the fp32
+    columns of ``alt_corr_plain`` rounded to bf16, an fp32 product with
+    the bf16 weights (exact products, fp32 sums: the kernel's and the
+    TPU's arithmetic), rounded to bf16, plus the bias in bf16, relu.
+    w (L*(2r+1), Co), b (Co) -> (B, H, W1, Co) bf16."""
+    cols = alt_corr_plain(fmap1, f2cat, widths, x, radius, torch.bfloat16)
+    y = torch.matmul(cols.float(), w.to(torch.bfloat16).float())
+    return torch.relu(y.to(torch.bfloat16) + b.to(torch.bfloat16))
+
+
+def alt_corr_epi(fmap1: torch.Tensor, f2cat: torch.Tensor,
+                 widths: Sequence[int], x: torch.Tensor, radius: int,
+                 w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """On-demand lookup with the motion encoder's convc1 + relu fused in
+    (w (L*(2r+1), 64), b (64), bf16 on the card): the plain version for
+    CPU tensors, the CUDA kernel for CUDA tensors (counted in
+    ``alt_corr_epi.launches``).  Returns (B, H, W1, 64) bf16."""
+    if all(t.device.type == "cpu" for t in (fmap1, f2cat, x, w, b)):
+        return alt_corr_epi_plain(fmap1, f2cat, widths, x, radius, w, b)
+    bb, h, w1, c, widths = _check_cuda("alt_corr_epi", fmap1, f2cat, widths,
+                                       x, radius, extra=(w, b),
+                                       fmap_dtypes=_DTYPES)
+    nlev = len(widths)
+    lk = nlev * (2 * radius + 1)
+    if (w.shape != (lk, 64) or b.shape != (64,)
+            or w.dtype != torch.bfloat16 or b.dtype != torch.bfloat16):
+        raise ValueError(f"alt_corr_epi takes bf16 w {(lk, 64)} and b (64,);"
+                         f" got {w.dtype} {tuple(w.shape)}, {b.dtype} "
+                         f"{tuple(b.shape)}")
+    dev = fmap1.device
+    out = torch.empty((bb, h, w1, 64), dtype=torch.bfloat16, device=dev)
+    offs = [sum(widths[:i]) for i in range(nlev)]
+    lib = _build.load("alt_corr_epi")
+    fn = lib.alt_corr_epi_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_long]
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_int, ctypes.c_void_p])
+    ints = ctypes.c_int * nlev
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(fmap1.data_ptr(), f2cat.data_ptr(), x.data_ptr(),
+                w.data_ptr(), b.data_ptr(), out.data_ptr(), bb * h * w1, w1,
+                f2cat.shape[2], c, radius, 1.0 / float(c) ** 0.5, nlev,
+                ints(*offs), ints(*widths),
+                int(fmap1.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"alt_corr_epi kernel launch failed: CUDA error "
+                           f"{rc}")
+    alt_corr_epi.launches += 1
+    return out
+
+
+alt_corr_epi.launches = 0
 
 
 def alt_corr_backward_plain(fmap1: torch.Tensor, f2cat: torch.Tensor,
@@ -182,6 +276,9 @@ def alt_corr_backward(fmap1: torch.Tensor, f2cat: torch.Tensor,
         return alt_corr_backward_plain(fmap1, f2cat, widths, x, g, radius)
     b, h, w1, c, widths = _check_cuda("alt_corr_backward", fmap1, f2cat,
                                       widths, x, radius, extra=(g,))
+    if g.dtype != torch.float32:
+        raise ValueError(f"alt_corr_backward takes a float32 cotangent, not "
+                         f"{g.dtype}")
     nlev = len(widths)
     if g.shape != (b, h, w1, nlev * (2 * radius + 1)):
         raise ValueError(f"g {tuple(g.shape)} != "

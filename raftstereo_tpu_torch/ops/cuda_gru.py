@@ -4,9 +4,16 @@ its plain PyTorch version, and the weight pack both take.
 Replaces the TPU kernel ``raftstereo_tpu/ops/pallas_gru.py``
 ``_gru_update_kernel``: motion encoder, gru0 gates, blend and flow head
 in one call per iteration, ``(h, ext, corr, disp, cz, cr, cq) -> (h',
-delta)``, all NHWC fp32.  The bound on an H100 and what the design does
-about it are in the source's note: about 128 GFLOP per call at the
-flagship shapes, bound by fp32 operations (about 2 ms at 67 TFLOP/s).
+delta)``, all NHWC, fp32 or bf16 (``disp`` always fp32).  The bound on an
+H100 and what the design does about it are in the source's note: about
+128 GFLOP per call at the flagship shapes, bound by fp32 operations
+(about 2 ms at 67 TFLOP/s); in bf16 the tensor cores would bound it at
+about 0.13 ms, which a kernel without ``mma``/``wgmma`` cannot reach.
+
+The bf16 form rounds where the JAX kernel casts to the compute dtype:
+each conv is an fp32 sum of exact products of bf16 values plus the
+bias, then rounded; the gate arithmetic rounds after every operation;
+the disparity enters rounded to bf16; delta comes out in bf16.
 
 ``gru_update`` runs the plain version for CPU tensors and the kernel for
 CUDA tensors; it never falls back from one to the other.
@@ -38,13 +45,16 @@ def _flat(w: torch.Tensor) -> torch.Tensor:
     return w.detach().permute(2, 3, 1, 0).reshape(kh * kw * i, o).contiguous()
 
 
-def pack_update_params(update_block, ext_dim: int) -> Dict[str, torch.Tensor]:
+def pack_update_params(update_block, ext_dim: int,
+                       dtype: torch.dtype = torch.float32
+                       ) -> Dict[str, torch.Tensor]:
     """Weight pack of the finest-level update from the port's
     ``BasicMultiUpdateBlock`` (the counterpart of the JAX package's
-    ``pallas_gru.pack_update_params``).  The gate convs' kernels are sliced
-    along their input as [h | me | disp | (y-flow) | ext]; the y-flow
-    slice multiplies a structural zero and is dropped, as is convf1's
-    y-flow input.  convc1 stays at the natural correlation width."""
+    ``pallas_gru.pack_update_params``), every entry in ``dtype`` (the
+    compute dtype).  The gate convs' kernels are sliced along their input
+    as [h | me | disp | (y-flow) | ext]; the y-flow slice multiplies a
+    structural zero and is dropped, as is convf1's y-flow input.  convc1
+    stays at the natural correlation width."""
     enc = update_block.encoder
     gru = update_block.gru08
     fh = update_block.flow_head
@@ -72,7 +82,8 @@ def pack_update_params(update_block, ext_dim: int) -> Dict[str, torch.Tensor]:
     if ext_dim:
         w["wzr_e"] = _flat(kzr[:, hd + 128:])
         w["wq_e"] = _flat(kq[:, hd + 128:])
-    return {k: v.detach().float().contiguous() for k, v in w.items()}
+    return {k: v.detach().float().to(dtype).contiguous()
+            for k, v in w.items()}
 
 
 def _conv(xs, ws, bias):
@@ -85,10 +96,59 @@ def _conv(xs, ws, bias):
                     padding=ks // 2)
 
 
+def sigmoid_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` of a bf16 tensor as XLA computes it:
+    ``1 / (1 + exp(-x))`` with every operation rounded to bf16 (not the
+    fp32 sigmoid rounded once, which differs for about a third of
+    inputs)."""
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return one / (one + torch.exp(-x))
+
+
+def _gru_update_plain_bf16(h, ext, corr, disp, cz, cr, cq, wpack):
+    """The bf16 form: every conv an fp32 conv of the bf16 values plus the
+    bias, rounded to bf16 (the JAX kernel's ``_conv3(...).astype(ct)``);
+    the gate arithmetic in bf16 tensor ops, each rounded, the sigmoid as
+    ``sigmoid_bf16``."""
+    bf = torch.bfloat16
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2)
+
+    def conv(xs, names, bias, relu=True):
+        y = _conv([t.float() for t in xs], [wpack[k].float() for k in names],
+                  wpack[bias].float()).to(bf)
+        return F.relu(y) if relu else y
+
+    hh, dd = nchw(h), nchw(disp).to(bf)
+    c1 = conv([nchw(corr)], ["wc1"], "bc1")
+    cor = conv([c1], ["wc2"], "bc2")
+    flo = conv([conv([dd], ["wf1"], "bf1")], ["wf2"], "bf2")
+    me = conv([cor, flo], ["wme_c", "wme_f"], "bme")
+    xs, wz, wq = [me, dd], ["wzr_m", "wzr_d"], ["wq_m", "wq_d"]
+    if ext is not None:
+        xs.append(nchw(ext))
+        wz.append("wzr_e")
+        wq.append("wq_e")
+    hd = h.shape[-1]
+    zr = conv([hh] + xs, ["wzr_h"] + wz, "bzr", relu=False)
+    z = sigmoid_bf16(zr[:, :hd] + nchw(cz))
+    r = sigmoid_bf16(zr[:, hd:] + nchw(cr))
+    q = torch.tanh(conv([r * hh] + xs, ["wq_h"] + wq, "bq", relu=False)
+                   + nchw(cq))
+    hn = (1 - z) * hh + z * q
+    delta = conv([conv([hn], ["wfh1"], "bfh1")], ["wfh2"], "bfh2", relu=False)
+    return (hn.permute(0, 2, 3, 1).contiguous(),
+            delta.permute(0, 2, 3, 1).contiguous())
+
+
 def gru_update_plain(h, ext, corr, disp, cz, cr, cq,
                      wpack) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the fused update on the same pack: NHWC in,
-    ``(h', delta)`` NHWC out (delta has 2 channels)."""
+    ``(h', delta)`` NHWC out (delta has 2 channels), in h's dtype."""
+    if h.dtype == torch.bfloat16:
+        return _gru_update_plain_bf16(h, ext, corr, disp, cz, cr, cq, wpack)
+
     def nchw(t):
         return t.permute(0, 3, 1, 2)
 
@@ -143,9 +203,14 @@ def gru_update(h: torch.Tensor, ext: Optional[torch.Tensor],
     for name, (t, ch) in want.items():
         if t.shape != (b, hh, ww, ch):
             raise ValueError(f"{name} {tuple(t.shape)} != {(b, hh, ww, ch)}")
+    dt = h.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"gru_update runs float32 or bfloat16, not {dt}")
     for t in acts + weights:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("gru_update takes contiguous float32 tensors")
+        want_dt = torch.float32 if t is disp else dt
+        if t.dtype != want_dt or not t.is_contiguous():
+            raise ValueError(f"gru_update takes contiguous {dt} tensors "
+                             f"(disp float32); got {t.dtype}")
     ck, mo = corr.shape[-1], _MOTION
     shapes = {"wc1": (ck, mo), "bc1": (mo,), "wc2": (9 * mo, mo),
               "bc2": (mo,), "wf1": (49, mo), "bf1": (mo,),
@@ -164,15 +229,18 @@ def gru_update(h: torch.Tensor, ext: Optional[torch.Tensor],
                              f"{tuple(wpack[k].shape) if k in wpack else None}"
                              f" != {s}")
     hn = torch.empty_like(h)
-    delta = torch.empty((b, hh, ww, _DELTA), dtype=torch.float32, device=dev)
+    delta = torch.empty((b, hh, ww, _DELTA), dtype=dt, device=dev)
     ptrs = (ctypes.c_void_p * len(WEIGHT_ORDER))(
         *[wpack[k].data_ptr() if k in wpack else None for k in WEIGHT_ORDER])
     lib = _build.load("gru_update")
     size = lib.gru_update_workspace_floats
     size.restype = ctypes.c_long
     size.argtypes = [ctypes.c_int] * 4
-    ws = torch.empty(size(b, hh, ww, hd), dtype=torch.float32, device=dev)
-    fn = lib.gru_update_forward
+    # The bf16 form keeps its intermediates (and the bf16 disparity) in
+    # bf16: half the fp32 workspace is room enough.
+    ws = torch.empty(size(b, hh, ww, hd), dtype=dt, device=dev)
+    fn = (lib.gru_update_forward if dt == torch.float32
+          else lib.gru_update_forward_bf16)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]

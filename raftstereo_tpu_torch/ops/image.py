@@ -6,6 +6,9 @@
 * ``InputPadder`` / ``BucketPadder``: replicate padding to ``divis_by``
   and the bucket grid, the shape policy the serving engine uses;
 * ``coords_grid_x``: the x-coordinate grid at disparity resolution.
+
+The resize and the pool take fp32 or bf16 tensors; a bf16 tensor follows
+the JAX ops' rounding points (see each function).
 """
 
 from __future__ import annotations
@@ -50,12 +53,30 @@ def resize_bilinear_align_corners(x: torch.Tensor,
     oh, ow = out_hw
     if (h, w) == (oh, ow):
         return x
+    if x.dtype == torch.bfloat16:
+        return _resize_bf16(x, out_hw)
     i0, i1, wh = _resize_tables(h, oh, x.device)
     wh = wh[None, :, None, None]
     x = x[:, i0] * (1 - wh) + x[:, i1] * wh
     j0, j1, ww = _resize_tables(w, ow, x.device)
     ww = ww[None, None, :, None]
     return x[:, :, j0] * (1 - ww) + x[:, :, j1] * ww
+
+
+def _resize_bf16(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """The JAX op on a bf16 tensor, as its code computes it: the weights
+    are rounded to bf16, ``1 - w`` is an fp32 array (numpy promotes it), so
+    the row pass is ``x0 * (1 - w)`` in fp32 plus ``x1 * w`` rounded to
+    bf16, the column pass runs in fp32, and the result is rounded once."""
+    b, h, w, c = x.shape
+    oh, ow = out_hw
+    i0, i1, wh = _resize_tables(h, oh, x.device)
+    j0, j1, ww = _resize_tables(w, ow, x.device)
+    wh = wh.to(torch.bfloat16)[None, :, None, None]
+    ww = ww.to(torch.bfloat16).float()[None, None, :, None]
+    y = x[:, i0].float() * (1 - wh.float()) + (x[:, i1] * wh).float()
+    y = y[:, :, j0] * (1 - ww) + y[:, :, j1] * ww
+    return y.to(torch.bfloat16)
 
 
 def resize_nchw(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -68,8 +89,22 @@ def resize_nchw(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 
 def avg_pool2x(x: torch.Tensor) -> torch.Tensor:
     """3x3/stride-2/pad-1 average pool of an NCHW tensor, zeros counted in
-    the divisor (``count_include_pad``)."""
-    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    the divisor (``count_include_pad``).  A bf16 tensor is pooled as the
+    JAX op's ``reduce_window`` sums it: the nine taps added in bf16 in
+    row-major window order, then divided by 9 in bf16."""
+    if x.dtype != torch.bfloat16:
+        return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    h, w = x.shape[2:]
+    oh, ow = (h + 1) // 2, (w + 1) // 2
+    p = F.pad(x, (1, 1, 1, 1))
+    s = None
+    for dy in range(3):
+        for dx in range(3):
+            t = p[:, :, dy:dy + 2 * oh - 1:2, dx:dx + 2 * ow - 1:2]
+            s = t if s is None else s + t
+    # A tensor divisor: division by a Python scalar may become a multiply
+    # by its reciprocal.
+    return s / torch.full((), 9.0, dtype=s.dtype, device=s.device)
 
 
 def replicate_pad(x: torch.Tensor, pad: Sequence[int]) -> torch.Tensor:

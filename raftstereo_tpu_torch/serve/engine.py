@@ -5,7 +5,9 @@ for this slice: each pair is padded by ``ops.image.BucketPadder`` to its
 shape bucket, the pairs of one bucket run as one batch through
 ``RAFTStereo.forward``, and the full-resolution disparities come back
 unpadded.  The engine serialises dispatch under a lock (one model, one
-device) and keeps per-bucket counts and times.
+device) and keeps per-bucket counts and times.  A bf16 model
+(``compute_dtype="bfloat16"``) serves the same fp32 images and returns
+fp32 disparities.
 """
 
 from __future__ import annotations

@@ -12,6 +12,10 @@ scale/bias/mean/var to weight/bias/running_mean/running_var.  One
 difference from upstream: the port's GRUs keep the JAX package's fused
 ``convzr`` (z and r gates as one conv), so that leaf maps one to one.
 
+The same fp32 state dict builds an fp32 or a bf16 model: the port keeps
+its parameters in fp32 whatever the compute dtype and casts them at use,
+as flax's ``dtype=bfloat16`` modules do (never ``model.bfloat16()``).
+
 ``variables`` is a nested dict of numpy arrays (for example from
 ``jax.device_get``) or a flat ``{"params/fnet/conv1/kernel": array}``
 mapping such as an ``.npz`` written by ``flatten_variables``.

@@ -596,3 +596,126 @@ def test_pallas_train_step_on_card_matches_cpu(dev, monkeypatch):
     gmax = max(float(t.abs().max()) for t in gc.values())
     for k in gc:
         assert float((gg[k] - gc[k]).abs().max()) <= 1e-3 * gmax, k
+
+
+# ----------------------------------------------------------------- bf16
+
+def _bf16_ulps(got, want):
+    """Largest difference in bf16 ulps of max(1, |want|) (2^-7 each),
+    NaN positions equal."""
+    got, want = got.float(), want.float()
+    assert torch.equal(got.isnan(), want.isnan())
+    ok = ~want.isnan()
+    return float(((got[ok] - want[ok]).abs()
+                   / want[ok].abs().clamp_min(1.0)).max()) * 2 ** 7
+
+
+def _bf16_lookup_inputs(dev, fmap_dtype):
+    rng = np.random.default_rng(20)
+    b, h, w = 2, 11, 20
+    st = build_corr_state(_randn(rng, b, h, w, 256).to(dev),
+                          _randn(rng, b, h, w, 256).to(dev), 4,
+                          corr_dtype=fmap_dtype)
+    x = np.arange(w, dtype=np.float32) + rng.uniform(-14, 10, (b, h, w))
+    x[0, 0, :3] = [-200.5, w + 200.25, 1e6]
+    x[1, 3, 4] = np.nan
+    return st, torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("fmap_dtype", [torch.float32, torch.bfloat16])
+def test_alt_corr_bf16_kernel_matches_plain(dev, fmap_dtype):
+    """Row 1's bf16 output form (bf16 or fp32 feature maps): within one
+    bf16 ulp of the plain version (fp32 sums in another order, rounded
+    once), NaN where the coordinate is NaN."""
+    st, x = _bf16_lookup_inputs(dev, fmap_dtype)
+    before = cuda_alt.alt_corr.launches
+    got = cuda_alt.alt_corr(st.fmap1, st.f2cat, st.widths, x, 4,
+                            torch.bfloat16)
+    assert cuda_alt.alt_corr.launches == before + 1
+    want = cuda_alt.alt_corr_plain(st.fmap1, st.f2cat, st.widths, x, 4,
+                                   torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert _bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("fmap_dtype", [torch.float32, torch.bfloat16])
+def test_alt_corr_epi_kernel_matches_plain(dev, fmap_dtype):
+    """Row 18: within 2 bf16 ulps of the plain version (a column rounded
+    at a boundary moves the 36-term product), NaN where the coordinate is
+    NaN, zeros from the relu."""
+    st, x = _bf16_lookup_inputs(dev, fmap_dtype)
+    rng = np.random.default_rng(21)
+    ew = (_randn(rng, 36, 64) / 6).to(dev, torch.bfloat16)
+    eb = (_randn(rng, 64) / 10).to(dev, torch.bfloat16)
+    before = cuda_alt.alt_corr_epi.launches
+    got = cuda_alt.alt_corr_epi(st.fmap1, st.f2cat, st.widths, x, 4, ew, eb)
+    assert cuda_alt.alt_corr_epi.launches == before + 1
+    want = cuda_alt.alt_corr_epi_plain(st.fmap1, st.f2cat, st.widths, x, 4,
+                                       ew, eb)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 11, 20, 64)
+    assert _bf16_ulps(got, want) <= 2.0
+    assert (got == 0).any() and (got > 0).any()
+
+
+@pytest.mark.parametrize("n", [1, 3])
+def test_gru_update_bf16_kernel_matches_plain(dev, n):
+    """Row 2's bf16 form: within 4 bf16 ulps of the plain version (a
+    conv output rounded at a boundary carries through the convs after
+    it)."""
+    cfg = RAFTStereoConfig(n_gru_layers=n, hidden_dims=(128,) * n)
+    model = RAFTStereo(cfg, device=dev, seed=1)
+    e = 128 if n > 1 else 0
+    wpack = cuda_gru.pack_update_params(model.update_block, e,
+                                        torch.bfloat16)
+    rng = np.random.default_rng(30 + n)
+    b, h, w = 2, 9, 13
+    bf = torch.bfloat16
+    args = [torch.tanh(_randn(rng, b, h, w, 128)).to(bf),
+            torch.tanh(_randn(rng, b, h, w, e)).to(bf) if e else None,
+            _randn(rng, b, h, w, 36).to(bf),
+            torch.from_numpy(rng.uniform(-8, 2, (b, h, w, 1))
+                             .astype(np.float32)),
+            _randn(rng, b, h, w, 128).to(bf), _randn(rng, b, h, w, 128).to(bf),
+            _randn(rng, b, h, w, 128).to(bf)]
+    args = [a if a is None else a.to(dev) for a in args]
+    hk, dk = cuda_gru.gru_update(*args, wpack)
+    hp, dp = cuda_gru.gru_update_plain(*args, wpack)
+    torch.cuda.synchronize()
+    assert hk.dtype == dk.dtype == bf
+    assert _bf16_ulps(hk, hp) <= 4.0 and _bf16_ulps(dk, dp) <= 4.0
+
+
+@pytest.mark.parametrize("gru_backend,want", [
+    ("fused", dict(alt_corr=3, gru_update=3, alt_corr_epi=0)),
+    ("xla", dict(alt_corr=0, gru_update=0, alt_corr_epi=3))])
+def test_bf16_serving_on_card_never_runs_plain(dev, gru_backend, want,
+                                               monkeypatch):
+    """A bf16 forward on the card with every bf16 kernel's plain version
+    patched to raise: each iteration launches its path's kernels, and the
+    disparities are finite fp32."""
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    for mod, name in ((cuda_alt, "alt_corr_plain"),
+                      (cuda_alt, "alt_corr_epi_plain"),
+                      (cuda_gru, "gru_update_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                           corr_levels=2, corr_radius=2,
+                           compute_dtype="bfloat16", corr_dtype="bfloat16",
+                           gru_backend=gru_backend)
+    model = RAFTStereo(cfg, device=dev, seed=4)
+    fns = {k: getattr(cuda_gru if k == "gru_update" else cuda_alt, k)
+           for k in want}
+    for f in fns.values():
+        f.launches = 0
+    rng = np.random.default_rng(22)
+    i1, i2 = (torch.from_numpy(rng.uniform(0, 255, (1, 32, 48, 3))
+                               .astype(np.float32)).to(dev) for _ in range(2))
+    lo, up = model(i1, i2, iters=3)
+    torch.cuda.synchronize()
+    assert {k: f.launches for k, f in fns.items()} == want
+    assert lo.dtype == up.dtype == torch.float32
+    assert bool(torch.isfinite(up).all())

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_port_encoder_train import _seeded_variables
 from test_torch_port_encoder_train import few_threads  # noqa: F401 autouse
 
 from raftstereo_tpu import RAFTStereoConfig as JaxConfig
@@ -152,6 +153,37 @@ def test_forward_xla_gru_matches_jax(tiny_pair):
     np.testing.assert_allclose(pup, np.asarray(up), rtol=0, atol=5e-3)
 
 
+@pytest.mark.parametrize("variant,hw", [
+    (dict(context_norm="instance"), (32, 48)),
+    (dict(n_downsample=3), (64, 96)),
+    ({}, (36, 52))], ids=["context_instance", "n_downsample3", "odd_grid"])
+def test_forward_variant_matches_jax(variant, hw):
+    """fp32 paths the port runs beside the default: the instance-norm
+    context encoder, the plain encoders at ``n_downsample=3`` (factor 8)
+    and an odd grid (a 36x52 pair: 9x13, 5x7 and 3x4 GRU levels), the
+    port's default backends (``pallas_alt`` lookup, fused update) against
+    the JAX package's ``reg``/``xla`` forward, at the thresholds above."""
+    jmodel = JaxModel(JaxConfig(corr_implementation="reg", gru_backend="xla",
+                                fused_encoder=False, **variant, **TINY))
+    v = _seeded_variables(jax.eval_shape(
+        lambda k: jmodel.init(k, image_hw=hw), jax.random.key(0)))
+    port = RAFTStereo(RAFTStereoConfig(**variant, **TINY), device="cpu")
+    port.load_state_dict(variables_to_state_dict(v), strict=True)
+    rng = np.random.default_rng(2)
+    imgs = [rng.uniform(0, 255, (1,) + hw + (3,)).astype(np.float32)
+            for _ in range(2)]
+    lo, up = jax.jit(lambda a, b: jmodel.forward(v, a, b, iters=3,
+                                                 test_mode=True))(
+        *(jnp.asarray(i) for i in imgs))
+    plo, pup = _port_forward(port, imgs, 3)
+    f = 2 ** variant.get("n_downsample", 2)
+    assert plo.shape == (1, -(-hw[0] // f), -(-hw[1] // f), 1)
+    assert pup.shape == (1,) + hw + (1,) and pup.shape == np.shape(up)
+    assert np.abs(np.asarray(lo)).max() > 1.0
+    np.testing.assert_allclose(plo, np.asarray(lo), rtol=0, atol=2e-3)
+    np.testing.assert_allclose(pup, np.asarray(up), rtol=0, atol=5e-3)
+
+
 @pytest.mark.parametrize("field,value", [
     ("corr_dtype", "bfloat16"), ("corr_precision", "high"),
     ("corr_precision", "default"),
@@ -160,7 +192,10 @@ def test_forward_xla_gru_matches_jax(tiny_pair):
     ("context_norm", "none"), ("slow_fast_gru", True)])
 def test_unported_config_raises(field, value):
     """Every listed value is refused, naming its ROADMAP item, by the
-    constructor or at the latest by a train-mode forward."""
+    constructor or at the latest by a train-mode forward.  The two dtype
+    cases are refusals of the bf16 slice: bf16 correlation at fp32
+    compute (the constructor) and bf16 training (the train-mode forward);
+    the other bf16 refusals are in ``test_torch_port_bf16.py``."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model = RAFTStereo(RAFTStereoConfig(**{field: value}), device="cpu")
         img = torch.zeros((1, 32, 48, 3))

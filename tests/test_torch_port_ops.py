@@ -220,6 +220,7 @@ def test_kernel_sources_carry_their_notes():
     on the card."""
     srcs = _build.sources()
     replaced = {"alt_corr": ("_alt_pyr_radial_kernel",),
+                "alt_corr_epi": ("_alt_pyr_radial_epi_kernel",),
                 "alt_corr_bwd": ("_alt_pyr_bwd_kernel",),
                 "gru_update": ("_gru_update_kernel",),
                 "enc_conv": ("_stem7_kernel", "_stem7s2_kernel",
