@@ -57,17 +57,40 @@ the fused update (32 bf16 lookups and 32 bf16 updates per request) and
 three through the module step (32 fused-convc1 lookups per request, no
 other counted kernel), replies bitwise equal to direct engine calls;
 (18) hold each bf16 path's card forward against the CPU's with the card's
-encoder outputs pinned.  Prints a ``{"kernels": [...]}`` line, one row
-per kernel and path (the path's launches beside the times and bound at
-its shapes), and, last, ``{"ok": true, "device": ...}``.
+encoder outputs pinned.  Then the op functions and evaluation: (19) hold
+the lookup at caller-given taps (row 3, at the serving pyramid and the
+training shape in fp32, and in bf16), its general-taps backward (row 4,
+bitwise repeatable) and the stand-alone instance norm (row 8, fp32 at a
+576x960 bucket's fnet norm and at the training shape, bf16; relu on and
+off) against their plain versions, timed; (20) run the op path: each
+``pallas_alt_pyramid_flat`` forward and backward launches exactly one
+row 3 and one row 4 kernel, each ``instance_norm_act`` forward and
+backward one stats and one apply kernel, and gradients match the CPU's
+on a small shape; (21) evaluate the flagship at full width on a
+synthetic KITTI tree of 10 pairs at 375x1242, first through the
+``Evaluator`` at a padded shape (384x1248) that the process has not run
+yet (each output bitwise equal to a direct forward on the padded pair;
+32 lookups and 32 updates per pair, no other kernel; the first call's
+wall apart from the others'; ``kitti-fps``), then through
+``cli.evaluate`` from a ``save_weights`` file and from an upstream-named
+``.pth`` (equal finite EPE and D1, the Evaluator's EPE; the same
+launches), and through ``cli.demo`` on 2 pairs (the ``.npy`` equal to
+the Evaluator's output) and once ``--tiled`` (6 tiles, finite); (22)
+hold the lookup and the fused update against their plain versions at the
+evaluation grid (96x312, pyramid widths 312/156/78/39), timed.  Prints
+a ``{"kernels": [...]}`` line, one row per kernel and path (the path's
+launches beside the times and bound at its shapes), and, last,
+``{"ok": true, "device": ...}``.
 Exits non-zero, printing no result, without a GPU or without the repo.
 """
 
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import statistics
@@ -87,6 +110,7 @@ PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_INT8_OPS_PER_S = 1979e12
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the card's clock: time_ms's stream hold
+CARD = "card not read yet"  # nvidia-smi's name and power limit, set by main
 
 ITERS = 32
 REQUESTS = 3
@@ -141,6 +165,17 @@ BF16_ITERS = 2   # card-vs-CPU bf16 forwards: iterations
 # O(45) px disparities by 0.13-0.38 / 0.17-0.64 px after 2 iterations,
 # against a bf16-vs-fp32 gap of 2.2-2.4 / 3.3-3.6 px.
 BF16_FORWARD_TOL = (1.0, 1.5)
+# Rows 3, 4 (general taps) and 8 against their plain versions: the lookup
+# in fp32 within 1e-5 of max(1, |plain|) (dots of length 256 summed in
+# another order), with a bf16 output within one bf16 ulp; the backward
+# within BACKWARD_TOL of the largest gradient; instance norm within 1e-5
+# of max(1, |plain|) in fp32 (plane sums of up to 138,240 values in
+# another order) and one bf16 ulp in bf16.
+TAPS_TOL, INORM_TOL = 1e-5, 1e-5
+# The evaluation path: a synthetic KITTI tree at KITTI's resolution, the
+# flagship model at 32 iterations; a tiled demo pair in 2x3 tiles.
+KITTI_HW, KITTI_PAIRS = (375, 1242), 10
+TILE = ((256, 640), 32, 128)  # tile shape, overlap, max disparity
 # Source and replaced TPU kernel of each volume kernel row.
 VOLUME_SITES = {
     "vol_lookup": ("corr_vol", "raftstereo_tpu/ops/pallas_corr.py:262"),
@@ -150,7 +185,9 @@ VOLUME_SITES = {
 # Row names of the kernels whose counters carry another name.
 COUNTER = {"alt_corr_bwd": "alt_corr_backward",
            "vol_lookup_bwd": "vol_lookup_backward",
-           "int8_volume": "int8_corr_volume"}
+           "int8_volume": "int8_corr_volume",
+           "alt_corr_taps_bwd": "alt_corr_taps_backward",
+           "instance_norm": "in_stats"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -233,7 +270,8 @@ def lookup_row(state, x, r, path, torch):
     check(err <= LOOKUP_TOL, f"alt_corr disagrees with its plain version "
                              f"by {err} on the {path} path's shapes")
     ms, plain_ms = time_ms(kern, 50), time_ms(plain, 10)
-    print(f"alt_corr ({path}) ms {ms:.4f} plain_ms {plain_ms:.4f}")
+    print(f"alt_corr ({path}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"[{CARD}]")
     k = 2 * r + 1
     valid = 0  # (pixel, level, column) pairs inside the level
     for lvl, w2 in enumerate(state.widths):
@@ -253,17 +291,62 @@ def lookup_row(state, x, r, path, torch):
                 library_ms=None)
 
 
+def update_row(model, lo_hw, disp, randn, path, torch):
+    """The fused update kernel against its plain version at one path's
+    1/4-resolution grid (inputs from ``randn``, the disparity ``disp``):
+    error, times and bound."""
+    from raftstereo_tpu_torch.ops import cuda_gru
+
+    cfg = model.config
+    h, w = lo_hw
+    hd = cfg.hidden_dims[0]
+    n = cfg.n_gru_layers
+    e = cfg.hidden_dims[1] if n > 1 else 0
+    wpack = cuda_gru.pack_update_params(model.update_block, e)
+    args = (torch.tanh(randn(1, h, w, hd)),
+            torch.tanh(randn(1, h, w, e)) if e else None,
+            randn(1, h, w, cfg.cor_planes), disp[..., None].contiguous(),
+            randn(1, h, w, hd), randn(1, h, w, hd), randn(1, h, w, hd))
+    hk, dk = cuda_gru.gru_update(*args, wpack)
+    hp, dp = cuda_gru.gru_update_plain(*args, wpack)
+    torch.cuda.synchronize()
+    err = max(float((hk - hp).abs().max()), float((dk - dp).abs().max()))
+    scale = max(1.0, float(hp.abs().max()), float(dp.abs().max()))
+    print(f"gru_update ({path}, {h}x{w}) max_abs_err {err:.3e} (tol "
+          f"{UPDATE_TOL} x {scale:.3g})")
+    check(err <= UPDATE_TOL * scale, f"gru_update disagrees with its plain "
+                                     f"version by {err} on the {path} "
+                                     f"path's shapes")
+    ms = time_ms(lambda: cuda_gru.gru_update(*args, wpack), 20)
+    plain_ms = time_ms(lambda: cuda_gru.gru_update_plain(*args, wpack), 10)
+    print(f"gru_update ({path}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"[{CARD}]")
+    macs = (cfg.cor_planes * 64 + 9 * 64 * 64 + 49 * 64 + 9 * 64 * 64
+            + 9 * 128 * 126 + 9 * (hd + 127 + e) * 3 * hd
+            + 9 * hd * 256 + 9 * 256 * 2)
+    flops = h * w * (2 * macs + 12 * hd)
+    nbytes = 4 * (sum(a.numel() for a in args if a is not None)
+                  + sum(v.numel() for v in wpack.values())
+                  + hk.numel() + dk.numel())
+    return dict(name="gru_update", path=path, route="cuda",
+                source="raftstereo_tpu_torch/csrc/gru_update.cu",
+                replaces="raftstereo_tpu/ops/pallas_gru.py:261",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
+                library_ms=None)
+
+
 def kernel_phase(model, lo_hw, torch):
     """Each kernel against its plain version at each main path's shapes;
     one row per kernel and path."""
-    from raftstereo_tpu_torch.ops import cuda_alt, cuda_gru
+    from raftstereo_tpu_torch.ops import cuda_alt
     from raftstereo_tpu_torch.ops.corr import build_corr_state
 
     cfg = model.config
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     h, w = lo_hw
-    c, hd = model.feature_dim, cfg.hidden_dims[0]
+    c = model.feature_dim
 
     def randn(*shape):
         return torch.randn(shape, generator=g).to(dev)
@@ -278,38 +361,7 @@ def kernel_phase(model, lo_hw, torch):
     rows.append(lookup_row(state, x, r, "serve", torch))
 
     # -- update
-    n = cfg.n_gru_layers
-    e = cfg.hidden_dims[1] if n > 1 else 0
-    wpack = cuda_gru.pack_update_params(model.update_block, e)
-    args = (torch.tanh(randn(1, h, w, hd)),
-            torch.tanh(randn(1, h, w, e)) if e else None,
-            randn(1, h, w, cfg.cor_planes), disp[..., None].contiguous(),
-            randn(1, h, w, hd), randn(1, h, w, hd), randn(1, h, w, hd))
-    hk, dk = cuda_gru.gru_update(*args, wpack)
-    hp, dp = cuda_gru.gru_update_plain(*args, wpack)
-    torch.cuda.synchronize()
-    err = max(float((hk - hp).abs().max()), float((dk - dp).abs().max()))
-    scale = max(1.0, float(hp.abs().max()), float(dp.abs().max()))
-    print(f"gru_update max_abs_err {err:.3e} (tol {UPDATE_TOL} x {scale:.3g})")
-    check(err <= UPDATE_TOL * scale,
-          f"gru_update disagrees with its plain version by {err}")
-    ms = time_ms(lambda: cuda_gru.gru_update(*args, wpack), 20)
-    plain_ms = time_ms(lambda: cuda_gru.gru_update_plain(*args, wpack), 10)
-    print(f"gru_update ms {ms:.4f} plain_ms {plain_ms:.4f}")
-    macs = (cfg.cor_planes * 64 + 9 * 64 * 64 + 49 * 64 + 9 * 64 * 64
-            + 9 * 128 * 126 + 9 * (hd + 127 + e) * 3 * hd
-            + 9 * hd * 256 + 9 * 256 * 2)
-    flops = h * w * (2 * macs + 12 * hd)
-    nbytes = 4 * (sum(a.numel() for a in args if a is not None)
-                  + sum(v.numel() for v in wpack.values())
-                  + hk.numel() + dk.numel())
-    rows.append(dict(name="gru_update", path="serve", route="cuda",
-                     source="raftstereo_tpu_torch/csrc/gru_update.cu",
-                     replaces="raftstereo_tpu/ops/pallas_gru.py:261",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     **dict(zip(("bound_ms", "bound_by"),
-                                bound(nbytes, flops))),
-                     library_ms=None))
+    rows.append(update_row(model, lo_hw, disp, randn, "serve", torch))
 
     # -- lookup and its backward, at the training path's shapes
     bh, (th, tw) = TRAIN_BATCH, TRAIN_HW
@@ -1153,6 +1205,503 @@ def train_step_card_vs_cpu(torch, batch, mcfg):
           f"train step gradients differ card vs CPU by {gerr}")
 
 
+def counted_wrappers():
+    """Every counted kernel wrapper of the port."""
+    from raftstereo_tpu_torch.ops import alt_lookup, norm
+
+    return training_wrappers() + (alt_lookup.alt_corr_taps,
+                                  alt_lookup.alt_corr_taps_backward,
+                                  norm.in_stats, norm.in_apply)
+
+
+def launch_counts(fns) -> dict:
+    return {fn.__name__: fn.launches for fn in fns}
+
+
+def op_taps(b, h, w1, widths, k, g, torch):
+    """Per-level local taps (B*H, W1, L*K), level-major: the radial
+    pattern around a random center (taps 0-4 of each level), random reals
+    in [-3, w + 3] (5, 6, 8) and exact integers (7); one tap far outside
+    and one NaN."""
+    cols = []
+    for w in widths:
+        t = torch.rand((b * h, w1, k), generator=g) * (w + 6) - 3
+        center = torch.rand((b * h, w1, 1), generator=g) * (w + 3) - 2
+        t[..., :5] = center + torch.arange(-2.0, 3.0)
+        t[..., 7] = torch.floor(t[..., 7])
+        cols.append(t)
+    taps = torch.cat(cols, dim=-1)
+    taps[0, 0, k - 1] = 1e6
+    taps[-1, -1, 2] = float("nan")
+    return taps.cuda().contiguous()
+
+
+def taps_columns(taps, widths, k, torch) -> int:
+    """Distinct (pixel, level, column) pairs inside the levels that the
+    taps weight: the dot products the lookup needs."""
+    n = 0
+    for lvl, w in enumerate(widths):
+        t = taps[..., lvl * k:(lvl + 1) * k]
+        ok = (t > -1) & (t < w)
+        b0 = torch.floor(torch.where(ok, t, torch.zeros_like(t)))
+        cols = torch.cat([b0, b0 + 1], dim=-1)
+        inside = torch.cat([ok, ok], dim=-1) & (cols >= 0) & (cols <= w - 1)
+        cols, _ = torch.sort(torch.where(inside, cols,
+                                         torch.full_like(cols, -1.0)), -1)
+        new = torch.ones_like(inside)
+        new[..., 1:] = cols[..., 1:] != cols[..., :-1]
+        n += int((new & (cols >= 0)).sum())
+    return n
+
+
+def rel_err(got, want, torch) -> float:
+    """Largest |got - want| / max(1, |want|) over the finite entries of
+    ``want``; non-finite entries must match exactly."""
+    got, want = got.float(), want.float()
+    ok = torch.isfinite(want)
+    check(torch.equal(got[~ok].nan_to_num(7.0), want[~ok].nan_to_num(7.0)),
+          "non-finite entries differ from the plain version")
+    if not bool(ok.any()):
+        return 0.0
+    return float(((got[ok] - want[ok]).abs()
+                  / want[ok].abs().clamp_min(1.0)).max())
+
+
+def op_kernel_phase(lo_hw, torch):
+    """Rows 3, 4 (general taps) and 8 against their plain versions at the
+    op path's shapes, timed: the lookup at the serving pyramid (144 rows of
+    240, widths 240/120/60/30, C=256, 36 taps) and the training shape
+    (480 rows of 180) in fp32 and at the serving pyramid with bf16 feature
+    maps and output; its backward at the training shape; instance norm at
+    fnet's first norm of a 576x960 bucket (2x64x288x480) and of the
+    training recipe (12x64x160x360) in fp32 and the first in bf16.
+    Returns the rows and the op path's inputs."""
+    import torch.nn.functional as F
+
+    from raftstereo_tpu_torch.ops import alt_lookup as al
+    from raftstereo_tpu_torch.ops import norm
+    from raftstereo_tpu_torch.ops.corr import build_corr_state
+
+    g = torch.Generator().manual_seed(5)
+    c, levels, k = 256, 4, 9
+    bf = torch.bfloat16
+    rows, inputs = [], {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).cuda()
+
+    shapes = {"op_serve": (1,) + tuple(lo_hw),
+              "op_train": (TRAIN_BATCH, TRAIN_HW[0] // 4,
+                           TRAIN_HW[1] // 4)}
+    for path, dtype, out_dtype in (("op_serve", torch.float32, None),
+                                   ("op_train", torch.float32, None),
+                                   ("op_serve_bf16", bf, bf)):
+        b, h, w = shapes[path.replace("_bf16", "")]
+        st = build_corr_state(randn(b, h, w, c), randn(b, h, w, c), levels,
+                              corr_dtype=dtype)
+        f1 = st.fmap1.reshape(b * h, w, c)
+        f2 = st.f2cat.reshape(b * h, -1, c)
+        taps = op_taps(b, h, w, st.widths, k, g, torch)
+        odt = out_dtype or torch.float32
+        inputs[path] = (f1, f2, taps, st.widths, (b, h, w))
+
+        def kern():
+            return al.alt_corr_taps(f1, f2, taps, st.widths, odt)
+
+        def plain():
+            return al.alt_corr_taps_plain(f1, f2, taps, st.widths, odt)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        check(got.dtype == odt and int(got.isnan().sum()) == 1,
+              f"alt_corr_taps ({path}): dtype {got.dtype}, "
+              f"{int(got.isnan().sum())} NaN entries (want 1)")
+        err = rel_err(got, want, torch)
+        tol = BF16_ULP * LOOKUP_BF16_ULPS if odt == bf else TAPS_TOL
+        abs_err = float((got.float() - want.float()).nan_to_num().abs().max())
+        print(f"alt_corr_taps ({path}, {dims(f1)} x {dims(f2)}, taps "
+              f"{dims(taps)}) max_abs_err {abs_err:.3e}, max rel {err:.3e} "
+              f"(tol {tol})")
+        check(err <= tol, f"alt_corr_taps disagrees with its plain version "
+                          f"by {err} ({path})")
+        ms, plain_ms = time_ms(kern, 50), time_ms(plain, 5)
+        esize = 2 if dtype == bf else 4
+        osize = 2 if odt == bf else 4
+        nbytes = (esize * (f1.numel() + f2.numel()) + 4 * taps.numel()
+                  + osize * got.numel())
+        flops = 2 * c * taps_columns(taps, st.widths, k, torch) \
+            + 4 * taps.numel()
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"alt_corr_taps ({path}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bound_ms:.4f} ({bound_by}) [{CARD}]")
+        rows.append(dict(name="alt_corr_taps", path=path, route="cuda",
+                         source="raftstereo_tpu_torch/csrc/alt_corr_taps.cu",
+                         replaces="raftstereo_tpu/ops/pallas_alt.py:77",
+                         max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None))
+        if path != "op_train":
+            continue
+        gout = randn(*taps.shape)
+
+        def bwd():
+            return al.alt_corr_taps_backward(f1, f2, taps, gout, st.widths)
+
+        def bwd_plain():
+            return al.alt_corr_taps_backward_plain(f1, f2, taps, gout,
+                                                   st.widths)
+
+        k1, k2, want = bwd(), bwd(), bwd_plain()
+        torch.cuda.synchronize()
+        check(all(same_bits(a, b_, torch) for a, b_ in zip(k1, k2)),
+              "alt_corr_taps_bwd: two calls on the same inputs differ")
+        check(all(int(a.isnan().sum()) > 0 for a in k1),
+              "alt_corr_taps_bwd: the NaN tap poisoned nothing")
+        scale = max(1.0, *(float(p[torch.isfinite(p)].abs().max())
+                           for p in want))
+        err = max(rel_err(a / scale, p / scale, torch)
+                  for a, p in zip(k1, want))
+        abs_err = max(float((a - p).nan_to_num().abs().max())
+                      for a, p in zip(k1, want))
+        print(f"alt_corr_taps_bwd ({path}) max_abs_err {abs_err:.3e}, "
+              f"{err:.3e} of the largest (tol {BACKWARD_TOL}); bitwise "
+              f"repeatable")
+        check(err <= BACKWARD_TOL, f"alt_corr_taps_bwd disagrees with its "
+                                   f"plain version by {err}")
+        ms, plain_ms = time_ms(bwd, 20), time_ms(bwd_plain, 5)
+        nbytes = 4 * (2 * f1.numel() + 2 * f2.numel() + 2 * taps.numel())
+        flops = 4 * c * taps_columns(taps, st.widths, k, torch) \
+            + 6 * taps.numel()
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"alt_corr_taps_bwd ({path}) ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) [{CARD}]")
+        rows.append(dict(name="alt_corr_taps_bwd", path=path, route="cuda",
+                         source="raftstereo_tpu_torch/csrc/"
+                                "alt_corr_taps_bwd.cu",
+                         replaces="raftstereo_tpu/ops/pallas_alt.py:195",
+                         max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=None))
+
+    for path, shape, dtype in (("op_serve", (2, 64, 288, 480), torch.float32),
+                               ("op_train", (12, 64, 160, 360),
+                                torch.float32),
+                               ("op_serve_bf16", (2, 64, 288, 480), bf)):
+        x = (randn(*shape) * 1.5 + 0.4).to(dtype)
+        inputs[path] += (x,)
+        for relu in (True, False):
+            def kern(relu=relu):
+                return norm.instance_norm_act(x, relu)
+
+            def plain(relu=relu):
+                return norm.in_apply_plain(x, *norm.in_stats_plain(x), relu)
+
+            k1, k2, want = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            check(torch.equal(k1, k2), "instance_norm: two calls differ")
+            err = rel_err(k1, want, torch)
+            tol = BF16_ULP if dtype == bf else INORM_TOL
+            abs_err = float((k1.float() - want.float()).abs().max())
+            print(f"instance_norm ({path}, {dims(x)} {x.dtype}, relu {relu}) "
+                  f"max_abs_err {abs_err:.3e}, max rel {err:.3e} (tol {tol});"
+                  f" bitwise repeatable")
+            check(err <= tol, f"instance_norm disagrees with its plain "
+                              f"version by {err} ({path}, relu {relu})")
+        mean, rstd = norm.in_stats(x)
+        ms, plain_ms = time_ms(kern, 20), time_ms(plain, 5)
+        ms_stats = time_ms(lambda: norm.in_stats(x), 20)
+        ms_apply = time_ms(lambda: norm.in_apply(x, mean, rstd), 20)
+        lib_ms = time_ms(lambda: F.instance_norm(x, eps=1e-5), 20)
+        esize = 2 if dtype == bf else 4
+        bound_ms, bound_by = bound(2 * esize * x.numel(), 5 * x.numel())
+        print(f"instance_norm ({path}) ms {ms:.4f} (stats {ms_stats:.4f}, "
+              f"apply {ms_apply:.4f}) plain_ms {plain_ms:.4f} library_ms "
+              f"{lib_ms:.4f} (F.instance_norm) bound_ms {bound_ms:.4f} "
+              f"({bound_by}) [{CARD}]")
+        rows.append(dict(name="instance_norm", path=path, shape=dims(x),
+                         route="cuda",
+                         source="raftstereo_tpu_torch/csrc/inorm.cu",
+                         replaces="raftstereo_tpu/ops/pallas_norm.py:47, :66",
+                         max_abs_err=abs_err, ms=ms, ms_stats=ms_stats,
+                         ms_apply=ms_apply, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=lib_ms))
+    return rows, inputs
+
+
+def op_path_phase(inputs, torch):
+    """The op path: per shape one ``pallas_alt_pyramid_flat`` forward and
+    ``.backward()`` (bf16: forward only; its gradient is refused) and one
+    ``instance_norm_act`` forward and ``.backward()``; each call launches
+    exactly its kernels and no other counted kernel.  Returns launches
+    per wrapper name for each path."""
+    from raftstereo_tpu_torch.ops import alt_lookup as al
+    from raftstereo_tpu_torch.ops import norm
+
+    fns = counted_wrappers()
+    by_path = {}
+    for path, (f1, f2, taps, widths, (b, h, w), x) in inputs.items():
+        bf16 = f1.dtype == torch.bfloat16
+
+        def lookup():
+            a, c_ = (t.detach().requires_grad_(not bf16) for t in (f1, f2))
+            out = al.pallas_alt_pyramid_flat(
+                a, c_, taps.reshape(b, h, w, -1), widths,
+                out_dtype=torch.bfloat16 if bf16 else torch.float32)
+            if not bf16:
+                out.backward(torch.ones_like(out))
+
+        def inorm():
+            xr = x.detach().requires_grad_(True)
+            y = norm.instance_norm_act(xr, True)
+            y.backward(torch.ones_like(y))
+
+        total = dict.fromkeys((fn.__name__ for fn in fns), 0)
+        for call, want in ((lookup, dict(alt_corr_taps=1,
+                                         alt_corr_taps_backward=int(
+                                             not bf16))),
+                           (inorm, dict(in_stats=1, in_apply=1))):
+            for fn in fns:
+                fn.launches = 0
+            call()
+            torch.cuda.synchronize()
+            got = launch_counts(fns)
+            expect = {fn.__name__: want.get(fn.__name__, 0) for fn in fns}
+            check(got == expect, f"op path {path} {call.__name__}: "
+                                 f"launches {got}, want {expect}")
+            total = {k: total[k] + got[k] for k in total}
+        print(f"op path {path}: launches {total}")
+        by_path[path] = total
+    return by_path
+
+
+def op_grads_card_vs_cpu(torch):
+    """The op functions' outputs and gradients, card (kernels) vs CPU
+    (plain versions), on small shapes: within BACKWARD_TOL of the largest
+    CPU value."""
+    from raftstereo_tpu_torch.ops import alt_lookup as al
+    from raftstereo_tpu_torch.ops import norm
+
+    g = torch.Generator().manual_seed(6)
+    f1 = torch.randn((6, 16, 256), generator=g)
+    f2 = torch.randn((6, 24, 256), generator=g)
+    taps = torch.rand((2, 3, 16, 10), generator=g) * 22 - 3
+    cot = torch.randn((2, 3, 16, 10), generator=g)
+    x = torch.randn((2, 8, 12, 10), generator=g) + 0.3
+
+    def run(dev):
+        a, b = (t.to(dev).clone().requires_grad_(True) for t in (f1, f2))
+        out = al.pallas_alt_pyramid_flat(a, b, taps.to(dev), (16, 8))
+        (out * cot.to(dev)).sum().backward()
+        xr = x.to(dev).clone().requires_grad_(True)
+        y = norm.instance_norm_act(xr, True)
+        (y * y).sum().backward()
+        return [t.detach().cpu() for t in (out, a.grad, b.grad, y, xr.grad)]
+
+    want, got = run("cpu"), run("cuda")
+    err = max(float((a - w).abs().max()) / max(1.0, float(w.abs().max()))
+              for a, w in zip(got, want))
+    print(f"op functions card vs cpu (outputs and gradients): {err:.3e} of "
+          f"the largest (tol {BACKWARD_TOL})")
+    check(err <= BACKWARD_TOL, f"op functions differ card vs CPU by {err}")
+
+
+def upstream_state_dict(model) -> dict:
+    """``model``'s weights under upstream RAFT-Stereo names: split GRU gate
+    convs, the projection norm registered twice, batch-norm counters, the
+    DataParallel prefix, in a ``state_dict`` key."""
+    import torch
+
+    sd = {}
+    for k, v in model.state_dict().items():
+        v = v.detach().cpu()
+        if ".convzr." in k:
+            z, r = (t.clone() for t in torch.chunk(v, 2, dim=0))
+            sd[k.replace("convzr", "convz")] = z
+            sd[k.replace("convzr", "convr")] = r
+            continue
+        sd[k] = v.clone()
+        if ".downsample.1." in k:
+            sd[k.replace(".downsample.1.", ".norm3.")] = v.clone()
+        if k.endswith("running_var"):
+            sd[k.replace("running_var", "num_batches_tracked")] = (
+                torch.tensor(0))
+    return {"state_dict": {f"module.{k}": v for k, v in sd.items()}}
+
+
+def eval_phase(torch):
+    """The flagship at full width through the evaluation entry points on a
+    synthetic KITTI tree (KITTI_PAIRS pairs at KITTI_HW): the ``Evaluator``
+    pair by pair on a padded shape the process has not run yet, then
+    ``cli.evaluate`` from a ``save_weights`` file and from an upstream
+    ``.pth``, ``cli.demo`` plain and tiled; then the lookup and update
+    kernels against their plain versions at the evaluation grid.  Returns
+    the rows and the launches of the Evaluator's run (each call's, read
+    after the counters were set to 0 just before it, summed)."""
+    from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig
+    from raftstereo_tpu_torch.cli import demo as cli_demo
+    from raftstereo_tpu_torch.cli import evaluate as cli_evaluate
+    from raftstereo_tpu_torch.data import datasets as tds
+    from raftstereo_tpu_torch.data.synthetic import make_learnable_kitti
+    from raftstereo_tpu_torch.eval import Evaluator, validate_kitti
+    from raftstereo_tpu_torch.eval.tiled import plan_geometry
+    from raftstereo_tpu_torch.ops.corr import build_corr_state
+    from raftstereo_tpu_torch.train.checkpoint import save_weights
+
+    fns = counted_wrappers()
+    per_pair = dict(alt_corr=ITERS, gru_update=ITERS)
+
+    def want(n):
+        return {fn.__name__: n * per_pair.get(fn.__name__, 0) for fn in fns}
+
+    def reset():
+        for fn in fns:
+            fn.launches = 0
+
+    model = RAFTStereo(RAFTStereoConfig(), device="cuda", seed=0)
+    cfg = model.config
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "kitti")
+        t0 = time.perf_counter()
+        make_learnable_kitti(root, n=KITTI_PAIRS, hw=KITTI_HW,
+                             rng=np.random.default_rng(3))
+        print(f"synthetic KITTI tree: {KITTI_PAIRS} pairs at {KITTI_HW} in "
+              f"{time.perf_counter() - t0:.1f}s")
+
+        run = Evaluator(model, iters=ITERS)
+        outs, calls = [], []
+        measured = dict.fromkeys(want(0), 0)
+
+        class Checked:
+            """The Evaluator, with each pair's launches and its output
+            held against a direct forward on the padded pair."""
+
+            last_runtime = property(lambda self: run.last_runtime)
+            last_included_compile = property(
+                lambda self: run.last_included_compile)
+
+            def __call__(self, left, right):
+                reset()
+                flow = run(left, right)
+                got = launch_counts(fns)
+                check(got == want(1),
+                      f"Evaluator launches {got}, want {want(1)}")
+                for k, v in got.items():
+                    measured[k] += v
+                calls.append((run.last_runtime, run.last_included_compile))
+                i1, i2, padder = run.pad(left, right)
+                _, up = model(i1, i2, iters=ITERS)
+                check(np.array_equal(flow, padder.unpad(up)[0, ..., 0]
+                                     .cpu().numpy()),
+                      "Evaluator output differs from a direct forward")
+                outs.append(flow)
+                return flow
+
+        res = validate_kitti(model, iters=ITERS, dataset=tds.KITTI(
+            aug_params=None, root=root), evaluator=Checked(), warmup=0)
+        check(measured == want(KITTI_PAIRS),
+              f"Evaluator run launches {measured}, want {want(KITTI_PAIRS)}")
+        (padded,) = run.compiled_shapes
+        cold = [1e3 * t for t, first in calls if first]
+        warm = [1e3 * t for t, first in calls if not first]
+        check(len(cold) == 1 and calls[0][1],
+              f"first-call flags {[first for _, first in calls]}")
+        print(f"Evaluator: {res}; padded {padded}, launches {measured}")
+        print(f"eval per-pair wall (forward + host fetch), first call at "
+              f"the padded shape (new to this process): {cold[0]:.3f} ms "
+              f"[{CARD}]")
+        print(f"eval per-pair wall, the other {len(warm)} pairs: mean "
+              f"{statistics.mean(warm):.3f} median "
+              f"{statistics.median(warm):.3f} min {min(warm):.3f} max "
+              f"{max(warm):.3f} stdev {statistics.stdev(warm):.3f} ms "
+              f"[{CARD}]")
+        print(f"kitti-fps {res['kitti-fps']:.4f} (pairs 2-{KITTI_PAIRS}, "
+              f"{KITTI_HW[0]}x{KITTI_HW[1]}, {ITERS} iterations) [{CARD}]")
+
+        files = {"save_weights": os.path.join(tmp, "w.pt"),
+                 "upstream .pth": os.path.join(tmp, "w.pth")}
+        save_weights(files["save_weights"], model)
+        torch.save(upstream_state_dict(model), files["upstream .pth"])
+        results = {}
+        for fmt, path in files.items():
+            reset()
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_evaluate.main(["--dataset", "kitti", "--dataset_root",
+                                        root, "--restore_ckpt", path,
+                                        "--valid_iters", str(ITERS)])
+            wall = time.perf_counter() - t0
+            got = launch_counts(fns)
+            cli_res = json.loads(out.getvalue().strip().splitlines()[-1])
+            print(f"cli.evaluate from the {fmt} file: {cli_res} in "
+                  f"{wall:.1f}s; launches {got}")
+            check(rc == 0 and all(np.isfinite(v) for v in cli_res.values()),
+                  f"cli.evaluate from the {fmt} file: rc {rc}, {cli_res}")
+            check(got == want(KITTI_PAIRS), f"cli.evaluate launches {got}, "
+                                            f"want {want(KITTI_PAIRS)}")
+            results[fmt] = cli_res
+        check(results["save_weights"] == results["upstream .pth"],
+              f"EPE/D1 differ between the weight files: {results}")
+        check(abs(res["kitti-epe"] - results["save_weights"]["kitti-epe"])
+              <= 1e-5 * abs(res["kitti-epe"]), "Evaluator EPE differs from "
+                                               "cli.evaluate's")
+
+        img = os.path.join(root, "training", "image_{}", "00000{}_10.png")
+        for tiled, pairs in ((False, "[01]"), (True, "2")):
+            dest = os.path.join(tmp, "demo_tiled" if tiled else "demo")
+            reset()
+            rc = cli_demo.main(
+                ["--restore_ckpt", files["save_weights"], "-l",
+                 img.format(2, pairs), "-r", img.format(3, pairs),
+                 "--output_directory", dest, "--save_numpy",
+                 "--valid_iters", str(ITERS)]
+                + (["--tiled", "--tile_size", *map(str, TILE[0]),
+                    "--tile_overlap", str(TILE[1]), "--max_disparity",
+                    str(TILE[2])] if tiled else []))
+            _, _, ys, xs, _, _ = plan_geometry(*KITTI_HW, *TILE)
+            n = len(ys) * len(xs) if tiled else 2
+            check(rc == 0 and launch_counts(fns) == want(n),
+                  f"cli.demo (tiled {tiled}): rc {rc}, launches "
+                  f"{launch_counts(fns)}, want {want(n)}")
+            names = sorted(os.listdir(dest))
+            print(f"cli.demo (tiled {tiled}{f', {n} tiles' if tiled else ''})"
+                  f": {names}")
+            for i, stem in enumerate([f"00000{c}_10" for c in pairs.strip(
+                    "[]")]):
+                disp = np.load(os.path.join(dest, f"{stem}.npy"))
+                check(disp.shape == KITTI_HW and bool(np.isfinite(disp).all())
+                      and f"{stem}.png" in names,
+                      f"cli.demo (tiled {tiled}) {stem}: bad output")
+                if not tiled:
+                    check(np.array_equal(disp, -outs[i]),
+                          f"cli.demo {stem}.npy differs from the Evaluator's "
+                          f"output")
+            check(not tiled or len(ys) >= 2 <= len(xs),
+                  f"the tiled pair runs {len(ys)}x{len(xs)} tiles")
+    print("evaluation path: launches exact, outputs finite, bitwise equal "
+          "across weight files and to direct forwards")
+
+    # The lookup and the update at the evaluation grid (the padded pair at
+    # 1/4 resolution: pyramid widths W/4, W/8, W/16, W/32).
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    h, w = padded[0] // cfg.factor, padded[1] // cfg.factor
+    c = model.feature_dim
+    state = build_corr_state(randn(1, h, w, c), randn(1, h, w, c),
+                             cfg.corr_levels)
+    print(f"evaluation grid {h}x{w}, pyramid widths {state.widths}")
+    disp = -60.0 * torch.rand((1, h, w), generator=g).to(dev)
+    x = (torch.arange(w, device=dev, dtype=torch.float32) + disp).contiguous()
+    rows = [lookup_row(state, x, cfg.corr_radius, "eval", torch),
+            update_row(model, (h, w), disp, randn, "eval", torch)]
+    return rows, {"eval": measured}
+
+
 def main() -> int:
     import torch
 
@@ -1169,11 +1718,12 @@ def main() -> int:
     from raftstereo_tpu_torch.ops import _build
     from raftstereo_tpu_torch.ops.image import BucketPadder
 
-    card = subprocess.run(
+    global CARD
+    CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    print(card)
+    print(CARD)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
@@ -1269,6 +1819,17 @@ def main() -> int:
     for path in ("train", "train_fused"):
         print(f"{path}: median step wall (steps 2 on) {walls[path][0]:.3f}s, "
               f"peak memory {walls[path][1]:.2f} GB")
+
+    # The op functions (rows 3, 4 with general taps, 8), then evaluation.
+    op_rows, op_inputs = op_kernel_phase(lo_hw, torch)
+    rows += op_rows
+    by_path.update(op_path_phase(op_inputs, torch))
+    del op_inputs
+    torch.cuda.empty_cache()
+    op_grads_card_vs_cpu(torch)
+    eval_rows, eval_launches = eval_phase(torch)
+    rows += eval_rows
+    by_path.update(eval_launches)
 
     # Each row's launches are those of its path's run, beside the times
     # and bound measured at that path's shapes.

@@ -3,16 +3,20 @@
     python -m raftstereo_tpu_torch.cli.serve --port 8080 --buckets 540x960 \
         --serve_iters 32 [--corr_implementation pallas] [--corr_quant] \
         [--gru_backend fused] [--mixed_precision [--corr_dtype bfloat16]] \
-        [--device cuda] [--weights_npz PATH]
+        [--device cuda] [--restore_ckpt PATH | --weights_npz PATH]
 
 ``--mixed_precision`` serves in bf16 (``compute_dtype="bfloat16"``, the
 JAX package's flag); ``--corr_dtype bfloat16`` also stores the on-demand
 lookup's feature maps in bf16.  Replies are fp32 either way.
 
-Without ``--weights_npz`` the model has seeded random weights.  ``--weights_npz`` is a flattened JAX ``variables`` tree
-(``utils.convert.flatten_variables`` saved with ``np.savez``), loaded
-through the weight bridge.  Prints one JSON line ``{"serving":
-"http://host:port", ...}`` once warm, then serves until interrupted.
+Without ``--restore_ckpt`` or ``--weights_npz`` the model has seeded
+random weights.  ``--restore_ckpt`` takes an upstream ``.pth``, the
+port's ``save_weights`` file or a flattened JAX ``.npz``
+(``cli.common.load_weights_any``); ``--weights_npz`` is a flattened JAX
+``variables`` tree (``utils.convert.flatten_variables`` saved with
+``np.savez``), loaded through the weight bridge.  Prints one JSON line
+``{"serving": "http://host:port", ...}`` once warm, then serves until
+interrupted.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from ..config import CORR_IMPLEMENTATIONS, RAFTStereoConfig, ServeConfig
 from ..models import RAFTStereo
 from ..serve.server import build_server
 from ..utils.convert import load_weights_npz
+from .common import load_weights_any
 
 
 def _bucket(text: str):
@@ -51,7 +56,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--bucket_multiple", type=int, default=d.bucket_multiple)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; fails without a GPU) or 'cpu'")
-    p.add_argument("--weights_npz", default=None)
+    w = p.add_mutually_exclusive_group()
+    w.add_argument("--restore_ckpt", default=None,
+                   help=".pth, save_weights file or flattened JAX .npz")
+    w.add_argument("--weights_npz", default=None)
     g = p.add_argument_group("model (defaults: the flagship config)")
     g.add_argument("--corr_levels", type=int, default=m.corr_levels)
     g.add_argument("--corr_radius", type=int, default=m.corr_radius)
@@ -98,7 +106,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                        buckets=tuple(args.buckets),
                        serve_iters=args.serve_iters)
     model = RAFTStereo(cfg, device=args.device)
-    if args.weights_npz:
+    if args.restore_ckpt:
+        load_weights_any(args.restore_ckpt, model)
+    elif args.weights_npz:
         load_weights_npz(model, args.weights_npz)
     server = build_server(model, scfg, device=args.device)
     previous = signal.signal(signal.SIGTERM, _interrupt)

@@ -7,12 +7,15 @@ The counterpart of the JAX package's ``cli/train.py`` on one device: the
 same flags and the same loop, with torch checkpoints (``train.checkpoint``)
 in place of Orbax.  ``train()`` runs on the card unless the caller passes
 ``device="cpu"``; ``dataset`` injection lets a caller train on in-memory
-data (``data.synthetic.ShiftStereoDataset``).
+data (``data.synthetic.ShiftStereoDataset``).  Every
+``validation_frequency`` steps it saves a checkpoint and validates on the
+FlyingThings3D TEST split (``eval.validate_things``, at most 200 pairs);
+the split is loaded once at startup, and a missing or empty split fails
+the run before any work unless ``--no_validation`` is given.
 
 Not ported yet, and refused at startup with ``NotImplementedError``:
-in-training validation (pass ``--no_validation``), ``--metrics_port``,
-``--profile_steps``, ``--faults``, ``--data_parallel`` > 1,
-``--device_photometric`` and ``--workload sl``.
+``--metrics_port``, ``--profile_steps``, ``--faults``, ``--data_parallel``
+> 1, ``--device_photometric`` and ``--workload sl``.
 """
 
 from __future__ import annotations
@@ -27,19 +30,21 @@ import time
 from typing import Optional
 
 import numpy as np
-import torch
 
 from ..config import CORR_IMPLEMENTATIONS, RAFTStereoConfig, TrainConfig
+from ..data import datasets as ds
 from ..data.datasets import build_aug_params, fetch_dataset
 from ..data.loader import DataLoader, prefetch_to_device
 from ..device import resolve_device
+from ..eval import validate_things
 from ..models import RAFTStereo
 from ..train.checkpoint import (CheckpointManager, PreemptionGuard,
-                                load_weights, save_weights)
+                                save_weights)
 from ..train.logger import Logger
 from ..train.optim import make_optimizer
 from ..train.state import TrainState
 from ..train.step import make_train_step
+from .common import load_weights_any
 
 logger = logging.getLogger(__name__)
 
@@ -51,8 +56,9 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
     g.add_argument("--workload", choices=["passive", "sl"], default="passive",
                    help="'sl' (structured light) is not ported yet")
     g.add_argument("--restore_ckpt", default=None,
-                   help="weights file (train.checkpoint.save_weights) or "
-                        "a flattened JAX variables .npz to start from")
+                   help="weights to start from: an upstream .pth, a "
+                        "train.checkpoint.save_weights file or a "
+                        "flattened JAX variables .npz")
     g.add_argument("--batch_size", type=int, default=d.batch_size)
     g.add_argument("--train_datasets", nargs="+",
                    default=list(d.train_datasets))
@@ -72,8 +78,7 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                    help="data-parallel devices; only 1 is ported")
     g.add_argument("--num_workers", type=int, default=None)
     g.add_argument("--no_validation", action="store_true",
-                   help="skip the periodic validation (required: the "
-                        "validator is not ported yet)")
+                   help="skip the periodic FlyingThings validation")
     g.add_argument("--profile_steps", type=int, nargs=2, default=None,
                    metavar=("START", "STOP"), help="not ported yet")
     g.add_argument("--metrics_port", type=int, default=None,
@@ -152,14 +157,11 @@ def model_config_from_args(args: argparse.Namespace) -> RAFTStereoConfig:
         corr_quant=args.corr_quant, remat=args.remat)
 
 
-def check_unported(cfg: TrainConfig, no_validation: bool, profile_steps,
-                   faults, metrics_port, workload: str) -> None:
+def check_unported(cfg: TrainConfig, profile_steps, faults, metrics_port,
+                   workload: str) -> None:
     """Raise ``NotImplementedError`` for every option the port does not
     run yet, before any work starts."""
     refused = []
-    if not no_validation:
-        refused.append("in-training validation (pass no_validation / "
-                       "--no_validation): ROADMAP.md Queue 1 item 4")
     if metrics_port is not None or profile_steps or faults:
         refused.append("--metrics_port, --profile_steps and --faults: "
                        "ROADMAP.md Queue 1 item 11")
@@ -174,12 +176,24 @@ def check_unported(cfg: TrainConfig, no_validation: bool, profile_steps,
         raise NotImplementedError("not ported yet: " + "; ".join(refused))
 
 
-def _load_initial_weights(path: str, model: torch.nn.Module) -> None:
-    if path.endswith(".npz"):
-        from ..utils.convert import load_weights_npz
-        load_weights_npz(model, path)
-    else:
-        load_weights(path, model)
+def _things_test(dataset_root: Optional[str]):
+    """The FlyingThings3D TEST split (finalpass) for in-training
+    validation; raises ``ValueError`` when it is missing or empty."""
+    try:
+        val = ds.SceneFlowDatasets(
+            aug_params=None, dstype="frames_finalpass", things_test=True,
+            **({"root": dataset_root} if dataset_root else {}))
+    except (AssertionError, OSError, ValueError) as e:
+        raise ValueError(
+            "in-training validation requires the FlyingThings3D TEST split "
+            f"and it could not be loaded ({e}); fix the dataset root or "
+            "pass --no_validation to opt out explicitly") from e
+    if len(val) == 0:
+        raise ValueError(
+            "in-training validation dataset is empty (no FlyingThings3D "
+            "TEST split under the dataset root); fix the dataset root or "
+            "pass --no_validation to opt out explicitly")
+    return val
 
 
 def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig, dataset=None,
@@ -196,9 +210,9 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig, dataset=None,
     until the step count exceeds ``cfg.num_steps``, saving every
     ``validation_frequency`` steps; SIGTERM/SIGINT save at the next step
     boundary and return.  ``log_dir`` defaults to ``runs/<name>``."""
-    check_unported(cfg, no_validation, profile_steps, fault_plan,
-                   metrics_port, workload)
+    check_unported(cfg, profile_steps, fault_plan, metrics_port, workload)
     dev = resolve_device(device)
+    val_dataset = None if no_validation else _things_test(dataset_root)
     np.random.seed(cfg.seed)
 
     model = RAFTStereo(model_cfg, device=dev, seed=cfg.seed)
@@ -229,7 +243,7 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig, dataset=None,
                          "falling back to %s", ckpt_dir,
                          cfg.restore_ckpt or "a fresh init")
         if cfg.restore_ckpt:
-            _load_initial_weights(cfg.restore_ckpt, model)
+            load_weights_any(cfg.restore_ckpt, model)
             logger.info("Initialised weights from %s", cfg.restore_ckpt)
 
     init_state()
@@ -266,6 +280,23 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig, dataset=None,
     def save_ckpt(step):
         manager.save(step, state)
         saved_steps.add(step)
+
+    def maybe_validate():
+        if val_dataset is None:
+            return
+        try:
+            results = validate_things(model, iters=cfg.valid_iters,
+                                      dataset=val_dataset, max_images=200)
+        except Exception as e:  # noqa: BLE001 — counted, training goes on
+            # Startup loaded the split, so this is a runtime failure: loud
+            # and counted, not a silent skip.
+            logger.exception("Validation FAILED (counted as "
+                             "validation_skipped): %s", e)
+            metrics_logger.push({"validation_skipped": 1.0})
+            return
+        metrics_logger.push({"validation_skipped": 0.0})
+        logger.info("Validation: %s", results)
+        metrics_logger.write_dict(results)
 
     step_times = collections.deque(maxlen=101)
 
@@ -318,6 +349,7 @@ def train(model_cfg: RAFTStereoConfig, cfg: TrainConfig, dataset=None,
                     metrics_logger.push({**metrics, **health})
                 if state.step % cfg.validation_frequency == 0:
                     save_ckpt(state.step)
+                    maybe_validate()
                 if state.step > cfg.num_steps:
                     should_keep_training = False
                     break

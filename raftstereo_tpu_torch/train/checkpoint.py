@@ -136,10 +136,3 @@ def save_weights(path: str, model: torch.nn.Module) -> None:
     """Weights-only save (state dict: parameters and batch-norm
     statistics) for evaluation and serving."""
     _atomic_save(model.state_dict(), os.path.abspath(path))
-
-
-def load_weights(path: str, model: torch.nn.Module) -> None:
-    """Load a ``save_weights`` file into ``model`` (strict)."""
-    sd = torch.load(os.path.abspath(path), map_location="cpu",
-                    weights_only=True)
-    model.load_state_dict(sd, strict=True)

@@ -82,6 +82,14 @@ class Logger:
         if self.writer is not None:
             self.writer.add_scalar(name, float(value), step)
 
+    def write_dict(self, results: Dict[str, float]) -> None:
+        """Validation results, at the current step."""
+        self._emit({"step": self.total_steps,
+                    **{k: float(v) for k, v in results.items()}})
+        if self.writer is not None:
+            for k, v in results.items():
+                self.writer.add_scalar(k, float(v), self.total_steps)
+
     # -- internals ----------------------------------------------------------
 
     def _emit(self, record: Dict) -> None:

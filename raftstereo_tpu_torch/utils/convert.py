@@ -1,5 +1,6 @@
-"""Weight bridge: the JAX package's ``variables`` tree -> the port's
-``state_dict``.
+"""Weight bridge: the JAX package's ``variables`` tree <-> the port's
+``state_dict``, and upstream RAFT-Stereo ``.pth`` checkpoints -> the
+port's ``state_dict``.
 
 The JAX package converts upstream PyTorch checkpoints into its
 ``variables`` by mapping each flax module path to an upstream torch
@@ -19,6 +20,15 @@ as flax's ``dtype=bfloat16`` modules do (never ``model.bfloat16()``).
 ``variables`` is a nested dict of numpy arrays (for example from
 ``jax.device_get``) or a flat ``{"params/fnet/conv1/kernel": array}``
 mapping such as an ``.npz`` written by ``flatten_variables``.
+``state_dict_to_variables`` is the inverse, for round trips.
+
+Upstream checkpoints (``load_upstream_state_dict``,
+``upstream_to_state_dict``) carry the same names with a DataParallel
+``module.`` prefix, split ``convz``/``convr`` gate convs (concatenated
+on the output axis into ``convzr``, as the JAX package's converter
+does), the projection norm registered twice (``norm3`` aliases
+``downsample.1``), ``num_batches_tracked`` counters, and for configs
+with fewer than 3 GRU levels the dead weights of the unused levels.
 """
 
 from __future__ import annotations
@@ -112,6 +122,111 @@ def variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
         sd[key] = torch.tensor(arr, dtype=torch.float32)  # owns a copy
     return sd
+
+
+_HEAD_KIND = {"0": "res", "1": "conv"}
+_GRU = {"gru08": "gru0", "gru16": "gru1", "gru32": "gru2"}
+
+
+def _module_path(prefix: str) -> Tuple[str, ...]:
+    """Torch module prefix -> flax module path: ``_translate_module``
+    inverted."""
+    tok = prefix.split(".")
+    top = tok[0]
+    if top == "context_zqr_convs":
+        return ("zqr", f"zqr{tok[1]}")
+    out, i = [top if top != "update_block" else "update"], 1
+    while i < len(tok):
+        t = tok[i]
+        nxt = tok[i + 1] if i + 1 < len(tok) else None
+        if top in ("cnet", "fnet") and t.startswith("layer") and (
+                nxt or "").isdigit():
+            out.append(f"{t}_{nxt}")
+            i += 2
+        elif top in ("cnet", "fnet") and t == "outputs32":
+            out.append(f"head32_{nxt}_conv")
+            i += 2
+        elif top in ("cnet", "fnet") and t.startswith("outputs"):
+            out.append(f"head{t[7:]}_{nxt}_{_HEAD_KIND[tok[i + 2]]}")
+            i += 3
+        elif top in ("cnet", "fnet") and t == "downsample":
+            out.append({"0": "downsample_conv", "1": "downsample_norm"}[nxt])
+            i += 2
+        elif top == "update_block" and t == "mask":
+            out.append({"0": "mask_conv1", "2": "mask_conv2"}[nxt])
+            i += 2
+        else:
+            out.append(_GRU.get(t, t) if top == "update_block" else t)
+            i += 1
+    return tuple(out)
+
+
+def state_dict_to_variables(sd: Mapping[str, torch.Tensor]) -> Dict:
+    """The JAX ``variables`` tree (nested dicts of fp32 numpy arrays)
+    from the port's ``state_dict``: the inverse of
+    ``variables_to_state_dict``."""
+    out: Dict = {}
+    for key, t in sd.items():
+        prefix, leaf = key.rsplit(".", 1)
+        arr = t.detach().cpu().float().numpy()
+        if leaf in ("running_mean", "running_var"):
+            coll, name = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight" and arr.ndim == 4:
+            coll, name = "params", "kernel"
+            arr = np.transpose(arr, (2, 3, 1, 0))  # OIHW -> HWIO
+        elif leaf in ("weight", "bias"):
+            coll, name = "params", "scale" if leaf == "weight" else "bias"
+        else:
+            raise KeyError(f"unknown leaf {key}")
+        node = out.setdefault(coll, {})
+        for p in _module_path(prefix):
+            node = node.setdefault(p, {})
+        if name in node:
+            raise KeyError(f"two tensors map to {coll}/{prefix}/{name}")
+        node[name] = np.ascontiguousarray(arr)
+    return out
+
+
+def load_upstream_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """Read a ``.pth`` state dict (a ``state_dict`` key unwrapped, the
+    DataParallel ``module.`` prefix stripped)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, Mapping) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in sd.items()}
+
+
+def upstream_to_state_dict(sd: Mapping[str, torch.Tensor],
+                           n_gru_layers: int = 3) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` from upstream-named tensors: ``convz`` and
+    ``convr`` concatenated on the output axis into ``convzr``, the
+    ``norm3`` aliases of ``downsample.1`` and the ``num_batches_tracked``
+    counters dropped, and for ``n_gru_layers`` < 3 the unused levels'
+    weights dropped (the upstream model builds all three).  Anything else
+    passes through, so a strict ``load_state_dict`` still refuses a
+    config mismatch."""
+    dead = []
+    if n_gru_layers < 3:
+        dead += ["cnet.layer5.", "cnet.outputs32.", "update_block.gru32."]
+    if n_gru_layers < 2:
+        dead += ["cnet.layer4.", "cnet.outputs16.", "update_block.gru16."]
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if k.endswith("num_batches_tracked") or any(k.startswith(p)
+                                                    for p in dead):
+            continue
+        if ".norm3." in k and k.replace(".norm3.", ".downsample.1.") in sd:
+            continue
+        if ".convr." in k:
+            continue  # joined with its convz below
+        if ".convz." in k:
+            k2 = k.replace(".convz.", ".convr.")
+            out[k.replace(".convz.", ".convzr.")] = torch.cat(
+                [v, sd[k2]]).float()
+            continue
+        out[k] = v.float()
+    return out
 
 
 def flatten_variables(variables: Mapping) -> Dict[str, np.ndarray]:

@@ -719,3 +719,176 @@ def test_bf16_serving_on_card_never_runs_plain(dev, gru_backend, want,
     assert {k: f.launches for k, f in fns.items()} == want
     assert lo.dtype == up.dtype == torch.float32
     assert bool(torch.isfinite(up).all())
+
+
+# -------------------------------------------- rows 3, 4 (general taps), 8
+
+def _taps_inputs(dev, rng, n, w1, widths, kk, dtype=torch.float32, c=256):
+    """Flat feature maps and taps mixing the radial pattern, random reals
+    in [-3, w + 3], exact integers, far-outside and infinite taps and one
+    NaN tap."""
+    f1 = _randn(rng, n, w1, c).to(dev, dtype)
+    f2 = _randn(rng, n, sum(widths), c).to(dev, dtype)
+    cols = []
+    for w in widths:
+        t = rng.uniform(-3.0, w + 3.0, (n, w1, kk))
+        t[..., 0] = np.floor(t[..., 0])
+        t[..., 1:4] = rng.uniform(-2.0, w + 1.0, (n, w1, 1)) + np.arange(-1, 2)
+        t[0, :4, -1] = [-1e6, 1e6, np.inf, -np.inf]
+        cols.append(t)
+    taps = np.concatenate(cols, axis=-1).astype(np.float32)
+    taps[n - 1, w1 - 1, 2] = np.nan
+    return f1, f2, torch.from_numpy(taps).to(dev)
+
+
+@pytest.mark.parametrize("n,w1,widths,dtype,out_dtype,c", [
+    (11, 20, (20, 10, 5, 2), torch.float32, torch.float32, 256),
+    (480, 180, (180, 90, 45, 22), torch.float32, torch.float32, 256),
+    (11, 20, (20, 10, 5, 2), torch.bfloat16, torch.float32, 256),
+    (11, 20, (20, 10, 5, 2), torch.bfloat16, torch.bfloat16, 256),
+    (11, 20, (20, 10, 5, 2), torch.float32, torch.float32, 192),
+    (11, 20, (20, 10, 5, 2), torch.float32, torch.float32, 640),
+    (11, 20, (20, 10, 5, 2), torch.bfloat16, torch.float32, 200)],
+    ids=["hostile", "training", "bf16_in", "bf16_in_out", "c192", "c640",
+         "c200_bf16"])
+def test_alt_corr_taps_kernel_matches_plain(dev, n, w1, widths, dtype,
+                                            out_dtype, c):
+    """Row 3: within 1e-5 of max(1, |plain|) in fp32 (dots of length C
+    summed in another order), one bf16 ulp with a bf16 output; NaN only
+    at the NaN tap, 0 at taps outside.  C that is not a multiple of the
+    kernel's 128 (fp32) or 256 (bf16) channels is zero-padded, and C
+    above 512 reads its tail through the caches."""
+    from raftstereo_tpu_torch.ops import alt_lookup
+
+    rng = np.random.default_rng(40)
+    f1, f2, taps = _taps_inputs(dev, rng, n, w1, widths, 9, dtype, c)
+    before = alt_lookup.alt_corr_taps.launches
+    got = alt_lookup.alt_corr_taps(f1, f2, taps, widths, out_dtype)
+    assert alt_lookup.alt_corr_taps.launches == before + 1
+    want = alt_lookup.alt_corr_taps_plain(f1, f2, taps, widths, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().sum() == 1
+    assert (got[0, :4, 8::9] == 0).all()
+    tol = 1.0 if out_dtype == torch.bfloat16 else 1e-5 * 2 ** 7
+    assert _bf16_ulps(got, want) <= tol
+
+
+@pytest.mark.parametrize("n,w1,widths,c", [
+    (11, 20, (20, 10, 5, 2), 256), (480, 180, (180, 90, 45, 22), 256),
+    (11, 20, (20, 10, 5, 2), 192), (11, 20, (20, 10, 5, 2), 640),
+    (2, 1248, (1248, 624, 312, 156), 256)],
+    ids=["hostile", "training", "c192", "c640", "wide"])
+def test_alt_corr_taps_backward_kernel_matches_plain(dev, n, w1, widths, c):
+    """Row 4 with general taps: bitwise repeatable, within 1e-4 of the
+    largest plain gradient, NaN where the dense hat is NaN (the NaN tap's
+    pixel and its row's level; an infinite cotangent's columns).  C=192
+    is zero-padded, C=640 runs two channel groups, and W1=1248 walks its
+    row in three tiles of pixels (its tables exceed shared memory)."""
+    from raftstereo_tpu_torch.ops import alt_lookup
+
+    rng = np.random.default_rng(41)
+    f1, f2, taps = _taps_inputs(dev, rng, n, w1, widths, 9, c=c)
+    g = _randn(rng, *taps.shape).to(dev)
+    g[1, 3, 20] = float("inf")
+    before = alt_lookup.alt_corr_taps_backward.launches
+    k1 = alt_lookup.alt_corr_taps_backward(f1, f2, taps, g, widths)
+    k2 = alt_lookup.alt_corr_taps_backward(f1, f2, taps, g, widths)
+    assert alt_lookup.alt_corr_taps_backward.launches == before + 2
+    want = alt_lookup.alt_corr_taps_backward_plain(f1, f2, taps, g, widths)
+    torch.cuda.synchronize()
+    for a, b, w in zip(k1, k2, want):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+        assert torch.equal(a.isnan(), w.isnan())
+        assert torch.equal(a.isinf(), w.isinf())
+        ok = torch.isfinite(w)
+        scale = max(1.0, float(w[ok].abs().max()))
+        assert float((a[ok] - w[ok]).abs().max()) <= 1e-4 * scale
+        assert torch.equal(a[~ok].nan_to_num(7.0), w[~ok].nan_to_num(7.0))
+
+
+@pytest.mark.parametrize("shape,dtype,relu", [
+    ((2, 64, 36, 60), torch.float32, False),
+    ((2, 64, 36, 60), torch.float32, True),
+    ((3, 5, 7, 9), torch.float32, True),
+    ((2, 64, 36, 60), torch.bfloat16, False),
+    ((2, 64, 36, 60), torch.bfloat16, True)],
+    ids=["fp32", "fp32_relu", "odd", "bf16", "bf16_relu"])
+def test_instance_norm_kernels_match_plain(dev, shape, dtype, relu):
+    """Row 8: stats within 1e-5 relative (plane sums in another order),
+    the output within 1e-5 of max(1, |plain|) in fp32 and one bf16 ulp in
+    bf16; one launch of each kernel, both bitwise repeatable."""
+    from raftstereo_tpu_torch.ops import norm
+
+    rng = np.random.default_rng(42)
+    x = (_randn(rng, *shape) * 1.5 + 0.4).to(dev, dtype)
+    s0, a0 = norm.in_stats.launches, norm.in_apply.launches
+    y = norm.instance_norm_act(x, relu)
+    y2 = norm.instance_norm_act(x, relu)
+    assert (norm.in_stats.launches, norm.in_apply.launches) == (s0 + 2,
+                                                                a0 + 2)
+    want = norm.in_apply_plain(x, *norm.in_stats_plain(x), relu)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and torch.equal(y, y2)
+    for got, ref in zip(norm.in_stats(x), norm.in_stats_plain(x)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
+    tol = 1.0 if dtype == torch.bfloat16 else 1e-5 * 2 ** 7
+    assert _bf16_ulps(y, want) <= tol
+
+
+def test_lookup_and_norm_ops_on_card_never_run_plain(dev, monkeypatch):
+    """The op path's forward and backward on the card with every plain
+    version patched to raise: one lookup and one general backward, or one
+    stats and one apply launch, per call; gradients match the CPU's."""
+    from raftstereo_tpu_torch.ops import alt_lookup, norm
+
+    rng = np.random.default_rng(43)
+    f1, f2, taps = _taps_inputs(torch.device("cpu"), rng, 6, 16, (16, 8),
+                                5)
+    taps[-1, -1, 2] = 3.25  # finite gradients
+    x = _randn(rng, 2, 8, 12, 10) + 0.3
+    cot = _randn(rng, 2, 3, 16, 10)
+
+    def grads(device):
+        a, b = (t.detach().to(device).clone().requires_grad_(True)
+                for t in (f1, f2))
+        out = alt_lookup.pallas_alt_pyramid_flat(
+            a, b, taps.to(device).reshape(2, 3, 16, 10), (16, 8))
+        (out * cot.to(device)).sum().backward()
+        xr = x.detach().to(device).clone().requires_grad_(True)
+        y = norm.instance_norm_act(xr, True)
+        (y * y).sum().backward()
+        return [t.cpu() for t in (out, a.grad, b.grad, y, xr.grad)]
+
+    want = grads("cpu")
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    for name in ("alt_corr_taps_plain", "alt_corr_taps_backward_plain"):
+        monkeypatch.setattr(alt_lookup, name, boom)
+    for name in ("in_stats_plain", "in_apply_plain"):
+        monkeypatch.setattr(norm, name, boom)
+    fns = (alt_lookup.alt_corr_taps, alt_lookup.alt_corr_taps_backward,
+           norm.in_stats, norm.in_apply)
+    for f in fns:
+        f.launches = 0
+    got = grads(dev)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [1, 1, 1, 1]
+    for a, w in zip(got, want):
+        scale = max(1.0, float(w.abs().max()))
+        assert float((a - w).abs().max()) <= 1e-4 * scale
+    with pytest.raises(ValueError):  # taps on the CPU, features on the card
+        alt_lookup.alt_corr_taps(f1.to(dev), f2.to(dev), taps, (16, 8))
+    with pytest.raises(NotImplementedError):  # more levels than 8
+        alt_lookup.alt_corr_taps(f1.to(dev), f2[:, :9].contiguous().to(dev),
+                                 taps[..., :9].contiguous().to(dev),
+                                 (1,) * 9)
+    with pytest.raises(ValueError):  # a bf16 cotangent
+        alt_lookup.alt_corr_taps_backward(f1.to(dev), f2.to(dev),
+                                          taps.to(dev),
+                                          taps.to(dev, torch.bfloat16),
+                                          (16, 8))
+    with pytest.raises(ValueError):  # a non-contiguous tensor
+        norm.in_stats(x.to(dev).transpose(2, 3))

@@ -232,7 +232,10 @@ def test_kernel_sources_carry_their_notes():
                 "enc_finish": ("_enc_finish_kernel", "_l2_finish_kernel"),
                 "corr_vol": ("_lookup_kernel",),
                 "corr_vol_bwd": ("_lookup_bwd_kernel",),
-                "int8_volume": ("_int8_volume_kernel",)}
+                "int8_volume": ("_int8_volume_kernel",),
+                "alt_corr_taps": ("_alt_pyr_fwd_kernel",),
+                "alt_corr_taps_bwd": ("_alt_pyr_bwd_kernel", "_make_alt_pyr"),
+                "inorm": ("_in_stats_kernel", "_in_apply_kernel")}
     assert set(srcs) == set(replaced)
     for name, path in srcs.items():
         text = path.read_text()

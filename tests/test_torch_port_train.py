@@ -418,7 +418,7 @@ def test_restore_latest_valid_skips_a_corrupt_step(tmp_path):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(no_validation=False), "item 4"),
+    (dict(no_validation=False, dataset_root="missing"), None),
     (dict(metrics_port=0), "item 11"), (dict(profile_steps=(1, 2)), "item 11"),
     (dict(fault_plan="crash@step=1"), "item 11"),
     (dict(cfg=dict(data_parallel=2)), "item 10"),
@@ -427,12 +427,19 @@ def test_restore_latest_valid_skips_a_corrupt_step(tmp_path):
     ids=["validation", "metrics_port", "profile_steps", "faults",
          "data_parallel", "device_photometric", "workload_sl"])
 def test_train_refuses_unported_options(tmp_path, kw, item):
+    """Each option the port does not run is refused before any work; so
+    is in-training validation without its FlyingThings3D TEST split (the
+    validation case: a fail-fast ValueError, as in the JAX package)."""
     kw = dict(kw)
     cfg = _loop_cfg(tmp_path, **kw.pop("cfg", {}))
     args = dict(dataset=tsyn.ShiftStereoDataset(n=1, hw=HW), num_workers=0,
                 no_validation=True, device="cpu")
     args.update(kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
+    if "dataset_root" in kw:
+        args["dataset_root"] = str(tmp_path / kw["dataset_root"])
+    exc, match = ((NotImplementedError, f"ROADMAP.md Queue 1 {item}") if item
+                  else (ValueError, "FlyingThings3D TEST split"))
+    with pytest.raises(exc, match=match):
         cli_train.train(RAFTStereoConfig(**LOOP), cfg, **args)
     assert not (tmp_path / "ckpt").exists()   # refused before any work
 
