@@ -4,9 +4,14 @@
     python3 chip_smoke.py
 
 Phases, none caught: (1) print the card's name and power limit; (2) build
-the CUDA kernels from ``raftstereo_tpu_torch/csrc``; (3) hold each kernel
-against its plain PyTorch version on the card at the shapes its main path
-gives it, and time both: the serving path's lookup and fused update (a
+the CUDA kernels from ``raftstereo_tpu_torch/csrc``, printing ptxas's
+registers, shared memory and spills of each kernel of the fused update
+(row 2) and, where ``cuobjdump`` exists, the count of tensor-core
+instructions (HMMA/HGMMA) in its library, which must not be 0; (3) hold
+each kernel against its plain PyTorch version on the card at the shapes
+its main path gives it, and time both (the update also beside its
+tensor-core bound, ``bound_tc_ms``, and as a ratio to its plain
+version's time): the serving path's lookup and fused update (a
 540x960 request pads to the 576x960 bucket, so the 1/4-resolution grid is
 144x240 with C=256 and hidden 128), the training path's lookup and its
 backward (batch 6 of 320x720 crops: 480 rows of 180 pixels, C=256), and
@@ -93,6 +98,8 @@ import dataclasses
 import io
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -108,6 +115,7 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_TF32_FLOP_PER_S = 495e12  # one TF32 pass; fp32 as 3xTF32 takes three
 PEAK_INT8_OPS_PER_S = 1979e12
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the card's clock: time_ms's stream hold
 CARD = "card not read yet"  # nvidia-smi's name and power limit, set by main
@@ -229,9 +237,10 @@ def time_ms(fn, reps: int, rounds: int = 5) -> float:
 
 
 def bound(nbytes: float, flops: float, int8_ops: float = 0.0,
-          bf16_flops: float = 0.0):
+          bf16_flops: float = 0.0, tf32_flops: float = 0.0):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (flops / PEAK_FP32_FLOP_PER_S + bf16_flops / PEAK_BF16_FLOP_PER_S
+             + tf32_flops / PEAK_TF32_FLOP_PER_S
              + int8_ops / PEAK_INT8_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -294,7 +303,10 @@ def lookup_row(state, x, r, path, torch):
 def update_row(model, lo_hw, disp, randn, path, torch):
     """The fused update kernel against its plain version at one path's
     1/4-resolution grid (inputs from ``randn``, the disparity ``disp``):
-    error, times and bound."""
+    error, times and bound.  h' and delta are each held to ``UPDATE_TOL``
+    x max(1, |that output|): a single TF32 pass would miss it on h'
+    (about 5e-4 at |h'| <= 1).  The bound is the tensor cores' for the
+    kernel's 3xTF32 products (``bound_cuda_core_ms`` beside it)."""
     from raftstereo_tpu_torch.ops import cuda_gru
 
     cfg = model.config
@@ -310,30 +322,110 @@ def update_row(model, lo_hw, disp, randn, path, torch):
     hk, dk = cuda_gru.gru_update(*args, wpack)
     hp, dp = cuda_gru.gru_update_plain(*args, wpack)
     torch.cuda.synchronize()
-    err = max(float((hk - hp).abs().max()), float((dk - dp).abs().max()))
-    scale = max(1.0, float(hp.abs().max()), float(dp.abs().max()))
-    print(f"gru_update ({path}, {h}x{w}) max_abs_err {err:.3e} (tol "
-          f"{UPDATE_TOL} x {scale:.3g})")
-    check(err <= UPDATE_TOL * scale, f"gru_update disagrees with its plain "
-                                     f"version by {err} on the {path} "
-                                     f"path's shapes")
+    errs = {}
+    for name, got, want in (("h'", hk, hp), ("delta", dk, dp)):
+        errs[name] = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        print(f"gru_update ({path}, {h}x{w}) {name} max_abs_err "
+              f"{errs[name]:.3e} (tol {UPDATE_TOL} x {scale:.3g})")
+        check(errs[name] <= UPDATE_TOL * scale,
+              f"gru_update's {name} disagrees with its plain version by "
+              f"{errs[name]} on the {path} path's shapes")
+    err = max(errs.values())
     ms = time_ms(lambda: cuda_gru.gru_update(*args, wpack), 20)
     plain_ms = time_ms(lambda: cuda_gru.gru_update_plain(*args, wpack), 10)
-    print(f"gru_update ({path}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
-          f"[{CARD}]")
-    macs = (cfg.cor_planes * 64 + 9 * 64 * 64 + 49 * 64 + 9 * 64 * 64
-            + 9 * 128 * 126 + 9 * (hd + 127 + e) * 3 * hd
-            + 9 * hd * 256 + 9 * 256 * 2)
+    macs = update_macs(cfg.cor_planes, hd, e)
     flops = h * w * (2 * macs + 12 * hd)
     nbytes = 4 * (sum(a.numel() for a in args if a is not None)
-                  + sum(v.numel() for v in wpack.values())
+                  + sum(wpack[k].numel() for k in cuda_gru.PLAIN_KEYS
+                        if k in wpack)
                   + hk.numel() + dk.numel())
+    # the kernel's products: three TF32 passes on the tensor cores; the
+    # gate arithmetic on the CUDA cores
+    tc_ms, bound_by = bound(nbytes, h * w * 12 * hd,
+                            tf32_flops=3 * h * w * 2 * macs)
+    cuda_core_ms = bound(nbytes, flops)[0]
+    print(f"gru_update ({path}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"ms/plain {ms / plain_ms:.3f}; bound_ms {tc_ms:.4f} (3xTF32 "
+          f"tensor cores), bound_cuda_core_ms {cuda_core_ms:.4f}, "
+          f"ms/bound {ms / tc_ms:.2f} [{CARD}]")
     return dict(name="gru_update", path=path, route="cuda",
                 source="raftstereo_tpu_torch/csrc/gru_update.cu",
                 replaces="raftstereo_tpu/ops/pallas_gru.py:261",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, flops))),
-                library_ms=None)
+                max_abs_err=err, max_abs_err_h=errs["h'"],
+                max_abs_err_delta=errs["delta"], ms=ms, plain_ms=plain_ms,
+                bound_ms=tc_ms, bound_by=bound_by, library_ms=None,
+                bound_tc_ms=tc_ms, bound_cuda_core_ms=cuda_core_ms,
+                ms_over_plain=ms / plain_ms, ms_over_bound_tc=ms / tc_ms)
+
+
+def update_macs(cor_planes: int, hd: int, e: int) -> int:
+    """Multiply-adds per pixel of one fused update."""
+    return (cor_planes * 64 + 9 * 64 * 64 + 49 * 64 + 9 * 64 * 64
+            + 9 * 128 * 126 + 9 * (hd + 127 + e) * 3 * hd
+            + 9 * hd * 256 + 9 * 256 * 2)
+
+
+_PTXAS_ARG = re.compile(r"13__nv_bfloat16|S1_|Li(\d+)E|f")
+
+
+def _ptxas_label(mangled: str) -> str:
+    """``gru_mma_conv_kernel<bf16,4,8>`` from a mangled kernel name."""
+    name = re.search(r"(gru_mma_conv_kernel|gru_simt_conv_kernel|"
+                     r"conv3x3_few_out_kernel|pad_rows_kernel)I(.*?)EEv",
+                     mangled)
+    if not name:
+        return mangled
+    args = [t.group(1) or ("fp32" if t.group(0) == "f" else "bf16")
+            for t in _PTXAS_ARG.finditer(name.group(2))]
+    return f"{name.group(1)}<{','.join(args)}>"
+
+
+def gru_build_report(lib) -> None:
+    """Row 2's kernels as ptxas reported them (registers, static shared
+    memory, spills; the mma kernel's dynamic shared memory is its TMA
+    ring of 128-byte rows, BM = 32*MT pixel rows and BN = 16*NT weight
+    rows per plane, 4 stages where one is at most 28 KB, else 3, and a
+    barrier per stage), and the tensor-core instructions in the
+    library."""
+    entry = spill = None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        props = re.search(r"Function properties for (\S+)", line)
+        used = re.search(r"Used (\d+) registers", line)
+        if props:
+            entry = _ptxas_label(props.group(1))
+        elif entry and "spill" in line:
+            spill = line.strip()
+        elif entry and used:
+            smem = re.search(r"(\d+) bytes smem", line)
+            ring = ""
+            k = re.match(r"gru_mma_conv_kernel<(\w+),(\d),(\d)>", entry)
+            if k:
+                planes = 2 if k.group(1) == "fp32" else 1
+                rows = 32 * int(k.group(2)) + planes * 16 * int(k.group(3))
+                stage = 128 * rows
+                ring = (f", {(4 if stage <= 28 * 1024 else 3) * (stage + 8)} "
+                        f"bytes dynamic smem")
+            print(f"  gru_update ptxas {entry}: {used.group(1)} registers, "
+                  f"{smem.group(1) if smem else 0} bytes static smem{ring}; "
+                  f"{spill}")
+            entry = None
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("  gru_update SASS: cuobjdump missing")
+        return
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True)
+    if out.returncode != 0:
+        print(f"  gru_update SASS: cuobjdump exited {out.returncode}: "
+              f"{out.stderr.strip()[:300]}")
+        return
+    hgmma = len(re.findall(r"\bHGMMA\b", out.stdout))
+    hmma = len(re.findall(r"\bHMMA\b", out.stdout))
+    print(f"  gru_update SASS: {hmma} HMMA, {hgmma} HGMMA instructions "
+          f"(cuobjdump -sass {lib.name})")
+    check(hmma + hgmma > 0, "gru_update: no tensor-core instruction in "
+                            "the built library")
 
 
 def kernel_phase(model, lo_hw, torch):
@@ -933,19 +1025,30 @@ def bf16_kernel_phase(model, lo_hw, torch):
             randn(1, h, w, lk).to(bf), disp[..., None].contiguous(),
             randn(1, h, w, hd).to(bf), randn(1, h, w, hd).to(bf),
             randn(1, h, w, hd).to(bf))
-    macs = (lk * 64 + 9 * 64 * 64 + 49 * 64 + 9 * 64 * 64 + 9 * 128 * 126
-            + 9 * (hd + 127 + e) * 3 * hd + 9 * hd * 256 + 9 * 256 * 2)
+    macs = update_macs(lk, hd, e)
     nbytes = (2 * sum(a.numel() for a in args if a is not None)
               - 2 * npix + 4 * npix
-              + 2 * sum(v.numel() for v in wpack.values())
+              + 2 * sum(wpack[k].numel() for k in cuda_gru.PLAIN_KEYS
+                        if k in wpack)
               + 2 * npix * (hd + 2))
+    # the row's bound_ms: the products on the tensor cores, the gate
+    # arithmetic on the CUDA cores
+    tc_ms = bound(nbytes, npix * 12 * hd, bf16_flops=2 * macs * npix)[0]
     row("gru_update", "serve_bf16", "gru_update",
         "raftstereo_tpu/ops/pallas_gru.py:261",
         lambda: cuda_gru.gru_update(*args, wpack),
         lambda: cuda_gru.gru_update_plain(*args, wpack),
         UPDATE_BF16_ULPS, nbytes, npix * 12 * hd, 2 * macs * npix, 20,
         min_equal=UPDATE_BF16_EQUAL,
-        bound_cuda_core_ms=bound(nbytes, npix * (2 * macs + 12 * hd))[0])
+        bound_cuda_core_ms=bound(nbytes, npix * (2 * macs + 12 * hd))[0],
+        bound_tc_ms=tc_ms)
+    upd = rows[-1]
+    upd.update(ms_over_plain=upd["ms"] / upd["plain_ms"],
+               ms_over_bound_tc=upd["ms"] / tc_ms)
+    print(f"gru_update (serve_bf16) ms/plain {upd['ms_over_plain']:.3f}; "
+          f"bound_ms {tc_ms:.4f} (bf16 tensor cores), bound_cuda_core_ms "
+          f"{upd['bound_cuda_core_ms']:.4f}, ms/bound "
+          f"{upd['ms_over_bound_tc']:.2f} [{CARD}]")
     return rows
 
 
@@ -1733,6 +1836,7 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    gru_build_report(libs["gru_update"])
 
     cfg = RAFTStereoConfig(corr_implementation="pallas_alt",
                            gru_backend="fused")

@@ -58,8 +58,8 @@ _GROUPS = {"enc_conv": ("enc_conv_kernel", "enc_conv_stats_kernel"),
            "corr_vol": ("corr_vol_kernel",),
            "corr_vol_bwd": ("corr_vol_bwd_kernel",),
            "int8_volume": ("int8_volume_kernel",),
-           "gru_update": ("conv_nhwc_kernel", "reset_gate_kernel",
-                          "conv3x3_few_out_kernel", "round_disp_kernel"),
+           "gru_update": ("gru_mma_conv_kernel", "gru_simt_conv_kernel",
+                          "conv3x3_few_out_kernel", "pad_rows_kernel"),
            "conv": ("cudnn", "xmma", "conv", "gemm", "wgrad", "dgrad",
                     "fprop", "sgemm")}
 

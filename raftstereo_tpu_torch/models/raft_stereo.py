@@ -109,6 +109,7 @@ class RAFTStereo(nn.Module):
                       else torch.float32)
         self.corr_dtype = (torch.bfloat16 if cfg.corr_dtype == "bfloat16"
                            else torch.float32)
+        self._wpack = (None, None)  # (key, pack): see _update_pack
         init_weights(self, torch.Generator().manual_seed(seed))
         self.eval()
         self.to(dev)
@@ -217,6 +218,17 @@ class RAFTStereo(nn.Module):
         mask = _nhwc(blk.upsample_mask(net[0])).float()
         return disp, convex_upsample(disp, mask, cfg.factor)
 
+    def _update_pack(self, ext_dim: int):
+        """The fused update's weight pack, built once and rebuilt only when
+        a parameter of the update block moved or changed in place (an
+        optimizer step or ``load_state_dict`` bumps its version)."""
+        key = (self.dtype, ext_dim) + tuple(
+            (p.data_ptr(), p._version) for p in self.update_block.parameters())
+        if self._wpack[0] != key:
+            self._wpack = (key, pack_update_params(self.update_block, ext_dim,
+                                                   self.dtype))
+        return self._wpack[1]
+
     def _fused_loop(self, state, net, zqr, disp, grid, iters):
         """Test-mode iterations through the fused finest-level update
         kernel; the mask head runs once after the loop."""
@@ -225,8 +237,7 @@ class RAFTStereo(nn.Module):
         h0 = _nhwc(net[0])
         cz0, cr0, cq0 = (_nhwc(t) for t in zqr[0])
         h_lo, w_lo = h0.shape[1:3]
-        wpack = pack_update_params(self.update_block,
-                                   hd[1] if n > 1 else 0, self.dtype)
+        wpack = self._update_pack(hd[1] if n > 1 else 0)
         blk = self.update_block
         for _ in range(iters):
             corr = corr_lookup(state, grid + disp[..., 0], cfg.corr_radius,

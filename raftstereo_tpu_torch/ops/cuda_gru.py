@@ -6,14 +6,22 @@ Replaces the TPU kernel ``raftstereo_tpu/ops/pallas_gru.py``
 in one call per iteration, ``(h, ext, corr, disp, cz, cr, cq) -> (h',
 delta)``, all NHWC, fp32 or bf16 (``disp`` always fp32).  The bound on an
 H100 and what the design does about it are in the source's note: about
-128 GFLOP per call at the flagship shapes, bound by fp32 operations
-(about 2 ms at 67 TFLOP/s); in bf16 the tensor cores would bound it at
-about 0.13 ms, which a kernel without ``mma``/``wgmma`` cannot reach.
+128 GFLOP per call at the flagship shapes, bound by operations; the six
+big convs run on the tensor cores (bf16 ``mma.sync``, about 0.13 ms at
+the dense rate; fp32 as 3xTF32, about 0.77 ms), fed by TMA.  Where hd or
+ext_dim is not a multiple of 16 bytes (4 fp32, 8 bf16 channels), the
+kernel first copies h and ext into its workspace at the width rounded
+up: one launch more.
 
 The bf16 form rounds where the JAX kernel casts to the compute dtype:
 each conv is an fp32 sum of exact products of bf16 values plus the
 bias, then rounded; the gate arithmetic rounds after every operation;
 the disparity enters rounded to bf16; delta comes out in bf16.
+
+The pack (``pack_update_params``) holds the plain version's entries and,
+for the kernel, each tensor-core conv's weights as one (N, K) matrix in
+the kernel's reduction order (``k*`` keys; ``kernel_operands``), in fp32
+as two TF32 planes, hi and lo (``tf32_round``).
 
 ``gru_update`` runs the plain version for CPU tensors and the kernel for
 CUDA tensors; it never falls back from one to the other.
@@ -22,6 +30,7 @@ CUDA tensors; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -30,19 +39,85 @@ import torch.nn.functional as F
 from . import _build
 
 # Pointer order of the kernel's weight array (csrc/gru_update.cu).
-WEIGHT_ORDER = ("wc1", "bc1", "wc2", "bc2", "wf1", "bf1", "wf2", "bf2",
-                "wme_c", "wme_f", "bme",
-                "wzr_h", "wzr_m", "wzr_d", "wzr_e", "bzr",
-                "wq_h", "wq_m", "wq_d", "wq_e", "bq",
-                "wfh1", "bfh1", "wfh2", "bfh2")
-_MOTION, _ME, _HEAD, _DELTA = 64, 126, 256, 2
+WEIGHT_ORDER = ("wc1", "bc1", "kc2", "bc2", "wf1", "bf1", "kf2", "bf2",
+                "kme", "bme", "kzr", "bzr", "kq", "bq", "kfh1", "bfh1",
+                "wfh2", "bfh2")
+# The plain version's entries.
+PLAIN_KEYS = ("wc1", "bc1", "wc2", "bc2", "wf1", "bf1", "wf2", "bf2",
+              "wme_c", "wme_f", "bme",
+              "wzr_h", "wzr_m", "wzr_d", "wzr_e", "bzr",
+              "wq_h", "wq_m", "wq_d", "wq_e", "bq",
+              "wfh1", "bfh1", "wfh2", "bfh2")
+_MOTION, _ME, _MF, _HEAD, _DELTA = 64, 126, 128, 256, 2
+_ROW_BYTES = 128  # bytes of one pipeline stage of a weight row
 
 
 def _flat(w: torch.Tensor) -> torch.Tensor:
-    """OIHW conv weight -> (kh*kw*cin, cout), the kernel's [tap][cin][cout]
-    layout (HWIO flattened)."""
+    """OIHW conv weight -> (kh*kw*cin, cout), the plain version's
+    [tap][cin][cout] layout (HWIO flattened)."""
     o, i, kh, kw = w.shape
     return w.detach().permute(2, 3, 1, 0).reshape(kh * kw * i, o).contiguous()
+
+
+def stage_elems(dtype: torch.dtype) -> int:
+    """Channels of one 128-byte pipeline stage: 32 fp32 or 64 bf16."""
+    return _ROW_BYTES // dtype.itemsize
+
+
+def kernel_operands(hd: int, ext_dim: int) -> Dict[str, tuple]:
+    """Each tensor-core conv's kernel-layout key -> (outputs N, the input
+    channel ranges ``(start, width)`` of its module conv, one per kernel
+    operand, in the kernel's order).  The gate convs read [h | mf | ext]:
+    mf is the 128-channel motion features [me, disp, 0], whose weights
+    are the module's me and disparity channels with the y-flow channel
+    (a structural zero) left out, i.e. zero-padded."""
+    gate = [(0, hd), (hd, _ME + 1)]
+    if ext_dim:
+        gate.append((hd + _MF, ext_dim))
+    return {"kc2": (_MOTION, [(0, _MOTION)]),
+            "kf2": (_MOTION, [(0, _MOTION)]),
+            "kme": (_MF, [(0, _MOTION), (_MOTION, _MOTION)]),
+            "kzr": (2 * hd, gate), "kq": (hd, gate),
+            "kfh1": (_HEAD, [(0, hd)])}
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_shape(key: str, hd: int, ext_dim: int,
+                 dtype: torch.dtype) -> Tuple[int, ...]:
+    """Shape of a kernel-layout entry: (N, K) in bf16, (2, N, K) in fp32
+    (the hi and lo planes), K = 9 taps x each operand's width rounded up
+    to a whole stage."""
+    n, ranges = kernel_operands(hd, ext_dim)[key]
+    e = stage_elems(dtype)
+    k = sum(9 * -(-cin // e) * e for _, cin in ranges)
+    return (n, k) if dtype == torch.bfloat16 else (2, n, k)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on fp32 values: round to nearest on 10
+    mantissa bits (13 bits dropped), ties away from zero, kept as fp32
+    with the low 13 bits 0."""
+    b = x.float().contiguous().view(torch.int32)
+    return ((b + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _kernel_weight(w: torch.Tensor, n_out: int, ranges,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """OIHW module weight -> the kernel's (N, K) matrix: for each operand
+    range, tap-major (tap = ky*3 + kx), then its channels zero-padded to
+    a whole stage; outputs past the module's zero-padded to ``n_out``.
+    fp32: the (hi, lo) TF32 planes."""
+    w = w.detach().float()
+    o, e = w.shape[0], stage_elems(dtype)
+    parts = []
+    for start, cin in ranges:
+        s = w[:, start:start + cin].permute(0, 2, 3, 1).reshape(o, 9, cin)
+        parts.append(F.pad(s, (0, -(-cin // e) * e - cin)).reshape(o, -1))
+    k = F.pad(torch.cat(parts, 1), (0, 0, 0, n_out - o))
+    if dtype == torch.bfloat16:
+        return k.to(dtype).contiguous()
+    hi = tf32_round(k)
+    return torch.stack([hi, tf32_round(k - hi)]).contiguous()
 
 
 def pack_update_params(update_block, ext_dim: int,
@@ -51,16 +126,18 @@ def pack_update_params(update_block, ext_dim: int,
     """Weight pack of the finest-level update from the port's
     ``BasicMultiUpdateBlock`` (the counterpart of the JAX package's
     ``pallas_gru.pack_update_params``), every entry in ``dtype`` (the
-    compute dtype).  The gate convs' kernels are sliced along their input
-    as [h | me | disp | (y-flow) | ext]; the y-flow slice multiplies a
-    structural zero and is dropped, as is convf1's y-flow input.  convc1
-    stays at the natural correlation width."""
+    compute dtype).  The plain version's entries (``PLAIN_KEYS``): the
+    gate convs' kernels sliced along their input as [h | me | disp |
+    (y-flow) | ext], the y-flow slice (it multiplies a structural zero)
+    dropped, as is convf1's y-flow input; convc1 at the natural
+    correlation width.  The kernel's ``k*`` entries: ``_kernel_weight``
+    of each tensor-core conv over ``kernel_operands``."""
     enc = update_block.encoder
     gru = update_block.gru08
     fh = update_block.flow_head
     hd = gru.convq.weight.shape[0]
     kzr, kq = gru.convzr.weight, gru.convq.weight
-    if kzr.shape[1] != hd + 128 + ext_dim:
+    if kzr.shape[1] != hd + _MF + ext_dim:
         raise ValueError(f"gru08 input width {kzr.shape[1]} != "
                          f"{hd} + 128 + {ext_dim}")
     me0, me1 = hd + _ME, hd + _ME + 1      # [me | disp] inside mf
@@ -80,10 +157,15 @@ def pack_update_params(update_block, ext_dim: int,
         "wfh2": _flat(fh.conv2.weight), "bfh2": fh.conv2.bias,
     }
     if ext_dim:
-        w["wzr_e"] = _flat(kzr[:, hd + 128:])
-        w["wq_e"] = _flat(kq[:, hd + 128:])
-    return {k: v.detach().float().to(dtype).contiguous()
+        w["wzr_e"] = _flat(kzr[:, hd + _MF:])
+        w["wq_e"] = _flat(kq[:, hd + _MF:])
+    pack = {k: v.detach().float().to(dtype).contiguous()
             for k, v in w.items()}
+    module = {"kc2": enc.convc2.weight, "kf2": enc.convf2.weight,
+              "kme": kme, "kzr": kzr, "kq": kq, "kfh1": fh.conv1.weight}
+    for k, (n, ranges) in kernel_operands(hd, ext_dim).items():
+        pack[k] = _kernel_weight(module[k], n, ranges, dtype)
+    return pack
 
 
 def _conv(xs, ws, bias):
@@ -212,17 +294,12 @@ def gru_update(h: torch.Tensor, ext: Optional[torch.Tensor],
             raise ValueError(f"gru_update takes contiguous {dt} tensors "
                              f"(disp float32); got {t.dtype}")
     ck, mo = corr.shape[-1], _MOTION
-    shapes = {"wc1": (ck, mo), "bc1": (mo,), "wc2": (9 * mo, mo),
-              "bc2": (mo,), "wf1": (49, mo), "bf1": (mo,),
-              "wf2": (9 * mo, mo), "bf2": (mo,), "wme_c": (9 * mo, _ME),
-              "wme_f": (9 * mo, _ME), "bme": (_ME,),
-              "wzr_h": (9 * hd, 2 * hd), "wzr_m": (9 * _ME, 2 * hd),
-              "wzr_d": (9, 2 * hd), "bzr": (2 * hd,), "wq_h": (9 * hd, hd),
-              "wq_m": (9 * _ME, hd), "wq_d": (9, hd), "bq": (hd,),
-              "wfh1": (9 * hd, _HEAD), "bfh1": (_HEAD,),
-              "wfh2": (9 * _HEAD, _DELTA), "bfh2": (_DELTA,)}
-    if ext is not None:
-        shapes.update(wzr_e=(9 * ext_dim, 2 * hd), wq_e=(9 * ext_dim, hd))
+    shapes = {"wc1": (ck, mo), "bc1": (mo,), "bc2": (mo,), "wf1": (49, mo),
+              "bf1": (mo,), "bf2": (mo,), "bme": (_ME,), "bzr": (2 * hd,),
+              "bq": (hd,), "bfh1": (_HEAD,), "wfh2": (9 * _HEAD, _DELTA),
+              "bfh2": (_DELTA,)}
+    shapes.update({k: kernel_shape(k, hd, ext_dim, dt)
+                   for k in ("kc2", "kf2", "kme", "kzr", "kq", "kfh1")})
     for k, s in shapes.items():
         if k not in wpack or tuple(wpack[k].shape) != s:
             raise ValueError(f"weight pack {k}: "
@@ -231,14 +308,14 @@ def gru_update(h: torch.Tensor, ext: Optional[torch.Tensor],
     hn = torch.empty_like(h)
     delta = torch.empty((b, hh, ww, _DELTA), dtype=dt, device=dev)
     ptrs = (ctypes.c_void_p * len(WEIGHT_ORDER))(
-        *[wpack[k].data_ptr() if k in wpack else None for k in WEIGHT_ORDER])
+        *[wpack[k].data_ptr() for k in WEIGHT_ORDER])
     lib = _build.load("gru_update")
-    size = lib.gru_update_workspace_floats
+    size = lib.gru_update_workspace_elems
     size.restype = ctypes.c_long
-    size.argtypes = [ctypes.c_int] * 4
-    # The bf16 form keeps its intermediates (and the bf16 disparity) in
-    # bf16: half the fp32 workspace is room enough.
-    ws = torch.empty(size(b, hh, ww, hd), dtype=dt, device=dev)
+    size.argtypes = [ctypes.c_int] * 6
+    # The bf16 form keeps its intermediates in bf16.
+    ws = torch.empty(size(b, hh, ww, hd, ext_dim, h.element_size()),
+                     dtype=dt, device=dev)
     fn = (lib.gru_update_forward if dt == torch.float32
           else lib.gru_update_forward_bf16)
     fn.restype = ctypes.c_int
@@ -252,7 +329,11 @@ def gru_update(h: torch.Tensor, ext: Optional[torch.Tensor],
                 delta.data_ptr(), ws.data_ptr(), b, hh, ww, hd, ext_dim, ck,
                 stream)
     if rc != 0:
-        raise RuntimeError(f"gru_update kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"gru_update kernel launch failed: " + (
+                f"CUDA error {rc}" if rc < 9999 else
+                "no cuTensorMapEncodeTiled in the driver" if rc == 9999 else
+                f"tensor map refused, CUresult {rc - 10000}"))
     gru_update.launches += 1
     return hn, delta
 

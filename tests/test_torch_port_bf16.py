@@ -228,7 +228,13 @@ def test_update_pack_keeps_dtype(bf16_update_case):
     assert set(p32) == set(p16)
     for k in p32:
         assert p32[k].dtype == torch.float32 and p16[k].dtype == BF
-        assert torch.equal(p16[k], p32[k].to(BF))
+        if k in cuda_gru.PLAIN_KEYS:
+            assert torch.equal(p16[k], p32[k].to(BF))
+        else:  # the kernel's layout: fp32 as TF32 hi and lo planes
+            hd = p32["bq"].shape[0]
+            for p, dt in ((p32, torch.float32), (p16, BF)):
+                assert tuple(p[k].shape) == cuda_gru.kernel_shape(k, hd, ext,
+                                                                  dt)
 
 
 # -------------------------------------------------------------- modules

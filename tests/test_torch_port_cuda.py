@@ -53,25 +53,55 @@ def test_alt_corr_kernel_matches_plain(dev, radius, levels):
                                equal_nan=True)
 
 
-@pytest.mark.parametrize("n", [1, 3])
-def test_gru_update_kernel_matches_plain(dev, n):
-    cfg = RAFTStereoConfig(n_gru_layers=n, hidden_dims=(128,) * n)
+# Row 2's card cases: (n_gru_layers, hd, corr_levels, batch, H, W, seed;
+# the bf16 test takes 30 + seed).  hd 32 and 128, one to three GRU levels
+# (ext 0 or hd), the 18-channel correlation of 2 levels, batch 2, a 37x53
+# grid that no tile divides, and widths that are not whole 16-byte units
+# (hd 18 in both forms, with ext 18; hd 20 in bf16), which the kernel
+# copies into its workspace at the width rounded up.
+GRU_CASES = [pytest.param(1, 128, 4, 2, 9, 13, 1, id="n1_hd128"),
+             pytest.param(3, 128, 4, 2, 9, 13, 3, id="n3_hd128"),
+             pytest.param(2, 32, 2, 2, 37, 53, 34,
+                          id="n2_hd32_c18_b2_37x53"),
+             pytest.param(3, 32, 4, 1, 37, 53, 35, id="n3_hd32_37x53"),
+             pytest.param(1, 128, 2, 2, 37, 53, 129,
+                          id="n1_hd128_c18_b2_37x53"),
+             pytest.param(2, 18, 4, 2, 9, 13, 20, id="n2_hd18_ragged"),
+             pytest.param(1, 20, 2, 1, 9, 13, 21, id="n1_hd20_c18_ragged")]
+
+
+def _gru_case(dev, n, hd, levels, b, h, w, seed, dtype):
+    cfg = RAFTStereoConfig(n_gru_layers=n, hidden_dims=(hd,) * n,
+                           corr_levels=levels, corr_radius=4)
     model = RAFTStereo(cfg, device=dev, seed=1)
-    e = 128 if n > 1 else 0
-    wpack = cuda_gru.pack_update_params(model.update_block, e)
-    rng = np.random.default_rng(n)
-    b, h, w = 2, 9, 13
-    args = [torch.tanh(_randn(rng, b, h, w, 128)),
-            torch.tanh(_randn(rng, b, h, w, e)) if e else None,
-            _randn(rng, b, h, w, 36),
+    e = hd if n > 1 else 0
+    wpack = cuda_gru.pack_update_params(model.update_block, e, dtype)
+    rng = np.random.default_rng(seed)
+    args = [torch.tanh(_randn(rng, b, h, w, hd)).to(dtype),
+            torch.tanh(_randn(rng, b, h, w, e)).to(dtype) if e else None,
+            _randn(rng, b, h, w, cfg.cor_planes).to(dtype),
             torch.from_numpy(rng.uniform(-8, 2, (b, h, w, 1))
                              .astype(np.float32)),
-            _randn(rng, b, h, w, 128), _randn(rng, b, h, w, 128),
-            _randn(rng, b, h, w, 128)]
-    args = [a if a is None else a.to(dev) for a in args]
+            _randn(rng, b, h, w, hd).to(dtype),
+            _randn(rng, b, h, w, hd).to(dtype),
+            _randn(rng, b, h, w, hd).to(dtype)]
+    return [a if a is None else a.to(dev) for a in args], wpack
+
+
+@pytest.mark.parametrize("n,hd,levels,b,h,w,seed", GRU_CASES)
+def test_gru_update_kernel_matches_plain(dev, n, hd, levels, b, h, w, seed):
+    """Row 2's fp32 form (3xTF32 on the tensor cores); two calls bitwise
+    equal."""
+    args, wpack = _gru_case(dev, n, hd, levels, b, h, w, seed,
+                            torch.float32)
+    before = cuda_gru.gru_update.launches
     hk, dk = cuda_gru.gru_update(*args, wpack)
+    hk2, dk2 = cuda_gru.gru_update(*args, wpack)
+    assert cuda_gru.gru_update.launches == before + 2
     hp, dp = cuda_gru.gru_update_plain(*args, wpack)
     torch.cuda.synchronize()
+    # no atomics, no split of K: every sum in one fixed order
+    assert torch.equal(hk, hk2) and torch.equal(dk, dk2)
     # fp32 conv sums of up to ~3500 terms, reordered.
     torch.testing.assert_close(hk, hp, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-4)
@@ -659,32 +689,27 @@ def test_alt_corr_epi_kernel_matches_plain(dev, fmap_dtype):
     assert (got == 0).any() and (got > 0).any()
 
 
-@pytest.mark.parametrize("n", [1, 3])
-def test_gru_update_bf16_kernel_matches_plain(dev, n):
-    """Row 2's bf16 form: within 4 bf16 ulps of the plain version (a
-    conv output rounded at a boundary carries through the convs after
-    it)."""
-    cfg = RAFTStereoConfig(n_gru_layers=n, hidden_dims=(128,) * n)
-    model = RAFTStereo(cfg, device=dev, seed=1)
-    e = 128 if n > 1 else 0
-    wpack = cuda_gru.pack_update_params(model.update_block, e,
-                                        torch.bfloat16)
-    rng = np.random.default_rng(30 + n)
-    b, h, w = 2, 9, 13
+@pytest.mark.parametrize("n,hd,levels,b,h,w,seed", GRU_CASES)
+def test_gru_update_bf16_kernel_matches_plain(dev, n, hd, levels, b, h, w,
+                                              seed):
+    """Row 2's bf16 form: within 4 bf16 ulps of the plain version on the
+    9x13 grids (a conv output rounded at a boundary carries through the
+    convs after it); two calls bitwise equal.  On the 37x53 grids (3922
+    and 1961 pixels against 234, so more such chains) it is held to
+    chip_smoke.py's bound at the serving shapes: 8 ulps, at least 80% of
+    the elements equal."""
     bf = torch.bfloat16
-    args = [torch.tanh(_randn(rng, b, h, w, 128)).to(bf),
-            torch.tanh(_randn(rng, b, h, w, e)).to(bf) if e else None,
-            _randn(rng, b, h, w, 36).to(bf),
-            torch.from_numpy(rng.uniform(-8, 2, (b, h, w, 1))
-                             .astype(np.float32)),
-            _randn(rng, b, h, w, 128).to(bf), _randn(rng, b, h, w, 128).to(bf),
-            _randn(rng, b, h, w, 128).to(bf)]
-    args = [a if a is None else a.to(dev) for a in args]
+    args, wpack = _gru_case(dev, n, hd, levels, b, h, w, 30 + seed, bf)
     hk, dk = cuda_gru.gru_update(*args, wpack)
+    hk2, dk2 = cuda_gru.gru_update(*args, wpack)
     hp, dp = cuda_gru.gru_update_plain(*args, wpack)
     torch.cuda.synchronize()
     assert hk.dtype == dk.dtype == bf
-    assert _bf16_ulps(hk, hp) <= 4.0 and _bf16_ulps(dk, dp) <= 4.0
+    assert torch.equal(hk, hk2) and torch.equal(dk, dk2)
+    ulps = 4.0 if h * w <= 9 * 13 else 8.0
+    assert _bf16_ulps(hk, hp) <= ulps and _bf16_ulps(dk, dp) <= ulps
+    for got, want in ((hk, hp), (dk, dp)):
+        assert float((got == want).float().mean()) >= 0.8
 
 
 @pytest.mark.parametrize("gru_backend,want", [
