@@ -5,15 +5,18 @@
 
 Phases, none caught: (1) print the card's name and power limit; (2) build
 the CUDA kernels from ``raftstereo_tpu_torch/csrc``, printing ptxas's
-registers, shared memory and spills of each kernel of the fused update
-(row 2) and, where ``cuobjdump`` exists, the count of tensor-core
-instructions (HMMA/HGMMA) in its library, which must not be 0; (3) hold
-each kernel against its plain PyTorch version on the card at the shapes
-its main path gives it, and time both (the update also beside its
-tensor-core bound, ``bound_tc_ms``, and as a ratio to its plain
-version's time): the serving path's lookup and fused update (a
-540x960 request pads to the 576x960 bucket, so the 1/4-resolution grid is
-144x240 with C=256 and hidden 128), the training path's lookup and its
+registers, shared memory and spills of each tensor-core kernel (row 2's
+fused update, ``gru_update.cu``; rows 9 and 15's encoder convs,
+``enc_conv_tc.cu``) and, where ``cuobjdump`` exists, the count of
+tensor-core instructions (HMMA/HGMMA) in each library, which must not be
+0; (3) hold each kernel against its plain PyTorch version on the card
+at the shapes its main path gives it, and time both (the tensor-core
+kernels' ``bound_ms`` is their 3xTF32 tensor-core bound, also
+``bound_tc_ms``, with ``bound_cuda_core_ms`` beside it; the update also
+as a ratio to its plain version's time): the serving path's lookup and
+fused update (a 540x960 request pads to the 576x960 bucket, so the
+1/4-resolution grid is 144x240 with C=256 and hidden 128), the training
+path's lookup and its
 backward (batch 6 of 320x720 crops: 480 rows of 180 pixels, C=256), and
 the fused encoder stages' kernels at the fused serving path's shapes
 (fnet's 2 images and cnet's 1 at 576x960, layer2 at 288x480), the
@@ -366,28 +369,35 @@ def update_macs(cor_planes: int, hd: int, e: int) -> int:
             + 9 * hd * 256 + 9 * 256 * 2)
 
 
-_PTXAS_ARG = re.compile(r"13__nv_bfloat16|S1_|Li(\d+)E|f")
+_PTXAS_ARG = re.compile(r"13__nv_bfloat16|S1_|L[ib](\d+)E|f")
 
 
 def _ptxas_label(mangled: str) -> str:
-    """``gru_mma_conv_kernel<bf16,4,8>`` from a mangled kernel name."""
+    """``gru_mma_conv_kernel<bf16,4,8>`` (or a plain kernel's name) from a
+    mangled kernel name."""
     name = re.search(r"(gru_mma_conv_kernel|gru_simt_conv_kernel|"
-                     r"conv3x3_few_out_kernel|pad_rows_kernel)I(.*?)EEv",
-                     mangled)
-    if not name:
-        return mangled
+                     r"conv3x3_few_out_kernel|pad_rows_kernel|"
+                     r"enc_conv_tc_kernel)I(.*?)EEv", mangled)
+    if not name:  # _ZN <namespace> <name> E...: lengths, then characters
+        ns = re.match(r"_ZN(\d+)", mangled)
+        at = ns.end() + int(ns.group(1)) if ns else 0
+        n = re.match(r"\d+", mangled[at:]) if ns else None
+        return (mangled[at + n.end():at + n.end() + int(n.group())] if n
+                else mangled)
     args = [t.group(1) or ("fp32" if t.group(0) == "f" else "bf16")
             for t in _PTXAS_ARG.finditer(name.group(2))]
     return f"{name.group(1)}<{','.join(args)}>"
 
 
-def gru_build_report(lib) -> None:
-    """Row 2's kernels as ptxas reported them (registers, static shared
-    memory, spills; the mma kernel's dynamic shared memory is its TMA
-    ring of 128-byte rows, BM = 32*MT pixel rows and BN = 16*NT weight
-    rows per plane, 4 stages where one is at most 28 KB, else 3, and a
-    barrier per stage), and the tensor-core instructions in the
-    library."""
+def build_report(name, lib) -> None:
+    """A tensor-core library's kernels as ptxas reported them (registers,
+    static shared memory, spills; row 2's mma kernel's dynamic shared
+    memory is its TMA ring of 128-byte rows, BM = 32*MT pixel rows and BN
+    = 16*NT weight rows per plane, 4 stages where one is at most 28 KB,
+    else 3, and a barrier per stage; rows 9 and 15's
+    ``enc_conv_tc_kernel<stride,mode,projection,MT,NT>``'s is set at
+    launch), and the tensor-core instructions in the library, which must
+    not be 0."""
     entry = spill = None
     for line in lib.with_suffix(".log").read_text().splitlines():
         props = re.search(r"Function properties for (\S+)", line)
@@ -406,26 +416,26 @@ def gru_build_report(lib) -> None:
                 stage = 128 * rows
                 ring = (f", {(4 if stage <= 28 * 1024 else 3) * (stage + 8)} "
                         f"bytes dynamic smem")
-            print(f"  gru_update ptxas {entry}: {used.group(1)} registers, "
+            print(f"  {name} ptxas {entry}: {used.group(1)} registers, "
                   f"{smem.group(1) if smem else 0} bytes static smem{ring}; "
                   f"{spill}")
             entry = None
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        print("  gru_update SASS: cuobjdump missing")
+        print(f"  {name} SASS: cuobjdump missing")
         return
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True)
     if out.returncode != 0:
-        print(f"  gru_update SASS: cuobjdump exited {out.returncode}: "
+        print(f"  {name} SASS: cuobjdump exited {out.returncode}: "
               f"{out.stderr.strip()[:300]}")
         return
     hgmma = len(re.findall(r"\bHGMMA\b", out.stdout))
     hmma = len(re.findall(r"\bHMMA\b", out.stdout))
-    print(f"  gru_update SASS: {hmma} HMMA, {hgmma} HGMMA instructions "
+    print(f"  {name} SASS: {hmma} HMMA, {hgmma} HGMMA instructions "
           f"(cuobjdump -sass {lib.name})")
-    check(hmma + hgmma > 0, "gru_update: no tensor-core instruction in "
-                            "the built library")
+    check(hmma + hgmma > 0, f"{name}: no tensor-core instruction in the "
+                            f"built library")
 
 
 def kernel_phase(model, lo_hw, torch):
@@ -543,32 +553,54 @@ def hold(label, kern, plain, n, tol, torch):
     return err0
 
 
+def conv_products(wt, out_numel, proj_flops=0):
+    """FLOPs of an encoder conv's products (2 per MAC), its projection's
+    too."""
+    return 2 * out_numel * wt.shape[1] * wt.shape[2] * wt.shape[3] + proj_flops
+
+
 def conv_cost(x, wt, out_numel, n_in=1, proj_flops=0):
-    """FLOPs of an encoder conv: the MACs, the bias and the output sums,
-    the input prep."""
-    macs = out_numel * wt.shape[1] * wt.shape[2] * wt.shape[3]
-    return 2 * macs + proj_flops + 4 * out_numel + 3 * n_in * x.numel()
+    """FLOPs of an encoder conv: the products, the bias and the output
+    sums, the input prep."""
+    return (conv_products(wt, out_numel, proj_flops) + 4 * out_numel
+            + 3 * n_in * x.numel())
+
+
+# The source of each encoder row under csrc/ (enc_conv where not listed).
+ENCODER_SOURCES = {"stage_conv": "enc_conv_tc", "l2_entry": "enc_conv_tc",
+                   "stage_finish": "enc_finish", "l2_finish": "enc_finish",
+                   "plane_stats": "enc_stats", "dual_sums": "enc_stats"}
 
 
 def enc_row(rows, path, name, replaces, path_shape, kern, plain, n, tol,
-            nbytes, flops, torch, lib=None, reps=5):
+            nbytes, flops, torch, lib=None, reps=5, products=0):
     """An encoder kernel held against its plain version and timed beside
     it (and ``lib``, one library computation of the same function, where
-    there is one); appends its row for ``path``."""
+    there is one); appends its row for ``path``.  For the tensor-core
+    rows, ``products`` of the ``flops`` run as three TF32 passes on the
+    tensor cores (``bound_ms``; the rest on the CUDA cores), and
+    ``bound_cuda_core_ms`` is the bound with all of them on the CUDA
+    cores."""
     err = hold(f"{name} {path_shape}", kern, plain, n, tol, torch)
     ms, plain_ms = time_ms(kern, reps), time_ms(plain, reps)
     lib_ms = time_ms(lib, reps) if lib is not None else None
-    bound_ms, bound_by = bound(nbytes, flops)
+    bound_ms, bound_by = bound(nbytes, flops - products,
+                               tf32_flops=3 * products)
+    extra = {}
+    if products:
+        extra = dict(bound_tc_ms=bound_ms,
+                     bound_cuda_core_ms=bound(nbytes, flops)[0])
     print(f"{name} {path_shape} ms {ms:.4f} plain_ms {plain_ms:.4f} "
-          f"library_ms {lib_ms} bound_ms {bound_ms:.4f} ({bound_by})")
-    src = {"stage_finish": "enc_finish", "l2_finish": "enc_finish",
-           "plane_stats": "enc_stats", "dual_sums": "enc_stats"}.get(
-               name, "enc_conv")
+          f"library_ms {lib_ms} bound_ms {bound_ms:.4f} ({bound_by}"
+          f"{', 3xTF32 tensor cores' if products else ''}); "
+          + "".join(f"{k} {v:.4f} " for k, v in extra.items())
+          + f"[{CARD}]")
+    src = ENCODER_SOURCES.get(name, "enc_conv")
     rows.append(dict(name=name, path=path, shape=path_shape, route="cuda",
                      source=f"raftstereo_tpu_torch/csrc/{src}.cu",
                      replaces=replaces, max_abs_err=err, ms=ms,
                      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                     library_ms=lib_ms))
+                     library_ms=lib_ms, **extra))
 
 
 def encoder_kernel_phase(model, bucket, torch):
@@ -627,7 +659,8 @@ def encoder_kernel_phase(model, bucket, torch):
         lambda: ce.conv_plain(x, wc, bc, 1, a), n, ENC_TOL,
         4 * (2 * x.numel() + wc.numel() + 64 + 2 * 2 * 64 + 2 * 2 * 64),
         conv_cost(x, wc, x.numel(), n_in=1),
-        lib=lambda: F.conv2d(x, wc, bc, 1, 1))
+        lib=lambda: F.conv2d(x, wc, bc, 1, 1),
+        products=conv_products(wc, x.numel()))
     c = randn(2, 64, h, w)
     a2, a3 = aff(2, 64), aff(2, 64)
     row("stage_finish", "raftstereo_tpu/ops/pallas_encoder.py:364",
@@ -647,7 +680,8 @@ def encoder_kernel_phase(model, bucket, torch):
         4 * (t.numel() + we.numel() + wp.numel() + 2 * 96 + 2 * out2
              + 2 * 2 * 2 * 96),
         conv_cost(t, we, out2, n_in=0, proj_flops=2 * out2 * 64) + 4 * out2,
-        lib=lambda: F.conv2d(t, we, be, 2, 1))
+        lib=lambda: F.conv2d(t, we, be, 2, 1),
+        products=conv_products(we, out2, proj_flops=2 * out2 * 64))
     y = randn(2, 96, h2, w2)
     p = randn(2, 96, h2, w2)
     b_, pb = aff(2, 96), aff(2, 96)
@@ -764,9 +798,22 @@ def train_fused_kernel_phase(model, torch):
         lambda: ce.conv_plain(x, wc, bc, 1, a), n, ENC_TOL,
         4 * (2 * x.numel() + wc.numel() + 64 + 4 * b * 64),
         conv_cost(x, wc, x.numel(), n_in=1),
-        lib=lambda: F.conv2d(x, wc, bc, 1, 1))
+        lib=lambda: F.conv2d(x, wc, bc, 1, 1),
+        products=conv_products(wc, x.numel()))
     r, c = randn(b, 64, h, w), randn(b, 64, h, w)
     a2, a3 = aff(b, 64), aff(b, 64)
+    # row 9's residual form (fnet), and cnet's 6 images without sums
+    hold(f"stage_conv res form {dims(x)}",
+         lambda: ce.stage_conv(x, a, wc, bc, res=r, res_aff=a2),
+         lambda: ce.conv_plain(x, wc, bc, 1, a, r, a2), n, ENC_TOL, torch)
+    half = b // 2
+    x1 = x[:half].contiguous()
+    a1 = (a[0][:half].contiguous(), a[1][:half].contiguous())
+    hold(f"stage_conv {dims(x1)} no sums",
+         lambda: ce.stage_conv(x1, a1, wc, bc, want_stats=False),
+         lambda: ce.conv_plain(x1, wc, bc, 1, a1, want_stats=False), 1.0,
+         ENC_TOL, torch)
+    del x1
     row("stage_finish", "raftstereo_tpu/ops/pallas_encoder.py:364",
         dims(x), lambda: ce.stage_finish(x, a, r, a2, c, a3),
         lambda: ce.finish_plain(x, a, r, a2, c, a3), n, FINISH_TOL,
@@ -783,8 +830,14 @@ def train_fused_kernel_phase(model, torch):
         4 * (t.numel() + we.numel() + wp.numel() + 2 * 96 + 2 * out2
              + 2 * 2 * b * 96),
         conv_cost(t, we, out2, n_in=0, proj_flops=2 * out2 * 64) + 4 * out2,
-        lib=lambda: F.conv2d(t, we, be, 2, 1))
-    del t
+        lib=lambda: F.conv2d(t, we, be, 2, 1),
+        products=conv_products(we, out2, proj_flops=2 * out2 * 64))
+    t1 = t[:half].contiguous()
+    hold(f"l2_entry {dims(t1)} no sums",
+         lambda: ce.l2_entry(t1, we, be, wp, bp, want_stats=False),
+         lambda: ce.entry_plain(t1, we, be, wp, bp, want_stats=False), 1.0,
+         ENC_TOL, torch)
+    del t, t1
     y, p, q = (randn(b, 96, h2, w2) for _ in range(3))
     b_, pb, a4 = aff(b, 96), aff(b, 96), aff(b, 96)
     wl, bl = wb(m0.conv2)
@@ -1836,7 +1889,8 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    gru_build_report(libs["gru_update"])
+    for name in ("gru_update", "enc_conv_tc"):
+        build_report(name, libs[name])
 
     cfg = RAFTStereoConfig(corr_implementation="pallas_alt",
                            gru_backend="fused")

@@ -24,7 +24,8 @@ time of the kernels, the device busy time
 (the union of the kernels' intervals, so overlapping kernels count once)
 and idle share (1 - busy / wall), the peak device memory over the
 profiled call, and device time by kernel, grouped by the port's CUDA
-sources (``enc_conv``, ``enc_stats``, ``dual_sums`` (the second kernel of
+sources (``enc_conv_tc``, ``enc_conv``, ``enc_stats``, ``dual_sums`` (the
+second kernel of
 ``enc_stats.cu``), ``enc_finish``, ``alt_corr``, ``alt_corr_epi``,
 ``alt_corr_bwd``, ``corr_vol``, ``corr_vol_bwd``, ``int8_volume``,
 ``gru_update``) and by
@@ -48,7 +49,8 @@ from ..serve.engine import BatchEngine
 
 # Kernel-name prefixes of each CUDA source (csrc/*.cu), then the library
 # convolutions and matrix products.
-_GROUPS = {"enc_conv": ("enc_conv_kernel", "enc_conv_stats_kernel"),
+_GROUPS = {"enc_conv_tc": ("enc_conv_tc_kernel", "enc_conv_tc_stats_kernel"),
+           "enc_conv": ("enc_conv_kernel", "enc_conv_stats_kernel"),
            "enc_stats": ("enc_plane_stats_kernel",),
            "dual_sums": ("enc_dual_sums_kernel",),
            "enc_finish": ("enc_finish_kernel",),

@@ -4,26 +4,22 @@
 //
 // Replaces the TPU kernels of the fused encoder stages:
 //   raftstereo_tpu/ops/pallas_encoder.py `_stem7_kernel` (7x7 stride-1
-//   conv1 of the image, row 13), `_stem7s2_kernel` (7x7 stride 2, row 12),
-//   `_enc_conv_kernel` / `_enc_conv_res_kernel` (3x3 64->64, row 9);
-//   raftstereo_tpu/ops/pallas_layer2.py `_l2_entry_kernel` (3x3 stride-2
-//   64->96 and the 1x1 stride-2 projection, both with stats, row 15) and
-//   `_l2_conv_kernel` / `_l2_conv_res_kernel` (3x3 96->96, row 16).
+//   conv1 of the image, row 13), `_stem7s2_kernel` (7x7 stride 2, row 12);
+//   raftstereo_tpu/ops/pallas_layer2.py `_l2_conv_kernel` /
+//   `_l2_conv_res_kernel` (3x3 96->96, row 16).
+// (Rows 9 and 15, the stage's 3x3 convs and layer2's entry, run on the
+// tensor cores: csrc/enc_conv_tc.cu.)
 // Function, NCHW, per output pixel and channel:
 //   y = bias + sum_{ci,dy,dx} w[ci,dy,dx,co] * t[ci, oy*S+dy-P, ox*S+dx-P]
 // where t is the prepped input, zero outside the image (the zero padding
 // lives in the PREPPED domain, since prep(0) = relu(shift) need not be 0):
-//   kNone     t = x                          (the raw image, or the entry
-//                                             stage's post-relu input)
+//   kNone     t = x                          (the raw image)
 //   kPrep     t = relu(x*s + t)              (norm apply + relu)
-//   kRes      t = relu(relu(r*rs + rt) + relu(x*s + t))   (row 9 res form)
 //   kResProj  t = relu((r*rs + rt) + relu(x*s + t))       (row 16 res form:
 //                                             no relu on the projection)
-// with (s, t) the per-(image, channel) affine.  With a projection (row 15)
-// the same launch also computes yp = bp + sum_ci wp[ci,co] * t[ci,2oy,2ox],
-// the stride-2 3x3 conv's centre tap.  Statistics are of the fp32 output
-// including the bias, per block in registers and shared memory, then one
-// fixed-order reduction kernel over the blocks' partial sums: no
+// with (s, t) the per-(image, channel) affine.  Statistics are of the fp32
+// output including the bias, per block in registers and shared memory,
+// then one fixed-order reduction kernel over the blocks' partial sums: no
 // floating-point atomics, so two calls are bitwise equal, and no single
 // running sum over the 552,960 pixels of an image.
 //
@@ -36,9 +32,9 @@
 // 16-byte weight loads and 32 FMAs.  fp32 FMAs only (no tensor cores).
 //
 // Bound on an H100 SXM (67 TFLOP/s fp32 outside the tensor cores, 3.35
-// TB/s): a 3x3 64->64 conv over a 576x960 image is 40.8 GFLOP against
-// 283 MB moved, so operations bound it (0.61 ms per image); the same
-// holds for the 7x7 conv1 (10.4 GFLOP per image) and the layer2 convs.
+// TB/s): a 7x7 conv1 over a 576x960 image is 10.4 GFLOP against 28 MB
+// moved, so operations bound it (0.16 ms per image); the same holds for
+// layer2's 3x3 96->96 convs (22.9 GFLOP per 288x480 image, 0.34 ms).
 // What this design does about it: each input element is read from device
 // memory about once per block (plus halo) and reused from shared memory
 // across 32 output channels and 9 or 49 taps; the prep and the statistics
@@ -55,14 +51,15 @@ constexpr int kCoutTile = 32;  // output channels per block
 constexpr int kPix = 4;        // output pixels per thread
 constexpr int kCo = 8;         // output channels per thread
 
-enum Mode { kNone = 0, kPrep = 1, kRes = 2, kResProj = 3 };
+// Mode numbers shared with enc_conv_tc.cu (kRes = 2 is its own).
+enum Mode { kNone = 0, kPrep = 1, kResProj = 3 };
 
 // Input channels per shared-memory chunk, and the staged tile geometry.
 // Rows are padded to 8 mod 32 floats so the 4 tile rows a warp reads fall
 // in disjoint banks at stride 1.
 template <int KS, int S>
 struct Cfg {
-  static constexpr int kIn = KS == 7 ? 3 : (S == 2 ? 4 : 8);
+  static constexpr int kIn = KS == 7 ? 3 : 8;
   static constexpr int kInH = (kTileH - 1) * S + KS;
   static constexpr int kInW = (kTileW - 1) * S + KS;
   static constexpr int kInWP = ((kInW + 23) / 32) * 32 + 8;
@@ -72,16 +69,13 @@ struct Args {
   const float* x;   // (B, Cin, H, W)
   const float* xs;  // (B, Cin) prep scale, or null (kNone)
   const float* xt;  // (B, Cin) prep shift
-  const float* r;   // (B, Cin, H, W) residual input (kRes, kResProj)
+  const float* r;   // (B, Cin, H, W) residual input (kResProj)
   const float* rs;
   const float* rt;
   const float* wt;  // (Cin, KS, KS, Cout)
   const float* bias;  // (Cout)
-  const float* wp;  // (Cin, Cout) stride-2 1x1 projection, or null
-  const float* bp;  // (Cout)
   float* y;         // (B, Cout, Ho, Wo)
-  float* yp;        // (B, Cout, Ho, Wo) projection output
-  float* partials;  // (B, nb, 2, CH) per-block sums, or null (no stats)
+  float* partials;  // (B, nb, 2, Cout) per-block sums, or null (no stats)
   int cin, h, win, cout, ho, wo, tiles_w, nb;
 };
 
@@ -93,19 +87,18 @@ __device__ __forceinline__ float load_in(const Args& a, long off, int plane) {
   if (MODE == kNone) return v;
   const float u = relu(fmaf(v, __ldg(a.xs + plane), __ldg(a.xt + plane)));
   if (MODE == kPrep) return u;
-  float q = fmaf(__ldg(a.r + off), __ldg(a.rs + plane), __ldg(a.rt + plane));
-  if (MODE == kRes) q = relu(q);
+  const float q =
+      fmaf(__ldg(a.r + off), __ldg(a.rs + plane), __ldg(a.rt + plane));
   return relu(q + u);
 }
 
-template <int KS, int S, int MODE, bool PROJ>
+template <int KS, int S, int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 enc_conv_kernel(const Args a) {
   using C = Cfg<KS, S>;
   constexpr int kTaps = KS * KS;
-  constexpr int kNv = (PROJ ? 2 : 1) * 2 * kCo;  // stats values per thread
+  constexpr int kNv = 2 * kCo;  // stats values per thread
   __shared__ __align__(16) float s_w[C::kIn * kTaps * kCoutTile];
-  __shared__ __align__(16) float s_p[PROJ ? C::kIn * kCoutTile : 4];
   __shared__ __align__(16) float s_in[C::kIn * C::kInH * C::kInWP];
   __shared__ float s_red[kThreads / 32][kNv];
 
@@ -119,11 +112,11 @@ enc_conv_kernel(const Args a) {
   const int pr = (warp & 1) * 4 + (lane >> 3);      // tile row
   const int pc = lane & 7;                          // columns pc + 8j
 
-  float acc[kPix][kCo], accp[kPix][kCo];
+  float acc[kPix][kCo];
 #pragma unroll
   for (int j = 0; j < kPix; ++j)
 #pragma unroll
-    for (int k = 0; k < kCo; ++k) acc[j][k] = accp[j][k] = 0.f;
+    for (int k = 0; k < kCo; ++k) acc[j][k] = 0.f;
 
   for (int c0 = 0; c0 < a.cin; c0 += C::kIn) {
     __syncthreads();  // the previous chunk's reads are done
@@ -148,13 +141,6 @@ enc_conv_kernel(const Args a) {
                   rem % kCoutTile)
           : 0.f;
     }
-    if (PROJ) {
-      for (int i = tid; i < C::kIn * kCoutTile; i += kThreads) {
-        const int c = c0 + i / kCoutTile;
-        s_p[i] = c < a.cin
-            ? __ldg(a.wp + (long)c * a.cout + co0 + i % kCoutTile) : 0.f;
-      }
-    }
     __syncthreads();
 #pragma unroll 1
     for (int ci = 0; ci < C::kIn; ++ci) {
@@ -170,24 +156,11 @@ enc_conv_kernel(const Args a) {
               wv + (dy * KS + dx) * kCoutTile + 4);
           const float wk[kCo] = {w0.x, w0.y, w0.z, w0.w,
                                  w1.x, w1.y, w1.z, w1.w};
-          float pk[kCo];
-          if (PROJ && dy == KS / 2 && dx == KS / 2) {
-            const float* pv = s_p + ci * kCoutTile + cg * kCo;
-            const float4 p0 = *reinterpret_cast<const float4*>(pv);
-            const float4 p1 = *reinterpret_cast<const float4*>(pv + 4);
-            pk[0] = p0.x; pk[1] = p0.y; pk[2] = p0.z; pk[3] = p0.w;
-            pk[4] = p1.x; pk[5] = p1.y; pk[6] = p1.z; pk[7] = p1.w;
-          }
 #pragma unroll
           for (int j = 0; j < kPix; ++j) {
             const float v = in[dy * C::kInWP + dx + 8 * S * j];
 #pragma unroll
             for (int k = 0; k < kCo; ++k) acc[j][k] = fmaf(v, wk[k], acc[j][k]);
-            if (PROJ && dy == KS / 2 && dx == KS / 2) {
-#pragma unroll
-              for (int k = 0; k < kCo; ++k)
-                accp[j][k] = fmaf(v, pk[k], accp[j][k]);
-            }
           }
         }
       }
@@ -198,27 +171,22 @@ enc_conv_kernel(const Args a) {
   const int oy = ty0 + pr;
   float sv[kNv];
 #pragma unroll
-  for (int p = 0; p < (PROJ ? 2 : 1); ++p) {
-    const float* bias = p ? a.bp : a.bias;
-    float* out = p ? a.yp : a.y;
+  for (int k = 0; k < kCo; ++k) {
+    const int co = co0 + cg * kCo + k;
+    const float bv = __ldg(a.bias + co);
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int k = 0; k < kCo; ++k) {
-      const int co = co0 + cg * kCo + k;
-      const float bv = __ldg(bias + co);
-      float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kPix; ++j) {
-        const int ox = tx0 + pc + 8 * j;
-        const float v = (p ? accp[j][k] : acc[j][k]) + bv;
-        if (oy < a.ho && ox < a.wo) {
-          out[(((long)b * a.cout + co) * a.ho + oy) * a.wo + ox] = v;
-          s1 += v;
-          s2 = fmaf(v, v, s2);
-        }
+    for (int j = 0; j < kPix; ++j) {
+      const int ox = tx0 + pc + 8 * j;
+      const float v = acc[j][k] + bv;
+      if (oy < a.ho && ox < a.wo) {
+        a.y[(((long)b * a.cout + co) * a.ho + oy) * a.wo + ox] = v;
+        s1 += v;
+        s2 = fmaf(v, v, s2);
       }
-      sv[(p * 2 + 0) * kCo + k] = s1;
-      sv[(p * 2 + 1) * kCo + k] = s2;
     }
+    sv[k] = s1;
+    sv[kCo + k] = s2;
   }
   if (a.partials == nullptr) return;  // uniform over the grid
 
@@ -232,15 +200,13 @@ enc_conv_kernel(const Args a) {
     if (lane == 0) s_red[warp][v] = s;
   }
   __syncthreads();
-  if (tid < (PROJ ? 2 : 1) * 2 * kCoutTile) {
+  if (tid < 2 * kCoutTile) {
     const int co = tid % kCoutTile;
-    const int kind = (tid / kCoutTile) % 2;
-    const int p = tid / (2 * kCoutTile);
-    const int g = co / kCo, v = (p * 2 + kind) * kCo + co % kCo;
+    const int kind = tid / kCoutTile;
+    const int g = co / kCo, v = kind * kCo + co % kCo;
     const float s = s_red[2 * g][v] + s_red[2 * g + 1][v];
-    const int ch = (PROJ ? 2 : 1) * a.cout;
-    a.partials[(((long)b * a.nb + blockIdx.x) * 2 + kind) * ch + p * a.cout +
-               co0 + co] = s;
+    a.partials[(((long)b * a.nb + blockIdx.x) * 2 + kind) * a.cout + co0 +
+               co] = s;
   }
 }
 
@@ -261,13 +227,13 @@ enc_conv_stats_kernel(const float* __restrict__ partials,
   if (lane == 0) stats[idx] = s;
 }
 
-template <int KS, int S, int MODE, bool PROJ>
+template <int KS, int S, int MODE>
 int launch(const Args& a, int batch, float* stats, cudaStream_t st) {
   const dim3 grid(a.nb, a.cout / kCoutTile, batch);
-  enc_conv_kernel<KS, S, MODE, PROJ><<<grid, kThreads, 0, st>>>(a);
+  enc_conv_kernel<KS, S, MODE><<<grid, kThreads, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || stats == nullptr) return (int)e;
-  const int ch2 = 2 * (PROJ ? 2 : 1) * a.cout;
+  const int ch2 = 2 * a.cout;
   const int total = batch * ch2;
   enc_conv_stats_kernel<<<(total + 7) / 8, 256, 0, st>>>(a.partials, stats,
                                                          a.nb, ch2, total);
@@ -277,20 +243,17 @@ int launch(const Args& a, int batch, float* stats, cudaStream_t st) {
 }  // namespace
 
 // x, r (B, Cin, H, W); xs, xt, rs, rt (B, Cin); w (Cin, ks, ks, Cout);
-// bias (Cout); wp (Cin, Cout) and bp (Cout), or null; y, yp (B, Cout, Ho,
-// Wo) with Ho = (H + 2*(ks/2) - ks)/stride + 1 (and Wo alike); partials
-// (B, nb, 2, CH) scratch and stats (B, 2, CH), both null without
-// statistics, CH = Cout (2*Cout with the projection, its channels last),
-// nb = ceil(Ho/8) * ceil(Wo/32).  All fp32 and contiguous; Cout a multiple
-// of 32.  Supported (ks, stride, mode, projection): (7, 1|2, none, no),
-// (3, 1, prep|res|res_proj, no), (3, 2, none, yes).  Returns the CUDA
-// error code of the launches (0 on success).
+// bias (Cout); y (B, Cout, Ho, Wo) with Ho = (H + 2*(ks/2) - ks)/stride +
+// 1 (and Wo alike); partials (B, nb, 2, Cout) scratch and stats (B, 2,
+// Cout), both null without statistics, nb = ceil(Ho/8) * ceil(Wo/32).
+// All fp32 and contiguous; Cout a multiple of 32.  Supported (ks, stride,
+// mode): (7, 1|2, none), (3, 1, prep|res_proj).  Returns the CUDA error
+// code of the launches (0 on success).
 extern "C" int enc_conv_forward(
     const float* x, const float* xs, const float* xt, const float* r,
     const float* rs, const float* rt, const float* w, const float* bias,
-    const float* wp, const float* bp, float* y, float* yp, float* partials,
-    float* stats, int batch, int cin, int h, int win, int cout, int ks,
-    int stride, int mode, int nb, void* stream) {
+    float* y, float* partials, float* stats, int batch, int cin, int h,
+    int win, int cout, int ks, int stride, int mode, int nb, void* stream) {
   const int pad = ks / 2;
   const int ho = (h + 2 * pad - ks) / stride + 1;
   const int wo = (win + 2 * pad - ks) / stride + 1;
@@ -299,21 +262,16 @@ extern "C" int enc_conv_forward(
       nb != ((ho + kTileH - 1) / kTileH) * tiles_w ||
       (stats == nullptr) != (partials == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{x, xs, xt, r, rs, rt, w, bias, wp, bp, y, yp, partials,
-               cin, h, win, cout, ho, wo, tiles_w, nb};
+  const Args a{x,   xs, xt,  r,    rs, rt, w,       bias, y, partials,
+               cin, h,  win, cout, ho, wo, tiles_w, nb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool proj = wp != nullptr;
-  if (ks == 7 && mode == kNone && !proj) {
-    if (stride == 1) return launch<7, 1, kNone, false>(a, batch, stats, s);
-    if (stride == 2) return launch<7, 2, kNone, false>(a, batch, stats, s);
+  if (ks == 7 && mode == kNone) {
+    if (stride == 1) return launch<7, 1, kNone>(a, batch, stats, s);
+    if (stride == 2) return launch<7, 2, kNone>(a, batch, stats, s);
   }
-  if (ks == 3 && stride == 1 && !proj) {
-    if (mode == kPrep) return launch<3, 1, kPrep, false>(a, batch, stats, s);
-    if (mode == kRes) return launch<3, 1, kRes, false>(a, batch, stats, s);
-    if (mode == kResProj)
-      return launch<3, 1, kResProj, false>(a, batch, stats, s);
+  if (ks == 3 && stride == 1) {
+    if (mode == kPrep) return launch<3, 1, kPrep>(a, batch, stats, s);
+    if (mode == kResProj) return launch<3, 1, kResProj>(a, batch, stats, s);
   }
-  if (ks == 3 && stride == 2 && mode == kNone && proj)
-    return launch<3, 2, kNone, true>(a, batch, stats, s);
   return (int)cudaErrorInvalidValue;
 }

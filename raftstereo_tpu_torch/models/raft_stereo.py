@@ -17,8 +17,9 @@ lookup (``ops.corr.corr_lookup``) and one update of the GRU levels.
 * ``fused_encoder`` None or False: plain-convolution encoders (the JAX
   package's ``fused_encoder=False`` path).  True: both encoders run their
   stem + layer1 and layer2 through the fused stages
-  (``ops.encoder_stage``, CUDA kernels ``csrc/enc_conv.cu``,
-  ``enc_stats.cu``, ``enc_finish.cu``); in train mode their backward is
+  (``ops.encoder_stage``, CUDA kernels ``csrc/enc_conv_tc.cu``,
+  ``enc_conv.cu``, ``enc_stats.cu``, ``enc_finish.cu``); in train mode
+  their backward is
   the JAX package's hand-written one (``ops.encoder_bwd``, with the
   instance-norm backward's sums as ``enc_stats.cu``'s second kernel).
 

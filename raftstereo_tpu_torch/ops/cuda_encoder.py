@@ -1,9 +1,12 @@
-"""The fused encoder stages' kernels: ``csrc/enc_conv.cu`` (prep ->
-direct convolution -> + bias, with per-(image, channel) output sums),
-``csrc/enc_stats.cu`` (the plane sums of a tensor, and the two sums of
-the instance-norm backward) and ``csrc/enc_finish.cu`` (the stages' last
-elementwise pass), their plain PyTorch versions, and one wrapper per TPU
-kernel they replace, each with its own ``launches`` count:
+"""The fused encoder stages' kernels: ``csrc/enc_conv_tc.cu`` (the 3x3
+convs of layer1 and layer2's entry on the tensor cores, 3xTF32),
+``csrc/enc_conv.cu`` (the 7x7 stems and layer2's 3x3 convs on the CUDA
+cores), both prep -> convolution -> + bias with per-(image, channel)
+output sums, ``csrc/enc_stats.cu`` (the plane sums of a tensor, and the
+two sums of the instance-norm backward) and ``csrc/enc_finish.cu`` (the
+stages' last elementwise pass), their plain PyTorch versions, and one
+wrapper per TPU kernel they replace, each with its own ``launches``
+count:
 
 =====================  ==================================================
 wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
@@ -11,12 +14,13 @@ wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
 ``stem_conv7``         row 13, ``pallas_encoder.py`` ``_stem7_kernel``
 ``stem_conv7_s2``      row 12, ``pallas_encoder.py`` ``_stem7s2_kernel``
 ``stage_conv``         row 9, ``pallas_encoder.py`` ``_enc_conv_kernel``,
-                       ``_enc_conv_res_kernel``
+                       ``_enc_conv_res_kernel`` (``enc_conv_tc.cu``)
 ``plane_stats``        row 10, ``pallas_norm.py`` ``_in_stats_kernel`` as
                        ``pallas_encoder.py`` ``_packed_stats`` reaches it
 ``stage_finish``       row 11, ``pallas_encoder.py`` ``_enc_finish_kernel``
 ``dual_sums``          row 14, ``pallas_encoder.py`` ``_dual_sum_kernel``
 ``l2_entry``           row 15, ``pallas_layer2.py`` ``_l2_entry_kernel``
+                       (``enc_conv_tc.cu``)
 ``l2_conv``            row 16, ``pallas_layer2.py`` ``_l2_conv_kernel``,
                        ``_l2_conv_res_kernel``
 ``l2_finish``          row 17, ``pallas_layer2.py`` ``_l2_finish_kernel``
@@ -32,9 +36,9 @@ convolutions are bound by operations, the stats and finish by bytes.
 
 Each wrapper runs the plain version for CPU tensors and its kernel for
 CUDA tensors (counted in ``<wrapper>.launches``); it never falls back from
-one to the other.  The convolution wrapper repacks the OIHW weights on
-every call (at most 332 KB), so nothing goes stale after
-``load_state_dict``.
+one to the other.  The convolution wrappers repack the OIHW weights on
+every call (``tc_pack`` for the tensor-core kernel: 295 KB at 64->64), so
+nothing goes stale after ``load_state_dict``.
 """
 
 from __future__ import annotations
@@ -46,12 +50,50 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .cuda_gru import tf32_round
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
 
 # enc_conv.cu's output tile and channel tile (kTileH, kTileW, kCoutTile).
 _TILE_H, _TILE_W, _COUT_TILE = 8, 32, 32
 _NONE, _PREP, _RES, _RES_PROJ = 0, 1, 2, 3
+# enc_conv_tc.cu's geometry: output rows per block (kTH), input channels
+# per stage (kKC), and per stride the output columns and the outputs per
+# block (8*MT, 16*NT of its two instances).
+TC_TILE_H, TC_STAGE = 8, 8
+TC_TILES = {1: (32, 64), 2: (16, 96)}
+
+
+def tc_geometry(h: int, w: int, stride: int):
+    """The tensor-core conv's launch geometry for an (h, w) input: the
+    output (ho, wo), output columns per block, outputs per block, and
+    blocks per image ``nb`` (8-row tiles; the last tile of each axis
+    overhangs the output and its pixels there are never stored)."""
+    tw, bn = TC_TILES[stride]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    return ho, wo, tw, bn, -(-ho // TC_TILE_H) * -(-wo // tw)
+
+
+def tc_pack(weight: torch.Tensor, proj_weight: Optional[torch.Tensor],
+            bn: int) -> torch.Tensor:
+    """The tensor-core conv's weights, each stage's tap blocks as they
+    lie in shared memory: (Cout tiles of ``bn``, stages of 8 input
+    channels, taps (9, ky*3 + kx; a tenth for the 1x1 ``proj_weight``), 2
+    (TF32 hi = ``tf32_round(w)``, lo = ``tf32_round(w - hi)``), bn
+    outputs, 8 channels), fp32, zero past Cout and Cin.  In rows whose
+    output index has bit 2 set the two 4-channel halves are swapped (the
+    kernel's bank-conflict-free layout)."""
+    o, i = weight.shape[:2]
+    w = weight.detach().float().permute(0, 2, 3, 1).reshape(o, 9, i)
+    if proj_weight is not None:
+        w = torch.cat([w, proj_weight.detach().float().reshape(o, 1, i)], 1)
+    nt, nk = -(-o // bn), -(-i // TC_STAGE)
+    w = F.pad(w, (0, nk * TC_STAGE - i, 0, 0, 0, nt * bn - o))
+    w = w.reshape(nt, bn, w.shape[1], nk, TC_STAGE).permute(0, 3, 2, 1, 4)
+    swap = ((torch.arange(bn, device=w.device) >> 2) & 1).bool()
+    w = torch.where(swap[:, None], w.roll(TC_STAGE // 2, -1), w)
+    hi = tf32_round(w)
+    return torch.stack([hi, tf32_round(w - hi)], 3).contiguous()
 
 
 # ------------------------------------------------------- plain versions
@@ -136,33 +178,39 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _conv_cuda(name, x, weight, bias, stride, mode, aff=None, res=None,
-               res_aff=None, proj=None, want_stats=True):
-    """One ``enc_conv_forward`` launch; returns (y, yp or None, stats
-    (B, 2, CH) or None)."""
+               res_aff=None, proj=None, want_stats=True, tc=False):
+    """One launch: ``enc_conv_tc_forward`` with ``tc`` (the 3x3 convs of
+    rows 9 and 15, weights as ``tc_pack``; ``proj`` the projection's
+    (weight, bias)), else ``enc_conv_forward``.  Returns (y, yp or None,
+    stats (B, 2, CH) or None)."""
     cout, cin, ks, _ = weight.shape
-    w = weight.detach().permute(1, 2, 3, 0).contiguous()  # (Cin, k, k, Cout)
-    bias = bias.detach().contiguous()
-    wp = bp = None
-    if proj is not None:
-        wp = proj[0].detach().reshape(cout, cin).t().contiguous()
-        bp = proj[1].detach().contiguous()
-    s, t = aff if aff is not None else (None, None)
-    rs, rt = res_aff if res_aff is not None else (None, None)
-    dev = _check(name, x, s, t, res, rs, rt, w, bias, wp, bp)
     b, c, h, wd = x.shape
     if c != cin or cout % _COUT_TILE:
         raise ValueError(f"{name}: input channels {c} vs weight {cin}, or "
                          f"Cout {cout} not a multiple of {_COUT_TILE}")
+    s, t = aff if aff is not None else (None, None)
+    rs, rt = res_aff if res_aff is not None else (None, None)
     for a in (s, t, rs, rt):
         if a is not None and a.shape != (b, c):
             raise ValueError(f"{name}: affine {tuple(a.shape)} != {(b, c)}")
     if res is not None and res.shape != x.shape:
         raise ValueError(f"{name}: residual {tuple(res.shape)} != "
                          f"{tuple(x.shape)}")
-    pad = ks // 2
-    ho = (h + 2 * pad - ks) // stride + 1
-    wo = (wd + 2 * pad - ks) // stride + 1
-    nb = -(-ho // _TILE_H) * -(-wo // _TILE_W)
+    bias = bias.detach().contiguous()
+    bp = None if proj is None else proj[1].detach().contiguous()
+    if tc:
+        if ks != 3:
+            raise ValueError(f"{name}: a {ks}x{ks} kernel; this conv is 3x3")
+        ho, wo, _, bn, nb = tc_geometry(h, wd, stride)
+        w = tc_pack(weight, None if proj is None else proj[0], bn)
+    else:
+        pad = ks // 2
+        ho = (h + 2 * pad - ks) // stride + 1
+        wo = (wd + 2 * pad - ks) // stride + 1
+        nb = -(-ho // _TILE_H) * -(-wo // _TILE_W)
+        # (Cin, k, k, Cout)
+        w = weight.detach().permute(1, 2, 3, 0).contiguous()
+    dev = _check(name, x, s, t, res, rs, rt, w, bias, bp)
     y = torch.empty((b, cout, ho, wo), dtype=torch.float32, device=dev)
     yp = torch.empty_like(y) if proj is not None else None
     ch = cout * (2 if proj is not None else 1)
@@ -171,16 +219,23 @@ def _conv_cuda(name, x, weight, bias, stride, mode, aff=None, res=None,
         partials = torch.empty((b, nb, 2, ch), dtype=torch.float32,
                                device=dev)
         stats = torch.empty((b, 2, ch), dtype=torch.float32, device=dev)
-    fn = _build.load("enc_conv").enc_conv_forward
+    ptrs = [_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
+            _ptr(w), _ptr(bias)]
+    if tc:
+        fn = _build.load("enc_conv_tc").enc_conv_tc_forward
+        ptrs += [_ptr(bp), _ptr(y), _ptr(yp)]
+        ints = [b, cin, h, wd, cout, stride, mode, nb, bn]
+    else:
+        fn = _build.load("enc_conv").enc_conv_forward
+        ptrs += [_ptr(y)]
+        ints = [b, cin, h, wd, cout, ks, stride, mode, nb]
+    ptrs += [_ptr(partials), _ptr(stats)]
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
-                _ptr(w), _ptr(bias), _ptr(wp), _ptr(bp), _ptr(y), _ptr(yp),
-                _ptr(partials), _ptr(stats), b, cin, h, wd, cout, ks, stride,
-                mode, nb, stream)
+        rc = fn(*ptrs, *ints, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return y, yp, stats
@@ -227,7 +282,7 @@ def stage_conv(x: torch.Tensor, aff: Affine, weight: torch.Tensor,
                           want_stats=want_stats)
     y, _, st = _conv_cuda("stage_conv", x, weight, bias, 1,
                           _PREP if res is None else _RES, aff, res, res_aff,
-                          want_stats=want_stats)
+                          want_stats=want_stats, tc=True)
     stage_conv.launches += 1
     return y, _sums(st, 0, y.shape[1])
 
@@ -257,12 +312,12 @@ def l2_entry(t: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if _on_cpu(t, weight, proj_weight):
         return entry_plain(t, weight, bias, proj_weight, proj_bias,
                            want_stats)
-    if proj_weight.shape[2:] != (1, 1):
+    if proj_weight.shape != weight.shape[:2] + (1, 1):
         raise ValueError(f"l2_entry: projection {tuple(proj_weight.shape)}"
-                         f" is not 1x1")
+                         f" is not 1x1 of {tuple(weight.shape[:2])}")
     y, yp, st = _conv_cuda("l2_entry", t, weight, bias, 2, _NONE,
                            proj=(proj_weight, proj_bias),
-                           want_stats=want_stats)
+                           want_stats=want_stats, tc=True)
     l2_entry.launches += 1
     c = y.shape[1]
     return y, yp, _sums(st, 0, c), _sums(st, c, 2 * c)

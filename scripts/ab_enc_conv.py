@@ -1,0 +1,143 @@
+"""Rows 9 and 15 (the fused encoder's 3x3 convs: ``stage_conv`` and
+``l2_entry``) of one checkout of the PyTorch port, on the card, for A/B
+comparisons of two trees in one call:
+
+    python3 scripts/ab_enc_conv.py ROOT [--report] [--profile]
+
+ROOT is a checkout (or ``git archive``) holding ``raftstereo_tpu_torch``;
+its kernels build under ROOT.  Prints one line per tree: each row's
+CUDA-event time (``chip_smoke.time_ms``, from this script's checkout) at
+the fused serving shapes (fnet 2x64x576x960 with sums, cnet 1 image
+without; the residual form of row 9 with sums) and the fused training
+shapes (fnet 12x64x320x720 with sums, cnet 6 images without), each with
+its largest error against the plain version, relative to max(1, |plain|)
+(sums per pixel, as ``chip_smoke.hold``).  ``--report`` prints the ptxas
+report (registers, shared memory, spills) of the encoder conv libraries
+first, ``--profile`` each call's kernels by device time.  Run parent,
+change, change, parent in one call and compare within it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _short(name: str) -> str:
+    """``k<...>`` of ``void (anonymous namespace)::k<...>(...)``."""
+    i = name.find("::") + 2
+    return name[i:name.find("(", i)]
+
+
+def _leaves(out):
+    if out is None:
+        return []
+    if hasattr(out, "shape"):
+        return [out]
+    return [t for o in out for t in _leaves(o)]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root")
+    ap.add_argument("--report", action="store_true")
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    sys.path.insert(1, HERE)
+    import torch
+
+    import chip_smoke
+    from raftstereo_tpu_torch.device import fp32_numerics
+    from raftstereo_tpu_torch.ops import _build
+    from raftstereo_tpu_torch.ops import cuda_encoder as ce
+
+    if not ce.__file__.startswith(root):
+        raise RuntimeError(f"{ce.__file__} is not under {root}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("needs a CUDA device")
+    fp32_numerics()  # the plain versions' cuDNN convs in fp32, not TF32
+    libs = _build.build_all()
+    if args.report:
+        for name in ("enc_conv_tc", "enc_conv"):
+            if name not in libs:
+                continue
+            log = libs[name].with_suffix(".log").read_text()
+            for line in log.splitlines():
+                if ("Function properties" in line or "registers" in line
+                        or "spill" in line):
+                    print(f"  {name}: {line.strip()}")
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(dev)
+
+    def aff(b, c):  # shifts > 0: padding before the prep would show
+        return ((0.5 + torch.rand((b, c), generator=g)).to(dev),
+                (0.5 * torch.rand((b, c), generator=g)).to(dev))
+
+    wc, bc = randn(64, 64, 3, 3, scale=(2 / 576) ** 0.5), randn(64, scale=0.1)
+    we, be = randn(96, 64, 3, 3, scale=(2 / 576) ** 0.5), randn(96, scale=0.1)
+    wp, bp = randn(96, 64, 1, 1, scale=(2 / 64) ** 0.5), randn(96, scale=0.1)
+    out = []
+    for path, b, (h, w) in (("serve", 2, (576, 960)),
+                            ("train", 12, (320, 720))):
+        x, r = randn(b, 64, h, w), randn(b, 64, h, w)
+        a, ra = aff(b, 64), aff(b, 64)
+        t = torch.relu(x)
+        half = b // 2
+        x1, t1 = x[:half].contiguous(), t[:half].contiguous()
+        a1 = (a[0][:half].contiguous(), a[1][:half].contiguous())
+        n, n2 = float(h * w), float(((h - 1) // 2 + 1) * ((w - 1) // 2 + 1))
+        cases = [
+            (f"row9 {b}x64x{h}x{w}", n,
+             lambda: ce.stage_conv(x, a, wc, bc),
+             lambda: ce.conv_plain(x, wc, bc, 1, a)),
+            (f"row9 {half}x64 no sums", n,
+             lambda: ce.stage_conv(x1, a1, wc, bc, want_stats=False),
+             lambda: ce.conv_plain(x1, wc, bc, 1, a1, want_stats=False)),
+            (f"row15 {b}x64x{h}x{w}", n2,
+             lambda: ce.l2_entry(t, we, be, wp, bp),
+             lambda: ce.entry_plain(t, we, be, wp, bp)),
+            (f"row15 {half}x64 no sums", n2,
+             lambda: ce.l2_entry(t1, we, be, wp, bp, want_stats=False),
+             lambda: ce.entry_plain(t1, we, be, wp, bp, want_stats=False))]
+        if path == "serve":
+            cases.append((f"row9 res {b}x64", n,
+                          lambda: ce.stage_conv(x, a, wc, bc, res=r,
+                                                res_aff=ra),
+                          lambda: ce.conv_plain(x, wc, bc, 1, a, r, ra)))
+        for label, npix, kern, plain in cases:
+            got, want = _leaves(kern()), _leaves(plain())
+            torch.cuda.synchronize()
+            err = 0.0
+            for k, p in zip(got, want):
+                if k.dim() == 2:
+                    k, p = k / npix, p / npix
+                err = max(err, float((k - p).abs().max())
+                          / max(1.0, float(p.abs().max())))
+            ms = chip_smoke.time_ms(kern, 5)
+            out.append(f"{label} ms {ms:.4f} err {err:.2e}")
+            if args.profile:
+                cuda = torch.profiler.ProfilerActivity.CUDA
+                with torch.profiler.profile(activities=[cuda]) as prof:
+                    kern()
+                    torch.cuda.synchronize()
+                print(f"  {label}: " + "; ".join(
+                    f"{_short(ev.name)} {ev.device_time_total / 1e3:.3f}"
+                    for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA))
+        del x, r, t, x1, t1
+        torch.cuda.empty_cache()
+    print(f"{root} [{torch.cuda.get_device_name(0)}] " + " | ".join(out),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -50,7 +50,7 @@ def main() -> int:
         raise RuntimeError("needs a CUDA device")
     libs = _build.build_all()
     if args.report:
-        chip_smoke.gru_build_report(libs["gru_update"])
+        chip_smoke.build_report("gru_update", libs["gru_update"])
     model = RAFTStereo(RAFTStereoConfig(), device="cuda", seed=0)
     g = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")

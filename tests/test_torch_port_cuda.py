@@ -303,6 +303,59 @@ def test_l2_entry_kernel_matches_plain(dev, b, h, w):
     _assert_kernel(*_twice(cuda_encoder.l2_entry, t, wt, bias, wp, bp))
 
 
+# Rows 9 and 15 on the tensor cores (csrc/enc_conv_tc.cu): the hostile
+# widths above (W not a multiple of the 32- or 16-column tile nor of 4, so
+# no row is whole 16-byte units; odd sizes at stride 2; H not a multiple
+# of the 8-row tile) and a training-sized 12x64x40x90.
+TC_CASES = [(2, 13, 2), (1, 9, 37), (3, 21, 70), (1, 19, 45), (3, 9, 33),
+            (2, 14, 4), (1, 17, 66), (12, 40, 90)]
+
+
+@pytest.mark.parametrize("b,h,w", TC_CASES)
+def test_tensor_core_conv_kernels_match_plain(dev, monkeypatch, b, h, w):
+    """Row 9 (prep and residual forms) and row 15 (entry conv and
+    projection) against their plain versions, with and without sums: two
+    calls bitwise equal, one launch each, and the plain versions patched
+    to raise while the kernels run."""
+    rng = np.random.default_rng(100 + w)
+    x = _randn(rng, b, 64, h, w)
+    x[:, 0] = 0.25
+    x = x.to(dev)
+    r = _randn(rng, b, 64, h, w).to(dev)
+    aff, raff = _aff(rng, dev, b, 64, const=True), _aff(rng, dev, b, 64)
+    wt, bias = _wb(rng, dev, 64, 64, 3)
+    we, be = _wb(rng, dev, 96, 64, 3)
+    wp, bp = _wb(rng, dev, 96, 64, 1)
+    t = torch.relu(x)
+
+    def cpu(v):
+        return tuple(cpu(u) for u in v) if isinstance(v, tuple) else v.cpu()
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    for fn, args, kw in ((cuda_encoder.stage_conv, (x, aff, wt, bias), {}),
+                         (cuda_encoder.stage_conv, (x, aff, wt, bias),
+                          dict(res=r, res_aff=raff)),
+                         (cuda_encoder.l2_entry, (t, we, be, wp, bp), {})):
+        for ws in (True, False):
+            want = fn(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()},
+                      want_stats=ws)
+            with monkeypatch.context() as m:
+                for name in ("conv_plain", "entry_plain", "stats_plain",
+                             "prep"):
+                    m.setattr(cuda_encoder, name, boom)
+                before = fn.launches
+                k1 = fn(*args, **kw, want_stats=ws)
+                k2 = fn(*args, **kw, want_stats=ws)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 2
+            assert len(_leaves(k1)) == len(_leaves(want)) == (
+                (3 if fn is cuda_encoder.stage_conv else 6) if ws else
+                (1 if fn is cuda_encoder.stage_conv else 2))
+            _assert_kernel(k1, k2, want)
+
+
 @pytest.mark.parametrize("shape", [(2, 64, 13, 2), (1, 96, 7, 9),
                                    (6, 64, 24, 40)])
 def test_stats_and_finish_kernels_match_plain(dev, shape):
