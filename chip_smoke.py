@@ -6,7 +6,7 @@
 Phases, none caught: (1) print the card's name and power limit; (2) build
 the CUDA kernels from ``raftstereo_tpu_torch/csrc``, printing ptxas's
 registers, shared memory and spills of each tensor-core kernel (row 2's
-fused update, ``gru_update.cu``; rows 9 and 15's encoder convs,
+fused update, ``gru_update.cu``; rows 9, 15 and 16's encoder convs,
 ``enc_conv_tc.cu``) and, where ``cuobjdump`` exists, the count of
 tensor-core instructions (HMMA/HGMMA) in each library, which must not be
 0; (3) hold each kernel against its plain PyTorch version on the card
@@ -40,7 +40,10 @@ correlation: (9) hold its kernels against their plain versions, bitwise,
 at the serving shape (the 144x240 volume pyramid, level widths
 240/120/60/30; the int8 volume of 1x144x240 features, C=256) and the
 training shape (6x80x180): the volume lookup, its backward (also two
-calls bitwise equal) and the int8 volume; (10) serve three requests with
+calls bitwise equal) and the int8 volume, the lookup beside its library
+call (``F.grid_sample``, 4 calls, one per level, as upstream
+RAFT-Stereo's ``bilinear_sampler``) and the backward beside their
+autograd backward; (10) serve three requests with
 ``corr_implementation="pallas"`` and the fused update, and three with
 ``corr_quant=True``: finite, bitwise equal to direct engine calls, 32
 volume lookups and 32 updates per request, one int8 volume per quant
@@ -394,7 +397,7 @@ def build_report(name, lib) -> None:
     static shared memory, spills; row 2's mma kernel's dynamic shared
     memory is its TMA ring of 128-byte rows, BM = 32*MT pixel rows and BN
     = 16*NT weight rows per plane, 4 stages where one is at most 28 KB,
-    else 3, and a barrier per stage; rows 9 and 15's
+    else 3, and a barrier per stage; rows 9, 15 and 16's
     ``enc_conv_tc_kernel<stride,mode,projection,MT,NT>``'s is set at
     launch), and the tensor-core instructions in the library, which must
     not be 0."""
@@ -568,6 +571,7 @@ def conv_cost(x, wt, out_numel, n_in=1, proj_flops=0):
 
 # The source of each encoder row under csrc/ (enc_conv where not listed).
 ENCODER_SOURCES = {"stage_conv": "enc_conv_tc", "l2_entry": "enc_conv_tc",
+                   "l2_conv": "enc_conv_tc",
                    "stage_finish": "enc_finish", "l2_finish": "enc_finish",
                    "plane_stats": "enc_stats", "dual_sums": "enc_stats"}
 
@@ -695,7 +699,8 @@ def encoder_kernel_phase(model, bucket, torch):
         lambda: ce.conv_plain(y, wl, bl, 1, b_), n2, ENC_TOL,
         4 * (2 * y.numel() + wl.numel() + 96 + 4 * 2 * 96),
         conv_cost(y, wl, y.numel(), n_in=1),
-        lib=lambda: F.conv2d(y, wl, bl, 1, 1))
+        lib=lambda: F.conv2d(y, wl, bl, 1, 1),
+        products=conv_products(wl, y.numel()))
     q, a4 = randn(2, 96, h2, w2), aff(2, 96)
     row("l2_finish", "raftstereo_tpu/ops/pallas_layer2.py:228",
         dims(y), lambda: ce.l2_finish(p, pb, y, b_, q, a4),
@@ -720,7 +725,15 @@ def encoder_kernel_phase(model, bucket, torch):
              lambda: ce.l2_conv(y[:1].contiguous(), (b_[0][:1], b_[1][:1]),
                                 wl, bl, want_stats=False),
              lambda: ce.conv_plain(y[:1], wl, bl, 1, (b_[0][:1], b_[1][:1]),
-                                   want_stats=False))):
+                                   want_stats=False)),
+            (f"l2_conv res form {dims(y[:1])} no sums",
+             lambda: ce.l2_conv(y[:1].contiguous(), (b_[0][:1], b_[1][:1]),
+                                wl, bl, res=p[:1].contiguous(),
+                                res_aff=(pb[0][:1], pb[1][:1]),
+                                want_stats=False),
+             lambda: ce.conv_plain(y[:1], wl, bl, 1, (b_[0][:1], b_[1][:1]),
+                                   p[:1], (pb[0][:1], pb[1][:1]),
+                                   res_relu=False, want_stats=False))):
         hold(label, kern, plain, 1.0, ENC_TOL, torch)
 
     # -- off the batch-1 path: the stride-2 conv1 (row 12) at the
@@ -846,7 +859,20 @@ def train_fused_kernel_phase(model, torch):
         lambda: ce.conv_plain(y, wl, bl, 1, b_), n2, ENC_TOL,
         4 * (2 * y.numel() + wl.numel() + 96 + 4 * b * 96),
         conv_cost(y, wl, y.numel(), n_in=1),
-        lib=lambda: F.conv2d(y, wl, bl, 1, 1))
+        lib=lambda: F.conv2d(y, wl, bl, 1, 1),
+        products=conv_products(wl, y.numel()))
+    # row 16's res_proj form (fnet), and cnet's 6 images without sums
+    hold(f"l2_conv res form {dims(y)}",
+         lambda: ce.l2_conv(y, b_, wl, bl, res=p, res_aff=pb),
+         lambda: ce.conv_plain(y, wl, bl, 1, b_, p, pb, res_relu=False),
+         n2, ENC_TOL, torch)
+    y1 = y[:half].contiguous()
+    b1 = (b_[0][:half].contiguous(), b_[1][:half].contiguous())
+    hold(f"l2_conv {dims(y1)} no sums",
+         lambda: ce.l2_conv(y1, b1, wl, bl, want_stats=False),
+         lambda: ce.conv_plain(y1, wl, bl, 1, b1, want_stats=False), 1.0,
+         ENC_TOL, torch)
+    del y1
     row("l2_finish", "raftstereo_tpu/ops/pallas_layer2.py:228", dims(y),
         lambda: ce.l2_finish(p, pb, y, b_, q, a4),
         lambda: ce.finish_plain(p, pb, y, b_, q, a4, a_relu=False), n2,
@@ -896,6 +922,27 @@ def volume_kernel_phase(cfg, lo_hw, torch):
                                bound(nbytes, flops, int8_ops))),
                     library_ms=lib_ms)
 
+    def sampler(vcat, widths, x, grad=False):
+        """One PyTorch call per level for the same lookup: the upstream
+        RAFT-Stereo ``bilinear_sampler``, ``F.grid_sample`` of the level's
+        1-D volume rows (B*H*W1, 1, 1, w) at the 2r+1 taps, align_corners,
+        zero padding.  Returns per level (volume, grid), the volume a leaf
+        that requires grad with ``grad``."""
+        import torch.nn.functional as F
+
+        out, off = [], 0
+        for lvl, w in enumerate(widths):
+            v = vcat[..., off:off + w].reshape(-1, 1, 1, w).clone()
+            taps = (x.reshape(-1, 1) / 2 ** lvl
+                    + torch.arange(-r, r + 1, device=dev))
+            gx = 2.0 * taps / max(w - 1, 1) - 1.0
+            grid = torch.stack([gx, torch.zeros_like(gx)], -1)[:, None]
+            out.append((v.requires_grad_(grad), grid))
+            off += w
+        return out, [lambda v=v, gr=gr: F.grid_sample(v, gr,
+                                                      align_corners=True)
+                     for v, gr in out]
+
     def needed_columns(x, widths):
         """(pixel, level, column) entries inside the level that the taps
         weight: columns floor(x_l) - r .. floor(x_l) + r + 1."""
@@ -928,11 +975,17 @@ def volume_kernel_phase(cfg, lo_hw, torch):
               f"to its plain version: {same_bits(got, want, torch)}")
         check(same_bits(got, want, torch),
               f"vol_lookup differs from its plain version ({path})")
+        _, calls = sampler(st.vcat, st.widths, x)
+        lib_out = torch.cat([f().reshape(got.shape[:3] + (k,))
+                             for f in calls], -1)
+        print(f"vol_lookup ({path}) library: {len(calls)} F.grid_sample "
+              f"calls, one per level, max |diff| "
+              f"{float((lib_out - got).abs().max()):.3e}")
         nout = got.numel()
         rows.append(timed(
             "vol_lookup", path, kern, plain,
             4 * (needed_columns(x, st.widths) + x.numel() + nout),
-            8 * nout))
+            8 * nout, lib=lambda: [f() for f in calls]))
         if path != "train_pallas":
             continue
         gout = randn(b, h, w, cfg.corr_levels * k)
@@ -950,9 +1003,20 @@ def volume_kernel_phase(cfg, lo_hw, torch):
               f"plain version bitwise equal: {ok}")
         check(ok, "vol_lookup_bwd is not bitwise repeatable or differs from "
                   "its plain version")
+        # the library: the autograd backward of the 4 F.grid_sample calls
+        levels, calls = sampler(st.vcat, st.widths, x, grad=True)
+        outs = [f() for f in calls]
+        gouts = [gout[..., lvl * k:(lvl + 1) * k].reshape(o.shape)
+                 for lvl, o in enumerate(outs)]
+
+        def lib_bwd():
+            return [torch.autograd.grad(o, v, go, retain_graph=True)
+                    for o, (v, _), go in zip(outs, levels, gouts)]
+
         rows.append(timed("vol_lookup_bwd", path, bwd, bwd_plain,
                           4 * (k1.numel() + gout.numel() + x.numel()),
-                          6 * k * k1.numel(), reps=10))
+                          6 * k * k1.numel(), lib=lib_bwd, reps=10))
+        del levels, calls, outs, gouts
 
     # -- the int8 volume at the serving shape
     h, w = lo_hw

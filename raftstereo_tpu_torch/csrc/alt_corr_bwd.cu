@@ -16,28 +16,49 @@
 // kernel discards the mass that lands on its lane padding.  A NaN
 // coordinate, or a non-finite cotangent, of level l poisons that pixel's
 // df1 and every column of level l in its row with NaN, as the TPU kernel's
-// dense hat matrix max(0, 1 - |j - t|) does.
+// dense hat matrix max(0, 1 - |j - t|) does; where an infinite cotangent's
+// tap weights a column (at most two), the dense hat gives that column
+// +-inf instead (inf * 0 = NaN on the others), and this kernel NaN.
 //
 // Design.  The TPU kernel builds a dense (block x W2) hat matrix in VMEM
-// and runs two matrix-unit products per block.  Here one block handles one
-// image row n; the row's coefficients (W1 x L x (2r+2)) and window bases go
-// to shared memory first.  df1 has the forward's gather pattern: one warp
-// per pixel, each lane holding C/32 channels, summing its 2r+2 weighted
-// fmap2 rows per level.  df2 is a scatter from pixels to columns, computed
-// as a gather: one warp per column, which scans the row's pixels 32 at a
-// time (a ballot of the pixels whose window covers the column) and sums
-// their weighted fmap1 rows in ascending pixel order.  Every sum runs in a
-// fixed order and no floating-point atomics are used, so two calls on the
-// same inputs are bitwise equal.
+// and runs two matrix-unit products per block.  Here a block of 32 warps
+// handles one image row n and one slice of 128 channels (2 slices of C =
+// 256), so a call runs rows x C/128 blocks.  The block first builds the
+// row's coefficients (W1 x L x (2r+2)) and window bases in shared memory
+// (each slice of a row rebuilds them from the row's x and g, 26 KB read
+// from L2 at the recipe).  df2 is a scatter from pixels to columns,
+// computed as a gather: one warp per column of the concatenated pyramid
+// scans the row's pixels 32 at a time (a ballot of the pixels whose
+// window covers the column) and sums their weighted fmap1 rows in
+// ascending pixel order, the rows of four hits in flight at a time.  df1
+// has the forward's gather pattern: one warp per pixel, a level's 2r+2
+// fmap2 rows loaded first (clamped into the level, so every load is in
+// bounds), then summed in tap order.  Each lane holds 4 channels (one
+// float4) of the slice.  The fmap rows come through L1: a block re-reads
+// its slice of its row (fmap1 92 KB and the fmap2 pyramid 172 KB at the
+// recipe) about 20 times over, and one 32-warp block holds the SM's L1
+// beside its 32 KB of tables, where the first form of this kernel (about
+// four 8-warp blocks per SM, each row's 529 KB for all 256 channels, one
+// or two loads in flight per warp) read them from L2 (no profiler on the
+// card's machine counts the hits).  Staging the slices in shared memory
+// with `cp.async` was slower in every form tried (PERF.md §6): it left one
+// block per SM waiting on its copy, and every FMA reading shared memory.
+// Every sum runs in the first form's fixed order (df1: levels ascending,
+// then taps ascending; df2: pixels ascending; one fmaf per term from 0),
+// with no floating-point atomics, so two calls on the same inputs are
+// bitwise equal, and equal to that form's.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
 // cores): at 6x80 rows of 180 pixels, level widths 180/90/45/22, C=256 and
 // 4 levels of radius 4, the call must read fmap1 (44 MB), the fmap2
 // pyramid (83 MB), x and g (13 MB) and write df1 and df2 (127 MB): about
 // 521 MB, 0.16 ms.  The useful work is about 3.5 GFLOP (0.05 ms), so it
-// is bound by bytes.  What this design does about it: each output element
-// is written once, and the rows a block re-reads (fmap1, fmap2 of its
-// image row) stay in L1/L2.
+// is bound by bytes.  What holds this design back from that: the reads
+// that miss L1 (a pixel's windows lie where its disparity puts them, so
+// random disparities scatter them over the row), df2's scan of every
+// pixel of the row for each column's hits, the per-hit work (ballot,
+// shuffle, address) spread over only 4 channels a lane, and the tables
+// built once per slice.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -45,8 +66,10 @@
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kMaxChunks = 4;  // C <= 4 * 128
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarpsPerBlock = 32;
+constexpr int kVec = 4;                // channels per lane
+constexpr int kSlice = 32 * kVec;      // channels per block
+constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr int kFar = 0x40000000;      // window base that covers no column
 constexpr int kPoisoned = 0x40000001; // window base of a NaN pixel/level
 constexpr int kMaxSmem = 232448;      // bytes a block may opt in to
@@ -57,30 +80,52 @@ struct Levels {
   int width[kMaxLevels];  // real width w2_l of level l
 };
 
-__device__ __forceinline__ void fma4(float4& acc, float s, const float4& v) {
-  acc.x = fmaf(s, v.x, acc.x);
-  acc.y = fmaf(s, v.y, acc.y);
-  acc.z = fmaf(s, v.z, acc.z);
-  acc.w = fmaf(s, v.w, acc.w);
+struct Args {
+  const float* f1;  // (rows, W1, C)
+  const float* f2;  // (rows, W2cat, C)
+  const float* x;   // (rows, W1)
+  const float* g;   // (rows, W1, L*(2r+1))
+  float* df1;
+  float* df2;
+  int w1, w2cat, c, nslice;
+  float scale;
+  Levels lv;
+};
+
+// The 4 floats at p (16-byte aligned).
+__device__ __forceinline__ void load4(float (&v)[kVec], const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[kVec]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Shared memory of one block: the coefficients [W1*L][D] and the window
+// bases [L][W1].
+template <int R>
+long smem_bytes(int w1, int nlev) {
+  return (long)w1 * nlev * (2 * R + 3) * 4;
 }
 
 template <int R>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-alt_corr_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
-                    const float* __restrict__ x, const float* __restrict__ g,
-                    float* __restrict__ df1, float* __restrict__ df2, int w1,
-                    int w2cat, int c, float scale, Levels lv) {
+__global__ void __launch_bounds__(kThreads)
+alt_corr_bwd_kernel(const Args a) {
   constexpr int K = 2 * R + 1;
   constexpr int D = K + 1;  // columns a pixel's window covers per level
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ int poison;    // bit l: level l of this row is poisoned
-  const int L = lv.n;
-  float* coef = smem;                                        // [w1][L][D]
-  int* base = reinterpret_cast<int*>(coef + (long)w1 * L * D);  // [w1][L]
-  const long n = blockIdx.x;
+  const Levels& lv = a.lv;
+  const int L = lv.n, w1 = a.w1, w2cat = a.w2cat, c = a.c;
+  const long n = blockIdx.x / a.nslice;
+  const int c0 = (blockIdx.x % a.nslice) * kSlice;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int nchunk = c >> 7;
+  float* coef = smem;                                            // [w1][L][D]
+  int* base = reinterpret_cast<int*>(coef + (long)w1 * L * D);  // [L][w1]
+  // This lane's channels of pixel i's fmap1 row and column j's fmap2 row.
+  const float* f1row = a.f1 + n * (long)w1 * c + c0 + lane * kVec;
+  const float* f2row = a.f2 + n * (long)w2cat * c + c0 + lane * kVec;
 
   if (threadIdx.x == 0) poison = 0;
   __syncthreads();
@@ -88,8 +133,8 @@ alt_corr_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
   // Tables: one thread per (pixel, level).
   for (int t = threadIdx.x; t < w1 * L; t += blockDim.x) {
     const int i = t / L, l = t - (t / L) * L;
-    const float xv = x[n * w1 + i];
-    const float* gp = g + (n * w1 + i) * (long)(L * K) + l * K;
+    const float xv = a.x[n * w1 + i];
+    const float* gp = a.g + (n * w1 + i) * (long)(L * K) + l * K;
     float gk[K];
     bool bad = isnan(xv);
 #pragma unroll
@@ -108,145 +153,149 @@ alt_corr_bwd_kernel(const float* __restrict__ f1, const float* __restrict__ f2,
     } else if (lo <= (float)(lv.width[l] - 1) && lo + (float)K >= 0.f) {
       b = (int)lo;  // in [-K, width-1]: no overflow
     }
-    base[t] = b;
+    base[l * w1 + i] = b;
     float* cp = coef + (long)t * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       float v = 0.f;
       if (d < K) v = gk[d] * (1.f - fr);
       if (d > 0) v += gk[d - 1] * fr;
-      cp[d] = v * scale;
+      cp[d] = v * a.scale;
     }
   }
   __syncthreads();
 
-  // df1: one warp per pixel.
-  const float* f2row = f2 + n * (long)w2cat * c + lane * 4;
-  for (int i = warp; i < w1; i += kWarpsPerBlock) {
-    float4 acc[kMaxChunks];
-#pragma unroll
-    for (int q = 0; q < kMaxChunks; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-    bool bad = false;
-    for (int l = 0; l < L; ++l) {
-      const int b = base[i * L + l];
-      if (b == kPoisoned) {
-        bad = bad || lv.width[l] > 0;
-        continue;
-      }
-      const float* cp = coef + (long)(i * L + l) * D;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const int j = b + d;
-        if (j < 0 || j >= lv.width[l]) continue;  // warp-uniform
-        const float cf = cp[d];
-        const float* p2 = f2row + (long)(lv.off[l] + j) * c;
-#pragma unroll
-        for (int q = 0; q < kMaxChunks; ++q)
-          if (q < nchunk)
-            fma4(acc[q], cf, *reinterpret_cast<const float4*>(p2 + q * 128));
-      }
-    }
-    float* o = df1 + (n * w1 + i) * (long)c + lane * 4;
-#pragma unroll
-    for (int q = 0; q < kMaxChunks; ++q) {
-      if (q < nchunk) {
-        float4 v = acc[q];
-        if (bad) v = make_float4(NAN, NAN, NAN, NAN);
-        *reinterpret_cast<float4*>(o + q * 128) = v;
-      }
-    }
-  }
-
   // df2: one warp per column of the concatenated pyramid.
-  const float* f1row = f1 + n * (long)w1 * c + lane * 4;
   for (int jg = warp; jg < w2cat; jg += kWarpsPerBlock) {
     int l = 0;
     while (l + 1 < L && jg >= lv.off[l + 1]) ++l;
     const int jl = jg - lv.off[l];
-    float4 acc[kMaxChunks];
+    float acc[kVec];
 #pragma unroll
-    for (int q = 0; q < kMaxChunks; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
     for (int i0 = 0; i0 < w1; i0 += 32) {
       const int i = i0 + lane;
       float cf = 0.f;
       bool hit = false;
       if (i < w1) {
-        const int d = jl - base[i * L + l];  // sentinels give d < 0
+        const int d = jl - base[l * w1 + i];  // sentinels give d < 0
         if (d >= 0 && d < D) {
           hit = true;
           cf = coef[(long)(i * L + l) * D + d];
         }
       }
       unsigned m = __ballot_sync(0xffffffffu, hit);
-      while (m) {  // ascending pixel order
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        const float s = __shfl_sync(0xffffffffu, cf, src);
-        const float* p1 = f1row + (long)(i0 + src) * c;
+      while (m) {  // ascending pixel order, four hits' loads at a time
+        int src[4];
+        bool has[4];
 #pragma unroll
-        for (int q = 0; q < kMaxChunks; ++q)
-          if (q < nchunk)
-            fma4(acc[q], s, *reinterpret_cast<const float4*>(p1 + q * 128));
+        for (int h = 0; h < 4; ++h) {
+          has[h] = m != 0;
+          src[h] = has[h] ? __ffs(m) - 1 : 0;
+          m &= m - 1;
+        }
+        float s[4], v[4][kVec];
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          s[h] = __shfl_sync(0xffffffffu, cf, src[h]);
+          load4(v[h], f1row + (i0 + src[h]) * (long)c);
+        }
+#pragma unroll
+        for (int h = 0; h < 4; ++h) {
+          if (!has[h]) break;  // warp-uniform
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) acc[e] = fmaf(s[h], v[h][e], acc[e]);
+        }
       }
     }
-    const bool bad = (poison >> l) & 1;
-    float* o = df2 + (n * (long)w2cat + jg) * c + lane * 4;
+    if ((poison >> l) & 1) {
 #pragma unroll
-    for (int q = 0; q < kMaxChunks; ++q) {
-      if (q < nchunk) {
-        float4 v = acc[q];
-        if (bad) v = make_float4(NAN, NAN, NAN, NAN);
-        *reinterpret_cast<float4*>(o + q * 128) = v;
+      for (int e = 0; e < kVec; ++e) acc[e] = NAN;
+    }
+    store4(a.df2 + (n * (long)w2cat + jg) * c + c0 + lane * kVec, acc);
+  }
+
+  // df1: one warp per pixel.  Per level the window's rows are loaded
+  // first (clamped into the level, so every load is in bounds), then
+  // summed in tap order, skipping the columns outside the level.
+  for (int i = warp; i < w1; i += kWarpsPerBlock) {
+    float acc[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
+    bool bad = false;
+    for (int l = 0; l < L; ++l) {
+      const int b = base[l * w1 + i], width = lv.width[l];
+      if (b == kPoisoned) {
+        bad = bad || width > 0;
+        continue;
+      }
+      if (b == kFar || width == 0) continue;  // warp-uniform
+      const float* cp = coef + (long)(i * L + l) * D;
+      float v[D][kVec];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int j = min(max(b + d, 0), width - 1);
+        load4(v[d], f2row + (lv.off[l] + j) * (long)c);
+      }
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const int j = b + d;
+        if (j < 0 || j >= width) continue;  // warp-uniform
+        const float cf = cp[d];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[e] = fmaf(cf, v[d][e], acc[e]);
       }
     }
+    if (bad) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[e] = NAN;
+    }
+    store4(a.df1 + (n * w1 + i) * (long)c + c0 + lane * kVec, acc);
   }
 }
 
 template <int R>
-int launch(const float* f1, const float* f2, const float* x, const float* g,
-           float* df1, float* df2, long rows, int w1, int w2cat, int c,
-           float scale, const Levels& lv, cudaStream_t stream) {
-  constexpr int D = 2 * R + 2;
-  const long smem = (long)w1 * lv.n * (D + 1) * 4;
-  if (smem > kMaxSmem - 64) return (int)cudaErrorInvalidValue;
+int launch(Args a, long rows, cudaStream_t stream) {
+  const long smem = smem_bytes<R>(a.w1, a.lv.n);
+  if (smem > kMaxSmem - 64) return (int)cudaErrorInvalidValue;  // `poison`
+  auto kernel = alt_corr_bwd_kernel<R>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        alt_corr_bwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  alt_corr_bwd_kernel<R><<<(unsigned)rows, 32 * kWarpsPerBlock, (size_t)smem,
-                           stream>>>(f1, f2, x, g, df1, df2, w1, w2cat, c,
-                                     scale, lv);
+  a.nslice = a.c / kSlice;
+  kernel<<<(unsigned)(rows * a.nslice), kThreads, (size_t)smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // fmap1 (rows, W1, C), f2cat (rows, W2cat, C), x (rows, W1), g (rows, W1,
-// nlev*(2*radius+1)), all fp32 and contiguous; writes df1 (rows, W1, C)
-// and df2 (rows, W2cat, C) in full.  C must be a multiple of 128 and at
-// most 512; radius 1..8; nlev <= 8; W2cat = sum(widths); the row's tables,
-// W1 * nlev * (2*radius+3) floats, must fit in shared memory.  Returns the
-// CUDA error code of the launch (0 on success).
+// nlev*(2*radius+1)), all fp32 and contiguous, the fmaps 16-byte aligned;
+// writes df1 (rows, W1, C) and df2 (rows, W2cat, C) in full.  C must be a
+// multiple of 128 and at most 512; radius 1..8; nlev <= 8; W2cat =
+// sum(widths); the row's tables, W1 * nlev * (2*radius+3) floats, must
+// fit in shared memory.  Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int alt_corr_backward(const float* f1, const float* f2,
                                  const float* x, const float* g, float* df1,
                                  float* df2, long rows, int w1, int w2cat,
                                  int c, int radius, float scale, int nlev,
                                  const int* offsets, const int* widths,
                                  void* stream) {
-  if (nlev < 1 || nlev > kMaxLevels || c % 128 != 0 || c > 128 * kMaxChunks)
+  if (nlev < 1 || nlev > kMaxLevels || c % 128 != 0 || c > 512)
     return (int)cudaErrorInvalidValue;
   if (rows == 0 || w1 == 0) return 0;
-  Levels lv;
-  lv.n = nlev;
+  Args a{f1, f2, x, g, df1, df2, w1, w2cat, c, 0, scale, {}};
+  a.lv.n = nlev;
   for (int l = 0; l < kMaxLevels; ++l) {
-    lv.off[l] = l < nlev ? offsets[l] : 0;
-    lv.width[l] = l < nlev ? widths[l] : 0;
+    a.lv.off[l] = l < nlev ? offsets[l] : 0;
+    a.lv.width[l] = l < nlev ? widths[l] : 0;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RS_CASE(r) \
-  case r: return launch<r>(f1, f2, x, g, df1, df2, rows, w1, w2cat, c, scale, lv, s);
+  case r: return launch<r>(a, rows, s);
   switch (radius) {
     RS_CASE(1) RS_CASE(2) RS_CASE(3) RS_CASE(4)
     RS_CASE(5) RS_CASE(6) RS_CASE(7) RS_CASE(8)

@@ -1,24 +1,16 @@
-// Fused encoder convolution for Hopper (sm_90a), fp32: prep -> direct
-// convolution -> + bias -> raw output, with the optional per-(image,
-// channel) fp32 sum and sum of squares of that raw output.
+// The fused encoder's 7x7 conv1 for Hopper (sm_90a), fp32: direct
+// convolution of the raw image -> + bias -> raw output, with the optional
+// per-(image, channel) fp32 sum and sum of squares of that raw output.
 //
-// Replaces the TPU kernels of the fused encoder stages:
+// Replaces the TPU kernels of the fused encoder stem:
 //   raftstereo_tpu/ops/pallas_encoder.py `_stem7_kernel` (7x7 stride-1
-//   conv1 of the image, row 13), `_stem7s2_kernel` (7x7 stride 2, row 12);
-//   raftstereo_tpu/ops/pallas_layer2.py `_l2_conv_kernel` /
-//   `_l2_conv_res_kernel` (3x3 96->96, row 16).
-// (Rows 9 and 15, the stage's 3x3 convs and layer2's entry, run on the
-// tensor cores: csrc/enc_conv_tc.cu.)
+//   conv1 of the image, row 13), `_stem7s2_kernel` (7x7 stride 2, row 12).
+// (The stages' 3x3 convs, rows 9, 15 and 16, run on the tensor cores:
+// csrc/enc_conv_tc.cu.)
 // Function, NCHW, per output pixel and channel:
-//   y = bias + sum_{ci,dy,dx} w[ci,dy,dx,co] * t[ci, oy*S+dy-P, ox*S+dx-P]
-// where t is the prepped input, zero outside the image (the zero padding
-// lives in the PREPPED domain, since prep(0) = relu(shift) need not be 0):
-//   kNone     t = x                          (the raw image)
-//   kPrep     t = relu(x*s + t)              (norm apply + relu)
-//   kResProj  t = relu((r*rs + rt) + relu(x*s + t))       (row 16 res form:
-//                                             no relu on the projection)
-// with (s, t) the per-(image, channel) affine.  Statistics are of the fp32
-// output including the bias, per block in registers and shared memory,
+//   y = bias + sum_{ci,dy,dx} w[ci,dy,dx,co] * x[ci, oy*S+dy-P, ox*S+dx-P]
+// with x zero outside the image.  Statistics are of the fp32 output
+// including the bias, per block in registers and shared memory,
 // then one fixed-order reduction kernel over the blocks' partial sums: no
 // floating-point atomics, so two calls are bitwise equal, and no single
 // running sum over the 552,960 pixels of an image.
@@ -26,19 +18,18 @@
 // Design (a simple first form).  One block of 256 threads computes an
 // 8x32 tile of output pixels for 32 output channels; each thread holds 4
 // pixels (columns c, c+8, c+16, c+24 of one tile row) x 8 channels in
-// registers.  Input channels are walked in chunks: the chunk's prepped
-// input tile (with its halo) and weights are staged in shared memory, then
-// each (channel, tap) step costs a thread 4 scalar loads, 2 broadcast
-// 16-byte weight loads and 32 FMAs.  fp32 FMAs only (no tensor cores).
+// registers.  The image's 3 channels and their halo tile and the weights
+// are staged in shared memory, then each (channel, tap) step costs a
+// thread 4 scalar loads, 2 broadcast 16-byte weight loads and 32 FMAs.
+// fp32 FMAs only (no tensor cores).
 //
 // Bound on an H100 SXM (67 TFLOP/s fp32 outside the tensor cores, 3.35
 // TB/s): a 7x7 conv1 over a 576x960 image is 10.4 GFLOP against 28 MB
-// moved, so operations bound it (0.16 ms per image); the same holds for
-// layer2's 3x3 96->96 convs (22.9 GFLOP per 288x480 image, 0.34 ms).
-// What this design does about it: each input element is read from device
-// memory about once per block (plus halo) and reused from shared memory
-// across 32 output channels and 9 or 49 taps; the prep and the statistics
-// ride along, so a norm never costs its own pass over the tensor.
+// moved, so operations bound it (0.16 ms per image).  What this design
+// does about it: each input element is read from device memory about
+// once per block (plus halo) and reused from shared memory across 32
+// output channels and 49 taps; the statistics ride along, so the norm
+// after conv1 never costs its own pass over the tensor.
 
 #include <cuda_runtime.h>
 
@@ -51,15 +42,12 @@ constexpr int kCoutTile = 32;  // output channels per block
 constexpr int kPix = 4;        // output pixels per thread
 constexpr int kCo = 8;         // output channels per thread
 
-// Mode numbers shared with enc_conv_tc.cu (kRes = 2 is its own).
-enum Mode { kNone = 0, kPrep = 1, kResProj = 3 };
-
-// Input channels per shared-memory chunk, and the staged tile geometry.
-// Rows are padded to 8 mod 32 floats so the 4 tile rows a warp reads fall
-// in disjoint banks at stride 1.
+// Input channels per shared-memory chunk (the image's 3), and the staged
+// tile geometry.  Rows are padded to 8 mod 32 floats so the 4 tile rows a
+// warp reads fall in disjoint banks at stride 1.
 template <int KS, int S>
 struct Cfg {
-  static constexpr int kIn = KS == 7 ? 3 : 8;
+  static constexpr int kIn = 3;
   static constexpr int kInH = (kTileH - 1) * S + KS;
   static constexpr int kInW = (kTileW - 1) * S + KS;
   static constexpr int kInWP = ((kInW + 23) / 32) * 32 + 8;
@@ -67,11 +55,6 @@ struct Cfg {
 
 struct Args {
   const float* x;   // (B, Cin, H, W)
-  const float* xs;  // (B, Cin) prep scale, or null (kNone)
-  const float* xt;  // (B, Cin) prep shift
-  const float* r;   // (B, Cin, H, W) residual input (kResProj)
-  const float* rs;
-  const float* rt;
   const float* wt;  // (Cin, KS, KS, Cout)
   const float* bias;  // (Cout)
   float* y;         // (B, Cout, Ho, Wo)
@@ -79,20 +62,7 @@ struct Args {
   int cin, h, win, cout, ho, wo, tiles_w, nb;
 };
 
-__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
-
-template <int MODE>
-__device__ __forceinline__ float load_in(const Args& a, long off, int plane) {
-  const float v = __ldg(a.x + off);
-  if (MODE == kNone) return v;
-  const float u = relu(fmaf(v, __ldg(a.xs + plane), __ldg(a.xt + plane)));
-  if (MODE == kPrep) return u;
-  const float q =
-      fmaf(__ldg(a.r + off), __ldg(a.rs + plane), __ldg(a.rt + plane));
-  return relu(q + u);
-}
-
-template <int KS, int S, int MODE>
+template <int KS, int S>
 __global__ void __launch_bounds__(kThreads, 2)
 enc_conv_kernel(const Args a) {
   using C = Cfg<KS, S>;
@@ -125,11 +95,9 @@ enc_conv_kernel(const Args a) {
       const int rem = i - ci * (C::kInH * C::kInW);
       const int yy = rem / C::kInW, xx = rem - yy * C::kInW;
       const int c = c0 + ci, gy = iy0 + yy, gx = ix0 + xx;
-      float v = 0.f;  // outside the image (or past Cin): zero AFTER prep
-      if (c < a.cin && gy >= 0 && gy < a.h && gx >= 0 && gx < a.win) {
-        const int plane = b * a.cin + c;
-        v = load_in<MODE>(a, ((long)plane * a.h + gy) * a.win + gx, plane);
-      }
+      float v = 0.f;  // outside the image (or past Cin)
+      if (c < a.cin && gy >= 0 && gy < a.h && gx >= 0 && gx < a.win)
+        v = __ldg(a.x + ((long)(b * a.cin + c) * a.h + gy) * a.win + gx);
       s_in[(ci * C::kInH + yy) * C::kInWP + xx] = v;
     }
     for (int i = tid; i < C::kIn * kTaps * kCoutTile; i += kThreads) {
@@ -227,10 +195,10 @@ enc_conv_stats_kernel(const float* __restrict__ partials,
   if (lane == 0) stats[idx] = s;
 }
 
-template <int KS, int S, int MODE>
+template <int KS, int S>
 int launch(const Args& a, int batch, float* stats, cudaStream_t st) {
   const dim3 grid(a.nb, a.cout / kCoutTile, batch);
-  enc_conv_kernel<KS, S, MODE><<<grid, kThreads, 0, st>>>(a);
+  enc_conv_kernel<KS, S><<<grid, kThreads, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || stats == nullptr) return (int)e;
   const int ch2 = 2 * a.cout;
@@ -242,18 +210,17 @@ int launch(const Args& a, int batch, float* stats, cudaStream_t st) {
 
 }  // namespace
 
-// x, r (B, Cin, H, W); xs, xt, rs, rt (B, Cin); w (Cin, ks, ks, Cout);
-// bias (Cout); y (B, Cout, Ho, Wo) with Ho = (H + 2*(ks/2) - ks)/stride +
-// 1 (and Wo alike); partials (B, nb, 2, Cout) scratch and stats (B, 2,
-// Cout), both null without statistics, nb = ceil(Ho/8) * ceil(Wo/32).
-// All fp32 and contiguous; Cout a multiple of 32.  Supported (ks, stride,
-// mode): (7, 1|2, none), (3, 1, prep|res_proj).  Returns the CUDA error
-// code of the launches (0 on success).
-extern "C" int enc_conv_forward(
-    const float* x, const float* xs, const float* xt, const float* r,
-    const float* rs, const float* rt, const float* w, const float* bias,
-    float* y, float* partials, float* stats, int batch, int cin, int h,
-    int win, int cout, int ks, int stride, int mode, int nb, void* stream) {
+// x (B, Cin, H, W); w (Cin, ks, ks, Cout); bias (Cout); y (B, Cout, Ho,
+// Wo) with Ho = (H + 2*(ks/2) - ks)/stride + 1 (and Wo alike); partials
+// (B, nb, 2, Cout) scratch and stats (B, 2, Cout), both null without
+// statistics, nb = ceil(Ho/8) * ceil(Wo/32).  All fp32 and contiguous;
+// Cout a multiple of 32.  Supported (ks, stride): (7, 1|2).  Returns the
+// CUDA error code of the launches (0 on success).
+extern "C" int enc_conv_forward(const float* x, const float* w,
+                                const float* bias, float* y, float* partials,
+                                float* stats, int batch, int cin, int h,
+                                int win, int cout, int ks, int stride, int nb,
+                                void* stream) {
   const int pad = ks / 2;
   const int ho = (h + 2 * pad - ks) / stride + 1;
   const int wo = (win + 2 * pad - ks) / stride + 1;
@@ -262,16 +229,10 @@ extern "C" int enc_conv_forward(
       nb != ((ho + kTileH - 1) / kTileH) * tiles_w ||
       (stats == nullptr) != (partials == nullptr))
     return (int)cudaErrorInvalidValue;
-  const Args a{x,   xs, xt,  r,    rs, rt, w,       bias, y, partials,
-               cin, h,  win, cout, ho, wo, tiles_w, nb};
+  const Args a{x, w, bias, y, partials, cin, h, win, cout, ho, wo,
+               tiles_w, nb};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ks == 7 && mode == kNone) {
-    if (stride == 1) return launch<7, 1, kNone>(a, batch, stats, s);
-    if (stride == 2) return launch<7, 2, kNone>(a, batch, stats, s);
-  }
-  if (ks == 3 && stride == 1) {
-    if (mode == kPrep) return launch<3, 1, kPrep>(a, batch, stats, s);
-    if (mode == kResProj) return launch<3, 1, kResProj>(a, batch, stats, s);
-  }
+  if (ks == 7 && stride == 1) return launch<7, 1>(a, batch, stats, s);
+  if (ks == 7 && stride == 2) return launch<7, 2>(a, batch, stats, s);
   return (int)cudaErrorInvalidValue;
 }

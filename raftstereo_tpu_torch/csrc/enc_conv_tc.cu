@@ -9,41 +9,49 @@
 //   stage, row 9);
 //   raftstereo_tpu/ops/pallas_layer2.py `_l2_entry_kernel` (layer2's entry:
 //   the 3x3 stride-2 conv and the 1x1 stride-2 projection of the same
-//   input, both with their sums, row 15).
+//   input, both with their sums, row 15);
+//   raftstereo_tpu/ops/pallas_layer2.py `_l2_conv_kernel` /
+//   `_l2_conv_res_kernel` (layer2's 3x3 stride-1 96->96 convs, row 16).
 // Function, NCHW, per output pixel (oy, ox) and channel co:
 //   y  = bias + sum_{ci,dy,dx} w[co,ci,dy,dx] * t[ci, S*oy+dy-1, S*ox+dx-1]
 //   yp = bp + sum_ci wp[co,ci] * t[ci, 2*oy, 2*ox]      (row 15 only)
 // where t is the prepped input, zero outside the image: the zero padding
 // lives in the PREPPED domain, since prep(0) = relu(shift) need not be 0.
-//   kNone  t = x                                      (row 15: post-relu)
-//   kPrep  t = relu(x*s + t)                          (norm apply + relu)
-//   kRes   t = relu(relu(r*rs + rt) + relu(x*s + t))  (the block boundary)
+//   kNone     t = x                                   (row 15: post-relu)
+//   kPrep     t = relu(x*s + t)                       (norm apply + relu)
+//   kRes      t = relu(relu(r*rs + rt) + relu(x*s + t))  (row 9's block
+//                                                       boundary)
+//   kResProj  t = relu((r*rs + rt) + relu(x*s + t))   (row 16: no relu on
+//                                                       the projection)
 // with (s, t) per (image, channel), each product and sum rounded as the
 // plain version rounds them (no FMA contraction).  The sums are of the
 // fp32 output including the bias.
 //
 // Design.  An implicit GEMM: pixels x output channels, K = input channels
-// x taps.  A block of 8 warps computes an 8 x TW tile of output pixels
-// (TW 32 at stride 1, 16 at stride 2) for BN outputs (64 at stride 1, 96
-// at stride 2; Cout past a multiple of BN is zero-padded in the pack and
-// never stored).  K is walked in stages of 8 input channels, all 9 taps
-// per stage, through a ring of two shared-memory stages:
+// x taps.  A block of 8 warps computes an 8 x TW tile of output pixels for
+// BN outputs, one instance per conv (kInst below): row 9 8x32 pixels x 64
+// outputs; row 15 8x16 x 96 at stride 2; row 16 8x16 x 96 at stride 1, so
+// that its 96 outputs fill one tile with no column wasted (8x32 x 64 with
+// Cout padded to 128 does a third more products).  Cout past a multiple
+// of BN is zero-padded in the pack and never stored.  K is walked in
+// stages of 8 input channels, all 9 taps per stage, through a ring of two
+// shared-memory stages:
 //   - The input: each stage brings in the chunk's haloed input tile once,
 //     (TH+2) x (TW+2) at stride 1, (2TH+1) x (2TW+1) at stride 2 (with r's
-//     tile too in kRes).  Each thread copies its items' raw values with
-//     4-byte `cp.async` (any width, no alignment needed; zero past the
-//     image or Cin) while the stage before runs its products, then reads
-//     them back, preps them, zeroes every position outside the image or
-//     past Cin AFTER the prep, and splits each value into TF32 hi and lo
-//     planes: each input element is prepped, masked and split once, not
-//     once per tap.  The planes hold a pixel's 8 channels as one 32-byte
-//     row, its two 16-byte halves swapped where bit 2 of the pixel index
-//     is set, so that 8 consecutive pixels fall in 8 distinct bank groups
-//     for `ldmatrix` and for the 16-byte stores.  At stride 2 the tile is
-//     stored as its four (row, column) parity planes, so that a tap's
-//     window is again 16 consecutive pixels of one plane.  (TMA, as row 2
-//     takes it, cannot zero in the prepped domain and needs rows of whole
-//     16-byte units, which odd widths are not.)
+//     tile too in kRes and kResProj).  Each thread copies its items' raw
+//     values with 4-byte `cp.async` (any width, no alignment needed; zero
+//     past the image or Cin) while the stage before runs its products,
+//     then reads them back, preps them, zeroes every position outside the
+//     image or past Cin AFTER the prep, and splits each value into TF32 hi
+//     and lo planes: each input element is prepped, masked and split once,
+//     not once per tap.  The planes hold a pixel's 8 channels as one
+//     32-byte row, its two 16-byte halves swapped where bit 2 of the pixel
+//     index is set, so that 8 consecutive pixels fall in 8 distinct bank
+//     groups for `ldmatrix` and for the 16-byte stores.  At stride 2 the
+//     tile is stored as its four (row, column) parity planes, so that a
+//     tap's window is again 16 consecutive pixels of one plane.  (TMA, as
+//     row 2 takes it, cannot zero in the prepped domain and needs rows of
+//     whole 16-byte units, which odd widths are not.)
 //   - The weights: the pack (ops/cuda_encoder.py `tc_pack`) holds each
 //     stage's tap blocks exactly as they lie in shared memory (per tap the
 //     hi and lo TF32 planes of BN rows of 8 channels, with the same swap),
@@ -52,7 +60,8 @@
 //     A fragments by `ldmatrix` (rows = 16 consecutive output pixels of
 //     one output row at the tap's offset), B fragments by `ldmatrix`.
 // Warps are 4 (pixels) x 2 (outputs); each owns (16*MT) x (8*NT) fp32
-// accumulators (MT 4, NT 4 at stride 1; MT 2, NT 6 at stride 2).  Row
+// accumulators (MT 4, NT 4 for row 9; MT 2, NT 6 for rows 15 and 16: MT 4
+// with NT 6 would hold 96 running and 96 fresh sums, which spilled).  Row
 // 15's projection runs after the conv's epilogue, in the conv's freed
 // registers: the tile's centre pixels (input (2*oy, 2*ox)) of 8 stages at
 // a time and the pack's projection blocks, copied while the conv's
@@ -86,13 +95,16 @@
 // a 3x3 64->64 conv over a 576x960 image is 40.8 GFLOP of products
 // against 283 MB moved, so operations bound it: 0.25 ms per image as
 // 3xTF32 (0.61 ms on the CUDA cores); row 15 at the same input is 17 GFLOP
-// with its projection, 0.10 ms per image.  What holds this design back
-// from that: `mma.sync` issues from the warps at a fraction of `wgmma`'s
-// rate; one `ldmatrix` per plane per fragment (hi and lo) is about one
-// shared-memory wavefront per mma; each stage's fill (read back, prep,
-// mask, split) runs between two barriers while the tensor cores wait;
-// one block per SM (8 warps) hides little latency; every block copies the
-// whole weight pack from L2 (295 KB at 64->64).
+// with its projection, 0.10 ms per image; row 16, a 3x3 96->96 conv over
+// a 288x480 image, 22.9 GFLOP, 0.14 ms per image (0.34 ms on the CUDA
+// cores).  What holds the three instances back from that: `mma.sync`
+// issues from the warps at a fraction of `wgmma`'s rate; one `ldmatrix`
+// per plane per fragment (hi and lo) is about one shared-memory wavefront
+// per mma; each stage's fill (read back, prep, mask, split) runs between
+// two barriers while the tensor cores wait; one block per SM (8 warps)
+// hides little latency; every block copies the whole weight pack from L2
+// (295 KB at 64->64, 664 KB at 96->96), and rows 15 and 16's 8x16 tiles
+// take it twice as often per pixel as row 9's 8x32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -105,7 +117,12 @@ constexpr int kTH = 8;          // output rows per block
 constexpr int kKC = 8;          // input channels per stage
 constexpr int kRow = 4 * kKC;   // bytes of a pixel's or an output's stage row
 
-enum Mode { kNone = 0, kPrep = 1, kRes = 2 };
+enum Mode { kNone = 0, kPrep = 1, kRes = 2, kResProj = 3 };
+
+// Modes that read the residual input r beside x.
+__host__ __device__ constexpr bool has_res(int mode) {
+  return mode == kRes || mode == kResProj;
+}
 
 template <int S, int MT, int NT, bool PROJ>
 struct Geo {
@@ -127,7 +144,7 @@ struct Geo {
   static constexpr int kItems = 2 * RH * RW;
   static constexpr int kIPT = (kItems + kThreads - 1) / kThreads;
   // the raw values in flight: 16 bytes per item slot and thread, for x
-  // (and as much again for r in kRes)
+  // (and as much again for r in kRes and kResProj)
   static constexpr int kRawBytes = kIPT * kThreads * 16;
   static constexpr int kSmem = 2 * kStageBytes + kRawBytes;
   // The projection phase (row 15), kPG stages at a time, after the block
@@ -149,9 +166,9 @@ struct Geo {
 
 struct Args {
   const float* x;     // (B, Cin, H, W)
-  const float* xs;    // (B, Cin) prep scale (kPrep, kRes)
+  const float* xs;    // (B, Cin) prep scale (all modes but kNone)
   const float* xt;    // (B, Cin) prep shift
-  const float* r;     // (B, Cin, H, W) residual input (kRes)
+  const float* r;     // (B, Cin, H, W) residual input (kRes, kResProj)
   const float* rs;
   const float* rt;
   const float* w;     // pack (n tiles, stages, taps, 2, BN, 8), see tc_pack
@@ -268,10 +285,11 @@ enc_conv_tc_kernel(const Args a) {
   const float* wsrc = a.w + (long)blockIdx.y * a.nchunk * G::kPackFloats;
 
   // ---- stage fill: item it = (channel quad q, raw tile pixel p).  Each
-  // thread copies its items' raw values (x, and r in kRes) into its own
-  // 16-byte slots with `cp.async` (zeros past the image or Cin), and after
-  // the products of the stage before reads them back from its own slots:
-  // its own copies need only its own wait, no barrier.  The item index is
+  // thread copies its items' raw values (x, and r with a residual) into
+  // its own 16-byte slots with `cp.async` (zeros past the image or Cin),
+  // and after the products of the stage before reads them back from its
+  // own slots: its own copies need only its own wait, no barrier.  The
+  // item index is
   // made opaque to the compiler, so that it recomputes the item's indices
   // each stage instead of holding them in registers through the loop
   // (which spilled).
@@ -303,7 +321,7 @@ enc_conv_tc_kernel(const Args a) {
             ok ? (((long)b * a.cin + c) * a.h + iy0 + lr) * a.win + ix0 + lc
                : 0;
         cp_async4(slot + 4 * e, a.x + off, ok);
-        if constexpr (MODE == kRes)
+        if constexpr (has_res(MODE))
           cp_async4(slot + G::kRawBytes + 4 * e, a.r + off, ok);
       }
     }
@@ -319,7 +337,7 @@ enc_conv_tc_kernel(const Args a) {
       const uint32_t slot = raw + (s * kThreads + tid) * 16;
       const float4 x4 = ld_shared_v4(slot);
       float4 r4 = x4;
-      if constexpr (MODE == kRes) r4 = ld_shared_v4(slot + G::kRawBytes);
+      if constexpr (has_res(MODE)) r4 = ld_shared_v4(slot + G::kRawBytes);
       const float rx[4] = {x4.x, x4.y, x4.z, x4.w};
       const float rr[4] = {r4.x, r4.y, r4.z, r4.w};
       uint32_t hi[4], lo[4];
@@ -333,10 +351,10 @@ enc_conv_tc_kernel(const Args a) {
             const int plane = b * a.cin + c;
             v = relu(__fadd_rn(__fmul_rn(v, __ldg(a.xs + plane)),
                                __ldg(a.xt + plane)));
-            if constexpr (MODE == kRes) {
-              const float u = relu(__fadd_rn(
-                  __fmul_rn(rr[e], __ldg(a.rs + plane)),
-                  __ldg(a.rt + plane)));
+            if constexpr (has_res(MODE)) {
+              float u = __fadd_rn(__fmul_rn(rr[e], __ldg(a.rs + plane)),
+                                  __ldg(a.rt + plane));
+              if constexpr (MODE == kRes) u = relu(u);
               v = relu(__fadd_rn(u, v));
             }
           }
@@ -631,7 +649,7 @@ template <int S, int MODE, bool PROJ, int MT, int NT>
 int launch(const Args& a, int batch, float* stats, cudaStream_t st) {
   using G = Geo<S, MT, NT, PROJ>;
   auto kernel = enc_conv_tc_kernel<S, MODE, PROJ, MT, NT>;
-  const int smem = G::kSmem + (MODE == kRes ? G::kRawBytes : 0);
+  const int smem = G::kSmem + (has_res(MODE) ? G::kRawBytes : 0);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -646,8 +664,22 @@ int launch(const Args& a, int batch, float* stats, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// The instances: (stride, projection) -> (MT, NT).
-constexpr int kMT1 = 4, kNT1 = 4, kMT2 = 2, kNT2 = 6;
+// The instances, by id: (stride, MT, NT).  Output columns per block 8*MT,
+// outputs per block 16*NT.
+struct Inst {
+  int stride, mt, nt;
+};
+constexpr Inst kInst[3] = {
+    {1, 4, 4},  // 0: row 9, the stem + layer1 stage's convs (prep, res)
+    {2, 2, 6},  // 1: row 15, layer2's entry (none, with the projection)
+    {1, 2, 6},  // 2: row 16, layer2's convs (prep, res_proj)
+};
+
+template <int I, int MODE, bool PROJ>
+int launch_inst(const Args& a, int batch, float* stats, cudaStream_t st) {
+  return launch<kInst[I].stride, MODE, PROJ, kInst[I].mt, kInst[I].nt>(
+      a, batch, stats, st);
+}
 
 }  // namespace
 
@@ -657,35 +689,38 @@ constexpr int kMT1 = 4, kNT1 = 4, kMT2 = 2, kNT2 = 6;
 // partials (B, nb, 2, CH) scratch and stats (B, 2, CH), both null without
 // statistics, CH = Cout (2*Cout with the projection, its channels last),
 // nb = ceil(Ho/8) * ceil(Wo/tile width).  All fp32 and contiguous; Cout a
-// multiple of 32, any Cin.  Supported: stride 1, mode prep or res, no
-// projection (tile width 32, bn 64); stride 2, mode none, with the
-// projection (tile width 16, bn 96).  Returns the CUDA error code of the
-// launches (0 on success).
+// multiple of 32, any Cin.  `inst` picks the instance of kInst (its
+// stride, tile width and bn, which must match `bn`); supported (instance,
+// mode): (0, prep|res), (1, none) with the projection, (2, prep|res_proj).
+// Returns the CUDA error code of the launches (0 on success).
 extern "C" int enc_conv_tc_forward(
     const float* x, const float* xs, const float* xt, const float* r,
     const float* rs, const float* rt, const float* w, const float* bias,
     const float* bp, float* y, float* yp, float* partials, float* stats,
-    int batch, int cin, int h, int win, int cout, int stride, int mode,
+    int batch, int cin, int h, int win, int cout, int inst, int mode,
     int nb, int bn, void* stream) {
-  const int ho = (h - 1) / stride + 1, wo = (win - 1) / stride + 1;
-  const int tw = stride == 1 ? 8 * kMT1 : 8 * kMT2;
-  const int tiles_w = (wo + tw - 1) / tw;
+  if (inst < 0 || inst > 2) return (int)cudaErrorInvalidValue;
+  const Inst in = kInst[inst];
+  const int ho = (h - 1) / in.stride + 1, wo = (win - 1) / in.stride + 1;
+  const int tiles_w = (wo + 8 * in.mt - 1) / (8 * in.mt);
   const bool proj = bp != nullptr;
   if (batch < 1 || cin < 1 || h < 1 || win < 1 || cout % 32 != 0 ||
       nb != ((ho + kTH - 1) / kTH) * tiles_w ||
       (stats == nullptr) != (partials == nullptr) ||
-      bn != (stride == 1 ? kWarpsN * 8 * kNT1 : kWarpsN * 8 * kNT2))
+      bn != kWarpsN * 8 * in.nt || proj != (inst == 1))
     return (int)cudaErrorInvalidValue;
   const Args a{x, xs, xt, r, rs, rt, w, bias, bp, y, yp, partials,
                cin, h, win, cout, ho, wo, tiles_w, nb, (cin + kKC - 1) / kKC};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stride == 1 && !proj) {
-    if (mode == kPrep)
-      return launch<1, kPrep, false, kMT1, kNT1>(a, batch, stats, s);
-    if (mode == kRes)
-      return launch<1, kRes, false, kMT1, kNT1>(a, batch, stats, s);
-  }
-  if (stride == 2 && mode == kNone && proj)
-    return launch<2, kNone, true, kMT2, kNT2>(a, batch, stats, s);
+  if (inst == 0 && mode == kPrep)
+    return launch_inst<0, kPrep, false>(a, batch, stats, s);
+  if (inst == 0 && mode == kRes)
+    return launch_inst<0, kRes, false>(a, batch, stats, s);
+  if (inst == 1 && mode == kNone)
+    return launch_inst<1, kNone, true>(a, batch, stats, s);
+  if (inst == 2 && mode == kPrep)
+    return launch_inst<2, kPrep, false>(a, batch, stats, s);
+  if (inst == 2 && mode == kResProj)
+    return launch_inst<2, kResProj, false>(a, batch, stats, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,8 +17,10 @@ window dot products the pixel needs.
 
 The backward replaces ``_alt_pyr_bwd_kernel`` of the same file, with the
 radial taps of ``_make_alt_pyr_radial``'s VJP: bytes bound (about 521 MB
-per call at the training shapes, about 0.16 ms); deterministic, with no
-floating-point atomics (see the source's note).
+per call at the training shapes, about 0.16 ms); one block of 32 warps
+per image row and 128-channel slice, which re-reads its slice of the
+row's fmaps through L1; deterministic, with no floating-point atomics
+(see the source's note).
 
 The forward takes fp32 or bf16 feature maps and emits fp32 or bf16
 features (``out_dtype``), accumulating in fp32 and rounding once; the

@@ -1,12 +1,11 @@
 """The fused encoder stages' kernels: ``csrc/enc_conv_tc.cu`` (the 3x3
-convs of layer1 and layer2's entry on the tensor cores, 3xTF32),
-``csrc/enc_conv.cu`` (the 7x7 stems and layer2's 3x3 convs on the CUDA
-cores), both prep -> convolution -> + bias with per-(image, channel)
-output sums, ``csrc/enc_stats.cu`` (the plane sums of a tensor, and the
-two sums of the instance-norm backward) and ``csrc/enc_finish.cu`` (the
-stages' last elementwise pass), their plain PyTorch versions, and one
-wrapper per TPU kernel they replace, each with its own ``launches``
-count:
+convs of layer1 and layer2 on the tensor cores, 3xTF32: prep ->
+convolution -> + bias), ``csrc/enc_conv.cu`` (the 7x7 stems on the CUDA
+cores), both with per-(image, channel) output sums, ``csrc/enc_stats.cu``
+(the plane sums of a tensor, and the two sums of the instance-norm
+backward) and ``csrc/enc_finish.cu`` (the stages' last elementwise pass),
+their plain PyTorch versions, and one wrapper per TPU kernel they
+replace, each with its own ``launches`` count:
 
 =====================  ==================================================
 wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
@@ -22,7 +21,7 @@ wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
 ``l2_entry``           row 15, ``pallas_layer2.py`` ``_l2_entry_kernel``
                        (``enc_conv_tc.cu``)
 ``l2_conv``            row 16, ``pallas_layer2.py`` ``_l2_conv_kernel``,
-                       ``_l2_conv_res_kernel``
+                       ``_l2_conv_res_kernel`` (``enc_conv_tc.cu``)
 ``l2_finish``          row 17, ``pallas_layer2.py`` ``_l2_finish_kernel``
 =====================  ==================================================
 
@@ -58,18 +57,20 @@ Affine = Tuple[torch.Tensor, torch.Tensor]
 _TILE_H, _TILE_W, _COUT_TILE = 8, 32, 32
 _NONE, _PREP, _RES, _RES_PROJ = 0, 1, 2, 3
 # enc_conv_tc.cu's geometry: output rows per block (kTH), input channels
-# per stage (kKC), and per stride the output columns and the outputs per
-# block (8*MT, 16*NT of its two instances).
+# per stage (kKC), and its instances (kInst) by wrapper: (instance id,
+# stride, output columns per block 8*MT, outputs per block 16*NT).
 TC_TILE_H, TC_STAGE = 8, 8
-TC_TILES = {1: (32, 64), 2: (16, 96)}
+TC_INSTANCES = {"stage_conv": (0, 1, 32, 64), "l2_entry": (1, 2, 16, 96),
+                "l2_conv": (2, 1, 16, 96)}
 
 
-def tc_geometry(h: int, w: int, stride: int):
-    """The tensor-core conv's launch geometry for an (h, w) input: the
-    output (ho, wo), output columns per block, outputs per block, and
-    blocks per image ``nb`` (8-row tiles; the last tile of each axis
-    overhangs the output and its pixels there are never stored)."""
-    tw, bn = TC_TILES[stride]
+def tc_geometry(h: int, w: int, instance: str):
+    """The tensor-core conv's launch geometry for an (h, w) input to the
+    instance of wrapper ``instance``: the output (ho, wo), output columns
+    per block, outputs per block, and blocks per image ``nb`` (8-row
+    tiles; the last tile of each axis overhangs the output and its pixels
+    there are never stored)."""
+    _, stride, tw, bn = TC_INSTANCES[instance]
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     return ho, wo, tw, bn, -(-ho // TC_TILE_H) * -(-wo // tw)
 
@@ -177,12 +178,13 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _conv_cuda(name, x, weight, bias, stride, mode, aff=None, res=None,
-               res_aff=None, proj=None, want_stats=True, tc=False):
-    """One launch: ``enc_conv_tc_forward`` with ``tc`` (the 3x3 convs of
-    rows 9 and 15, weights as ``tc_pack``; ``proj`` the projection's
-    (weight, bias)), else ``enc_conv_forward``.  Returns (y, yp or None,
-    stats (B, 2, CH) or None)."""
+def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
+               res_aff=None, proj=None, want_stats=True):
+    """One launch of wrapper ``name``'s kernel: ``enc_conv_tc_forward``
+    for the tensor-core instances (``TC_INSTANCES``: the 3x3 convs of rows
+    9, 15 and 16, weights as ``tc_pack``; ``proj`` the projection's
+    (weight, bias)), else ``enc_conv_forward`` (the 7x7 stems, raw
+    image).  Returns (y, yp or None, stats (B, 2, CH) or None)."""
     cout, cin, ks, _ = weight.shape
     b, c, h, wd = x.shape
     if c != cin or cout % _COUT_TILE:
@@ -198,10 +200,13 @@ def _conv_cuda(name, x, weight, bias, stride, mode, aff=None, res=None,
                          f"{tuple(x.shape)}")
     bias = bias.detach().contiguous()
     bp = None if proj is None else proj[1].detach().contiguous()
+    tc = name in TC_INSTANCES
     if tc:
-        if ks != 3:
-            raise ValueError(f"{name}: a {ks}x{ks} kernel; this conv is 3x3")
-        ho, wo, _, bn, nb = tc_geometry(h, wd, stride)
+        inst, inst_stride = TC_INSTANCES[name][:2]
+        if ks != 3 or stride != inst_stride:
+            raise ValueError(f"{name}: a {ks}x{ks} stride-{stride} kernel; "
+                             f"this conv is 3x3 stride {inst_stride}")
+        ho, wo, _, bn, nb = tc_geometry(h, wd, name)
         w = tc_pack(weight, None if proj is None else proj[0], bn)
     else:
         pad = ks // 2
@@ -219,16 +224,15 @@ def _conv_cuda(name, x, weight, bias, stride, mode, aff=None, res=None,
         partials = torch.empty((b, nb, 2, ch), dtype=torch.float32,
                                device=dev)
         stats = torch.empty((b, 2, ch), dtype=torch.float32, device=dev)
-    ptrs = [_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
-            _ptr(w), _ptr(bias)]
     if tc:
         fn = _build.load("enc_conv_tc").enc_conv_tc_forward
-        ptrs += [_ptr(bp), _ptr(y), _ptr(yp)]
-        ints = [b, cin, h, wd, cout, stride, mode, nb, bn]
+        ptrs = [_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
+                _ptr(w), _ptr(bias), _ptr(bp), _ptr(y), _ptr(yp)]
+        ints = [b, cin, h, wd, cout, inst, mode, nb, bn]
     else:
         fn = _build.load("enc_conv").enc_conv_forward
-        ptrs += [_ptr(y)]
-        ints = [b, cin, h, wd, cout, ks, stride, mode, nb]
+        ptrs = [_ptr(x), _ptr(w), _ptr(bias), _ptr(y)]
+        ints = [b, cin, h, wd, cout, ks, stride, nb]
     ptrs += [_ptr(partials), _ptr(stats)]
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
@@ -253,7 +257,7 @@ def stem_conv7(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     raw image: ``(y, sums or None)`` (row 13)."""
     if _on_cpu(img, weight, bias):
         return conv_plain(img, weight, bias, 1, want_stats=want_stats)
-    y, _, st = _conv_cuda("stem_conv7", img, weight, bias, 1, _NONE,
+    y, _, st = _conv_cuda("stem_conv7", img, weight, bias, 1,
                           want_stats=want_stats)
     stem_conv7.launches += 1
     return y, _sums(st, 0, y.shape[1])
@@ -265,7 +269,7 @@ def stem_conv7_s2(img: torch.Tensor, weight: torch.Tensor,
     2i-3 .. 2i+3; ``(y, sums or None)`` (row 12)."""
     if _on_cpu(img, weight, bias):
         return conv_plain(img, weight, bias, 2, want_stats=want_stats)
-    y, _, st = _conv_cuda("stem_conv7_s2", img, weight, bias, 2, _NONE,
+    y, _, st = _conv_cuda("stem_conv7_s2", img, weight, bias, 2,
                           want_stats=want_stats)
     stem_conv7_s2.launches += 1
     return y, _sums(st, 0, y.shape[1])
@@ -282,7 +286,7 @@ def stage_conv(x: torch.Tensor, aff: Affine, weight: torch.Tensor,
                           want_stats=want_stats)
     y, _, st = _conv_cuda("stage_conv", x, weight, bias, 1,
                           _PREP if res is None else _RES, aff, res, res_aff,
-                          want_stats=want_stats, tc=True)
+                          want_stats=want_stats)
     stage_conv.launches += 1
     return y, _sums(st, 0, y.shape[1])
 
@@ -315,9 +319,9 @@ def l2_entry(t: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if proj_weight.shape != weight.shape[:2] + (1, 1):
         raise ValueError(f"l2_entry: projection {tuple(proj_weight.shape)}"
                          f" is not 1x1 of {tuple(weight.shape[:2])}")
-    y, yp, st = _conv_cuda("l2_entry", t, weight, bias, 2, _NONE,
+    y, yp, st = _conv_cuda("l2_entry", t, weight, bias, 2,
                            proj=(proj_weight, proj_bias),
-                           want_stats=want_stats, tc=True)
+                           want_stats=want_stats)
     l2_entry.launches += 1
     c = y.shape[1]
     return y, yp, _sums(st, 0, c), _sums(st, c, 2 * c)

@@ -1,6 +1,6 @@
-"""Rows 9 and 15 (the fused encoder's 3x3 convs: ``stage_conv`` and
-``l2_entry``) of one checkout of the PyTorch port, on the card, for A/B
-comparisons of two trees in one call:
+"""Rows 9, 15 and 16 (the fused encoder's 3x3 convs: ``stage_conv``,
+``l2_entry`` and ``l2_conv``) of one checkout of the PyTorch port, on the
+card, for A/B comparisons of two trees in one call:
 
     python3 scripts/ab_enc_conv.py ROOT [--report] [--profile]
 
@@ -8,13 +8,16 @@ ROOT is a checkout (or ``git archive``) holding ``raftstereo_tpu_torch``;
 its kernels build under ROOT.  Prints one line per tree: each row's
 CUDA-event time (``chip_smoke.time_ms``, from this script's checkout) at
 the fused serving shapes (fnet 2x64x576x960 with sums, cnet 1 image
-without; the residual form of row 9 with sums) and the fused training
-shapes (fnet 12x64x320x720 with sums, cnet 6 images without), each with
-its largest error against the plain version, relative to max(1, |plain|)
-(sums per pixel, as ``chip_smoke.hold``).  ``--report`` prints the ptxas
-report (registers, shared memory, spills) of the encoder conv libraries
-first, ``--profile`` each call's kernels by device time.  Run parent,
-change, change, parent in one call and compare within it.
+without; the residual form of row 9 with sums; row 16 at layer2's
+2x96x288x480, its res_proj form too) and the fused training shapes (fnet
+12x64x320x720 with sums, cnet 6 images without; row 16 at 12x96x160x360,
+both forms), each with its largest error against the plain version,
+relative to max(1, |plain|) (sums per pixel, as ``chip_smoke.hold``),
+and beside row 16 one ``F.conv2d`` of the same input and weights.
+``--report`` prints the ptxas report (registers, shared memory, spills)
+of the encoder conv libraries first, ``--profile`` each call's kernels
+by device time.  Run parent, change, change, parent in one call and
+compare within it.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ def main() -> int:
     sys.path.insert(0, root)
     sys.path.insert(1, HERE)
     import torch
+    import torch.nn.functional as F
 
     import chip_smoke
     from raftstereo_tpu_torch.device import fp32_numerics
@@ -84,6 +88,7 @@ def main() -> int:
     wc, bc = randn(64, 64, 3, 3, scale=(2 / 576) ** 0.5), randn(64, scale=0.1)
     we, be = randn(96, 64, 3, 3, scale=(2 / 576) ** 0.5), randn(96, scale=0.1)
     wp, bp = randn(96, 64, 1, 1, scale=(2 / 64) ** 0.5), randn(96, scale=0.1)
+    wl, bl = randn(96, 96, 3, 3, scale=(2 / 864) ** 0.5), randn(96, scale=0.1)
     out = []
     for path, b, (h, w) in (("serve", 2, (576, 960)),
                             ("train", 12, (320, 720))):
@@ -112,6 +117,22 @@ def main() -> int:
                           lambda: ce.stage_conv(x, a, wc, bc, res=r,
                                                 res_aff=ra),
                           lambda: ce.conv_plain(x, wc, bc, 1, a, r, ra)))
+        h2, w2 = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        y, yp = randn(b, 96, h2, w2), randn(b, 96, h2, w2)
+        ay, ayp = aff(b, 96), aff(b, 96)
+        y1 = y[:half].contiguous()
+        ay1 = (ay[0][:half].contiguous(), ay[1][:half].contiguous())
+        cases += [
+            (f"row16 {b}x96x{h2}x{w2}", n2,
+             lambda: ce.l2_conv(y, ay, wl, bl),
+             lambda: ce.conv_plain(y, wl, bl, 1, ay)),
+            (f"row16 {half}x96 no sums", n2,
+             lambda: ce.l2_conv(y1, ay1, wl, bl, want_stats=False),
+             lambda: ce.conv_plain(y1, wl, bl, 1, ay1, want_stats=False)),
+            (f"row16 res {b}x96", n2,
+             lambda: ce.l2_conv(y, ay, wl, bl, res=yp, res_aff=ayp),
+             lambda: ce.conv_plain(y, wl, bl, 1, ay, yp, ayp,
+                                   res_relu=False))]
         for label, npix, kern, plain in cases:
             got, want = _leaves(kern()), _leaves(plain())
             torch.cuda.synchronize()
@@ -123,6 +144,9 @@ def main() -> int:
                           / max(1.0, float(p.abs().max())))
             ms = chip_smoke.time_ms(kern, 5)
             out.append(f"{label} ms {ms:.4f} err {err:.2e}")
+            if label.startswith(f"row16 {b}x"):
+                lib = chip_smoke.time_ms(lambda: F.conv2d(y, wl, bl, 1, 1), 5)
+                out.append(f"row16 F.conv2d ms {lib:.4f}")
             if args.profile:
                 cuda = torch.profiler.ProfilerActivity.CUDA
                 with torch.profiler.profile(activities=[cuda]) as prof:
@@ -132,7 +156,7 @@ def main() -> int:
                     f"{_short(ev.name)} {ev.device_time_total / 1e3:.3f}"
                     for ev in prof.events()
                     if ev.device_type == torch.autograd.DeviceType.CUDA))
-        del x, r, t, x1, t1
+        del x, r, t, x1, t1, y, yp, y1
         torch.cuda.empty_cache()
     print(f"{root} [{torch.cuda.get_device_name(0)}] " + " | ".join(out),
           flush=True)

@@ -7,13 +7,17 @@ repo's conftest:
         tests/test_torch_port_cuda.py
 """
 
+import ctypes
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig
-from raftstereo_tpu_torch.ops import (cuda_alt, cuda_encoder, cuda_gru,
-                                     cuda_vol, quant)
+from raftstereo_tpu_torch.ops import (_build, cuda_alt, cuda_encoder,
+                                     cuda_gru, cuda_vol, quant)
 from raftstereo_tpu_torch.ops.corr import build_corr_state
 
 pytestmark = pytest.mark.cuda
@@ -145,6 +149,99 @@ def test_alt_corr_backward_kernel_matches_plain(dev, shape, levels, radius):
         # sums of ~40-200 products of O(1) terms, in another order.
         torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-4,
                                    equal_nan=True)
+
+
+@pytest.fixture(scope="module")
+def first_form_bwd(tmp_path_factory):
+    """The first form of row 4's kernel (``tests/cuda_ref/
+    alt_corr_bwd_first.cu``), built with the port's nvcc flags."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    src = Path(__file__).parent / "cuda_ref" / "alt_corr_bwd_first.cu"
+    out = tmp_path_factory.mktemp("first_form") / "libalt_corr_bwd_first.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).alt_corr_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_long]
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                           ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_void_p])
+
+    def run(st, x, g, radius):
+        b, h, w1, c = st.fmap1.shape
+        df1, df2 = torch.empty_like(st.fmap1), torch.empty_like(st.f2cat)
+        nlev = len(st.widths)
+        ints = ctypes.c_int * nlev
+        rc = fn(st.fmap1.data_ptr(), st.f2cat.data_ptr(), x.data_ptr(),
+                g.data_ptr(), df1.data_ptr(), df2.data_ptr(), b * h, w1,
+                st.f2cat.shape[2], c, radius, 1.0 / float(c) ** 0.5, nlev,
+                ints(*[sum(st.widths[:i]) for i in range(nlev)]),
+                ints(*st.widths),
+                torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        return df1, df2
+
+    return run
+
+
+def _same_bits(a, b):
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))
+
+
+# Row 4 at the channel widths, radii and row widths it takes: C 128, 256,
+# 512 (one, two and four 128-channel slices); radius 1 and 8; W1 180 (the
+# recipe), 312 (evaluation-width crops) and 1320 (the widest row whose
+# tables fit in shared memory at 4 levels of radius 4, as in the first
+# form).
+ROW4_CASES = [
+    pytest.param((1, 8, 180), 256, 4, 4, id="recipe_w180_c256"),
+    pytest.param((2, 3, 180), 128, 4, 1, id="w180_c128_r1"),
+    pytest.param((1, 4, 180), 512, 4, 8, id="w180_c512_r8"),
+    pytest.param((1, 6, 312), 256, 4, 4, id="w312_c256"),
+    pytest.param((1, 2, 312), 512, 4, 8, id="w312_c512_r8"),
+    pytest.param((1, 2, 1320), 128, 4, 4, id="widest_w1320_c128"),
+    pytest.param((1, 2, 1320), 512, 4, 1, id="widest_w1320_c512_r1")]
+
+
+@pytest.mark.parametrize("shape,c,levels,radius", ROW4_CASES)
+def test_alt_corr_backward_every_form_matches_plain_and_first_form(
+        dev, first_form_bwd, shape, c, levels, radius):
+    """Row 4 at each of these shapes: within the plain version's tolerance
+    where that is finite, NaN where it is not (a NaN coordinate poisons
+    its pixel's df1 and its row's columns; an infinite cotangent its
+    pixel's df1 and one level's columns, where the plain version's dense
+    hat gives +-inf on the two columns the tap weights and NaN on the
+    others), two calls bitwise equal, and bitwise equal to the first form
+    of the kernel (the same summation order)."""
+    b, h, w = shape
+    rng = np.random.default_rng(w + c + radius)
+    st = build_corr_state(_randn(rng, b, h, w, c).to(dev),
+                          _randn(rng, b, h, w, c).to(dev), levels)
+    x = np.arange(w, dtype=np.float32) + rng.uniform(-w / 3, 10, (b, h, w))
+    x[0, 0, :3] = [-200.5, w + 200.25, 1e6]
+    x[-1, -1, -1] = np.nan
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    g = _randn(rng, b, h, w, levels * (2 * radius + 1))
+    g[0, -1, 1, 2 * radius + 1] = float("inf")   # level 1 of the last row
+    g = g.to(dev)
+    before = cuda_alt.alt_corr_backward.launches
+    k1 = cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x, g,
+                                    radius)
+    k2 = cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x, g,
+                                    radius)
+    assert cuda_alt.alt_corr_backward.launches == before + 2
+    first = first_form_bwd(st, x, g, radius)
+    want = cuda_alt.alt_corr_backward_plain(st.fmap1, st.f2cat, st.widths, x,
+                                            g, radius)
+    torch.cuda.synchronize()
+    for a, a2, f, w in zip(k1, k2, first, want):
+        assert _same_bits(a, a2) and _same_bits(a, f)
+        ok = torch.isfinite(w)
+        assert torch.equal(a.isnan(), ~ok) and bool(a.isnan().any())
+        scale = max(1.0, float(w[ok].abs().max()))
+        assert float((a[ok] - w[ok]).abs().max()) <= 1e-4 * scale
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -353,6 +450,43 @@ def test_tensor_core_conv_kernels_match_plain(dev, monkeypatch, b, h, w):
             assert len(_leaves(k1)) == len(_leaves(want)) == (
                 (3 if fn is cuda_encoder.stage_conv else 6) if ws else
                 (1 if fn is cuda_encoder.stage_conv else 2))
+            _assert_kernel(k1, k2, want)
+
+
+@pytest.mark.parametrize("b,h,w", TC_CASES)
+def test_l2_conv_tensor_core_kernel_matches_plain(dev, monkeypatch, b, h, w):
+    """Row 16 (layer2's 3x3 96->96 conv, 8x16 x 96 tiles) in its prep and
+    res_proj forms (no relu on the projection term), with and without
+    sums, at the hostile widths: two calls bitwise equal, one launch each,
+    the plain versions patched to raise while the kernel runs."""
+    rng = np.random.default_rng(200 + w)
+    x = _randn(rng, b, 96, h, w)
+    x[:, 0] = 0.25
+    x = x.to(dev)
+    p = _randn(rng, b, 96, h, w).to(dev)
+    aff, paff = _aff(rng, dev, b, 96, const=True), _aff(rng, dev, b, 96)
+    wt, bias = _wb(rng, dev, 96, 96, 3)
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    fn = cuda_encoder.l2_conv
+    for kw in ({}, dict(res=p, res_aff=paff)):
+        for ws in (True, False):
+            want = fn(x.cpu(), tuple(a.cpu() for a in aff), wt.cpu(),
+                      bias.cpu(), want_stats=ws,
+                      **{k: (v.cpu() if isinstance(v, torch.Tensor)
+                             else tuple(a.cpu() for a in v))
+                         for k, v in kw.items()})
+            with monkeypatch.context() as m:
+                for name in ("conv_plain", "stats_plain", "prep"):
+                    m.setattr(cuda_encoder, name, boom)
+                before = fn.launches
+                k1 = fn(x, aff, wt, bias, want_stats=ws, **kw)
+                k2 = fn(x, aff, wt, bias, want_stats=ws, **kw)
+                torch.cuda.synchronize()
+                assert fn.launches == before + 2
+            assert len(_leaves(k1)) == len(_leaves(want)) == (3 if ws else 1)
             _assert_kernel(k1, k2, want)
 
 

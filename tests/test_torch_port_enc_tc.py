@@ -1,10 +1,10 @@
-"""Rows 9 and 15 on the tensor cores (``csrc/enc_conv_tc.cu``): layout and
-numerics, on the CPU.
+"""Rows 9, 15 and 16 on the tensor cores (``csrc/enc_conv_tc.cu``): layout
+and numerics, on the CPU.
 
 The kernel runs only on the card.  These tests hold what surrounds it:
 its weight pack (``cuda_encoder.tc_pack``) unpacks exactly to the OIHW
 weights' TF32 hi and lo planes; its launch geometry (``tc_geometry``)
-covers every output once and matches the constants of the source; and an
+covers every output once and matches the instances of the source; and an
 emulation of its arithmetic (prep, mask after the prep, TF32 split; per
 stage of 8 input channels a fresh sum of the 3xTF32 products over the 9
 taps, added to the running total in fp32; the projection at the centre
@@ -62,19 +62,25 @@ def _unpack(pack, cout, cin):
     return w, (u[:, :, 9] if taps == 10 else None)
 
 
-@pytest.mark.parametrize("cout,cin,proj", [(64, 64, False), (96, 64, True),
-                                           (96, 96, False), (32, 20, True)],
-                         ids=["row9", "row15", "cin96", "ragged"])
-def test_pack_unpacks_to_oihw_tf32_planes(cout, cin, proj):
+@pytest.mark.parametrize("cout,cin,inst", [(64, 64, "stage_conv"),
+                                           (96, 64, "l2_entry"),
+                                           (96, 96, "stage_conv"),
+                                           (32, 20, "l2_entry"),
+                                           (96, 96, "l2_conv")],
+                         ids=["row9", "row15", "cin96", "ragged",
+                              "row16_bn96"])
+def test_pack_unpacks_to_oihw_tf32_planes(cout, cin, inst):
     """Every weight lands once, at its (tile, stage, tap, output, channel)
     place, as hi = ``tf32_round(w)`` and lo = ``tf32_round(w - hi)``;
-    outputs past Cout and channels past Cin are zero."""
+    outputs past Cout and channels past Cin are zero.  Row 16's pack is
+    one tile of 96 outputs, 12 stages of 8 channels."""
+    proj = inst == "l2_entry"
     rng = np.random.default_rng(cout + cin)
     w = torch.from_numpy(rng.normal(size=(cout, cin, 3, 3))
                          .astype(np.float32))
     wp = torch.from_numpy(rng.normal(size=(cout, cin, 1, 1))
                           .astype(np.float32)) if proj else None
-    bn = ce.TC_TILES[2 if proj else 1][1]
+    bn = ce.TC_INSTANCES[inst][3]
     pack = ce.tc_pack(w, wp, bn)
     assert pack.shape == (-(-cout // bn), -(-cin // 8), 10 if proj else 9,
                           2, bn, 8)
@@ -92,23 +98,28 @@ def test_pack_unpacks_to_oihw_tf32_planes(cout, cin, proj):
 # ------------------------------------------------------------ geometry
 
 def _source_constants():
-    """kTH, kKC and the two instances' (MT, NT) from the kernel source."""
+    """kTH, kKC and the instances (kInst: id -> (stride, MT, NT)) from the
+    kernel source."""
     src = _build.sources()["enc_conv_tc"].read_text()
 
     def const(name):
         return int(re.search(rf"\b{name} = (\d+)", src).group(1))
 
-    return (const("kTH"), const("kKC"),
-            {1: (const("kMT1"), const("kNT1")),
-             2: (const("kMT2"), const("kNT2"))})
+    table = re.search(r"kInst\[(\d+)\] = \{(.*?)\n\};", src, re.S)
+    inst = {int(m.group(4)): tuple(int(m.group(k)) for k in (1, 2, 3))
+            for m in re.finditer(r"\{(\d+), (\d+), (\d+)\},\s*// (\d+):",
+                                 table.group(2))}
+    assert len(inst) == int(table.group(1))
+    return const("kTH"), const("kKC"), inst
 
 
-def _tile_geometry(stride):
-    """The kernel's ``Geo``: raw tile (RH, RW), stored plane width and
-    size (PW, PS), stored pixels, and its pixel maps: ``spix`` of a raw
-    tile pixel, ``pbase`` of an output pixel, ``toff`` of a tap."""
+def _tile_geometry(inst):
+    """The kernel's ``Geo`` for the instance of wrapper ``inst``: raw tile
+    (RH, RW), stored plane width and size (PW, PS), stored pixels, and its
+    pixel maps: ``spix`` of a raw tile pixel, ``pbase`` of an output
+    pixel, ``toff`` of a tap."""
     th = ce.TC_TILE_H
-    tw = ce.TC_TILES[stride][0]
+    _, stride, tw, _ = ce.TC_INSTANCES[inst]
     rh, rw = (th - 1) * stride + 3, (tw - 1) * stride + 3
     pw = rw if stride == 1 else tw + 1
     ps = rh * rw if stride == 1 else (th + 1) * (tw + 1)
@@ -131,21 +142,32 @@ def _tile_geometry(stride):
 
 
 def test_geometry_matches_the_source():
+    """Each wrapper's instance (id, stride, tile width, outputs per block)
+    is the source's kInst entry of that id; row 16's is stride 1, 8x16
+    pixels x 96 outputs."""
     th, kc, inst = _source_constants()
     assert (th, kc) == (ce.TC_TILE_H, ce.TC_STAGE)
-    for stride, (mt, nt) in inst.items():
-        assert ce.TC_TILES[stride] == (8 * mt, 16 * nt)  # 4 warps x 2 warps
+    assert sorted(i for i, *_ in ce.TC_INSTANCES.values()) == sorted(inst)
+    for iid, stride, tw, bn in ce.TC_INSTANCES.values():
+        s, mt, nt = inst[iid]
+        assert (stride, tw, bn) == (s, 8 * mt, 16 * nt)  # 4 x 2 warps
+    assert ce.TC_INSTANCES["l2_conv"][1:] == (1, 16, 96)
 
 
-@pytest.mark.parametrize("stride", [1, 2])
-def test_stored_tile_maps_every_tap_to_its_input(stride):
+# The instances by wrapper; ids by stride for rows 9 and 15.
+INSTANCES = pytest.mark.parametrize(
+    "inst", ["stage_conv", "l2_entry", "l2_conv"], ids=["1", "2", "l2_conv"])
+
+
+@INSTANCES
+def test_stored_tile_maps_every_tap_to_its_input(inst):
     """Every raw tile pixel has its own stored pixel, and the kernel's A
     rows for output (ly, lx) at tap (dy, dx), pbase + toff, are the stored
     pixel of raw input (S*ly + dy, S*lx + dx)."""
-    rh, rw, npix, spix, pbase, toff = _tile_geometry(stride)
+    rh, rw, npix, spix, pbase, toff = _tile_geometry(inst)
     stored = [spix(r, c) for r in range(rh) for c in range(rw)]
     assert len(set(stored)) == len(stored) and max(stored) < npix
-    tw = ce.TC_TILES[stride][0]
+    _, stride, tw, _ = ce.TC_INSTANCES[inst]
     for ly in range(ce.TC_TILE_H):
         for lx in range(tw):
             for dy in range(3):
@@ -154,16 +176,17 @@ def test_stored_tile_maps_every_tap_to_its_input(stride):
                             == spix(stride * ly + dy, stride * lx + dx))
 
 
-@pytest.mark.parametrize("stride", [1, 2])
+@INSTANCES
 @pytest.mark.parametrize("h,w", [(13, 2), (9, 37), (21, 70), (19, 45),
                                  (9, 33), (14, 4), (17, 66), (30, 2),
                                  (40, 90), (576, 960), (320, 720)])
-def test_tiles_cover_each_output_once(stride, h, w):
+def test_tiles_cover_each_output_once(inst, h, w):
     """The wrapper's launch geometry at the card tests' hostile widths and
     the serving and training shapes: the output size is the plain conv's,
     and the nb tiles of 8 rows x tile width cover each output pixel
     exactly once (tiles past the edge only overhang)."""
-    ho, wo, tw, bn, nb = ce.tc_geometry(h, w, stride)
+    stride = ce.TC_INSTANCES[inst][1]
+    ho, wo, tw, bn, nb = ce.tc_geometry(h, w, inst)
     want = F.conv2d(torch.zeros(1, 1, h, w), torch.zeros(1, 1, 3, 3),
                     stride=stride, padding=1).shape[2:]
     assert (ho, wo) == tuple(want)
@@ -189,14 +212,15 @@ def _butterfly(v, masks):
     return v
 
 
-def _kernel_sums(y, stride):
+def _kernel_sums(y, inst):
     """(sum, sum of squares) over (H, W) of fp32 ``y`` in the kernel's
-    order: per block, each lane over its pixels (m-tiles in order, rows g
-    then g + 8), a butterfly over the 8 lanes g of a channel, the 4 pixel
-    warps in order; then the stats kernel over the blocks (lane l sums
-    blocks l, l + 32, ... in order, then a butterfly)."""
+    order for the instance of wrapper ``inst``: per block, each lane over
+    its pixels (m-tiles in order, rows g then g + 8), a butterfly over the
+    8 lanes g of a channel, the 4 pixel warps in order; then the stats
+    kernel over the blocks (lane l sums blocks l, l + 32, ... in order,
+    then a butterfly)."""
     b, c, ho, wo = y.shape
-    tw = ce.TC_TILES[stride][0]
+    tw = ce.TC_INSTANCES[inst][2]
     mt_n = tw // 8                       # m-tiles per warp: 4 x 16*MT = 8*tw
     ty, tx = -(-ho // 8), -(-wo // tw)
     yt = F.pad(y, (0, tx * tw - wo, 0, ty * 8 - ho))
@@ -229,22 +253,25 @@ def _kernel_sums(y, stride):
     return out[0], out[1]
 
 
-def emulate_conv(x, weight, bias, stride=1, aff=None, res=None,
+def emulate_conv(x, weight, bias, inst="stage_conv", aff=None, res=None,
                  res_aff=None, proj=None, want_stats=True, passes="3xtf32",
-                 mask_after_prep=True):
-    """The kernel's arithmetic on the CPU: the prepped input (rounded as
-    the plain version rounds it), zero outside the image after the prep
-    (before it with ``mask_after_prep=False``, as a TMA zero fill would
-    leave it), split into TF32 hi and lo; per stage of 8 channels the
-    products over the 9 taps in float64 (the tensor cores' partial sum),
-    rounded to fp32 and added to the fp32 total in stage order; + bias;
-    the projection from the centre tap and the pack's tenth tap.
-    ``passes`` "tf32" keeps a_hi*b_hi alone.  Returns ``stage_conv``'s
-    ``(y, sums)`` or, with ``proj``, ``l2_entry``'s ``(y, yp, sums,
-    projection sums)``."""
+                 mask_after_prep=True, res_relu=True):
+    """The arithmetic of the kernel instance of wrapper ``inst`` on the
+    CPU: the prepped input (rounded as the plain version rounds it; the
+    residual term without its relu when ``res_relu`` is False, row 16's
+    kResProj), zero outside the image after the prep (before it with
+    ``mask_after_prep=False``, as a TMA zero fill would leave it), split
+    into TF32 hi and lo; per stage of 8 channels the products over the 9
+    taps in float64 (the tensor cores' partial sum), rounded to fp32 and
+    added to the fp32 total in stage order; + bias; the projection from
+    the centre tap and the pack's tenth tap.  ``passes`` "tf32" keeps
+    a_hi*b_hi alone.  Returns ``stage_conv``'s (and ``l2_conv``'s) ``(y,
+    sums)`` or, with ``proj``, ``l2_entry``'s ``(y, yp, sums, projection
+    sums)``."""
     b, cin, h, w = x.shape
     cout = weight.shape[0]
-    ho, wo, _, bn, _ = ce.tc_geometry(h, w, stride)
+    stride = ce.TC_INSTANCES[inst][1]
+    ho, wo, _, bn, _ = ce.tc_geometry(h, w, inst)
     pack = ce.tc_pack(weight, None if proj is None else proj[0], bn)
     nt, nk, taps = pack.shape[:3]
     bw = _unswizzle(pack).permute(3, 1, 2, 5, 0, 4).reshape(
@@ -252,13 +279,14 @@ def emulate_conv(x, weight, bias, stride=1, aff=None, res=None,
     if mask_after_prep:
         t = x if aff is None else ce.prep(x, aff)
         if res is not None:
-            t = torch.relu(ce.prep(res, res_aff) + t)
+            t = torch.relu(ce.prep(res, res_aff, relu=res_relu) + t)
         t = F.pad(t, (1, 1, 1, 1))
     else:
         t = F.pad(x, (1, 1, 1, 1))
         t = t if aff is None else ce.prep(t, aff)
         if res is not None:
-            t = torch.relu(ce.prep(F.pad(res, (1, 1, 1, 1)), res_aff) + t)
+            t = torch.relu(ce.prep(F.pad(res, (1, 1, 1, 1)), res_aff,
+                                   relu=res_relu) + t)
     t = F.pad(t, (0, 0, 0, 0, 0, nk * 8 - cin))
     a_hi, a_lo = (p.double().reshape(b, nk, 8, h + 2, w + 2)
                   for p in _split(t))
@@ -286,23 +314,29 @@ def emulate_conv(x, weight, bias, stride=1, aff=None, res=None,
         if proj is not None:
             accp = accp + products(k, [(1, 1)], [9])
     y = acc[:, :cout] + bias[:, None, None]
-    sums = _kernel_sums(y, stride) if want_stats else None
+    sums = _kernel_sums(y, inst) if want_stats else None
     if proj is None:
         return y, sums
     yp = accp[:, :cout] + proj[1][:, None, None]
-    return y, yp, sums, (_kernel_sums(yp, stride) if want_stats else None)
+    return y, yp, sums, (_kernel_sums(yp, inst) if want_stats else None)
 
 
 def emulated_stage_conv(x, aff, weight, bias, res=None, res_aff=None,
                         want_stats=True):
-    return emulate_conv(x, weight, bias, 1, aff, res, res_aff,
+    return emulate_conv(x, weight, bias, "stage_conv", aff, res, res_aff,
                         want_stats=want_stats)
 
 
 def emulated_l2_entry(t, weight, bias, proj_weight, proj_bias,
                       want_stats=True):
-    return emulate_conv(t, weight, bias, 2, proj=(proj_weight, proj_bias),
-                        want_stats=want_stats)
+    return emulate_conv(t, weight, bias, "l2_entry",
+                        proj=(proj_weight, proj_bias), want_stats=want_stats)
+
+
+def emulated_l2_conv(x, aff, weight, bias, res=None, res_aff=None,
+                     want_stats=True):
+    return emulate_conv(x, weight, bias, "l2_conv", aff, res, res_aff,
+                        want_stats=want_stats, res_relu=False)
 
 
 def _rel_err(got, want, n):
@@ -345,7 +379,8 @@ def _aff(rng, b, c):
 
 def _conv_case(form, cin, b, h, w, seed):
     """Inputs of one form: ``prep`` / ``res`` (row 9, channel 0 constant),
-    ``entry`` (row 15, post-relu input).  Returns (kernel args, kwargs,
+    ``entry`` (row 15, post-relu input), ``l2prep`` / ``l2res`` (row 16,
+    the residual term without its relu).  Returns (kernel args, kwargs,
     plain function, pixels per output plane)."""
     rng = np.random.default_rng(seed)
     x = _randn(rng, b, cin, h, w)
@@ -355,16 +390,19 @@ def _conv_case(form, cin, b, h, w, seed):
         bias, bp = _randn(rng, 96) * 0.1, _randn(rng, 96) * 0.1
         t = torch.relu(x)
         n = float(((h - 1) // 2 + 1) * ((w - 1) // 2 + 1))
-        return ((t, wt, bias, 2), dict(proj=(wp, bp)),
+        return ((t, wt, bias, "l2_entry"), dict(proj=(wp, bp)),
                 lambda **kw: ce.entry_plain(t, wt, bias, wp, bp, **kw), n)
     x[:, 0] = 0.25
     wt = _randn(rng, cin, cin, 3, 3) * (2.0 / (9 * cin)) ** 0.5
     bias = _randn(rng, cin) * 0.1
     aff = _aff(rng, b, cin)
     kw = dict(aff=aff)
-    if form == "res":
+    if form in ("res", "l2res"):
         kw.update(res=_randn(rng, b, cin, h, w), res_aff=_aff(rng, b, cin))
-    return ((x, wt, bias, 1), kw,
+    if form == "l2res":
+        kw["res_relu"] = False
+    inst = "l2_conv" if form.startswith("l2") else "stage_conv"
+    return ((x, wt, bias, inst), kw,
             lambda **k2: ce.conv_plain(x, wt, bias, 1, **kw, **k2),
             float(h * w))
 
@@ -373,7 +411,10 @@ CONV_CASES = [pytest.param("prep", 64, 2, 13, 37, 0, id="prep_c64_13x37"),
               pytest.param("res", 64, 1, 19, 45, 1, id="res_c64_19x45"),
               pytest.param("prep", 96, 3, 9, 33, 2, id="prep_c96_9x33"),
               pytest.param("entry", 64, 2, 14, 66, 3, id="entry_c64_14x66"),
-              pytest.param("entry", 64, 1, 17, 37, 4, id="entry_c64_17x37")]
+              pytest.param("entry", 64, 1, 17, 37, 4, id="entry_c64_17x37"),
+              pytest.param("l2prep", 96, 2, 13, 37, 6, id="l2prep_c96_13x37"),
+              pytest.param("l2res", 96, 1, 19, 45, 7, id="l2res_c96_19x45"),
+              pytest.param("l2res", 96, 3, 9, 33, 8, id="l2res_c96_9x33")]
 
 
 @pytest.mark.parametrize("want_stats", [True, False],
@@ -384,7 +425,8 @@ def test_3xtf32_emulation_within_enc_tol_of_plain(form, cin, b, h, w, seed,
     """The kernel's arithmetic within ``ENC_TOL`` of ``conv_plain`` /
     ``entry_plain`` (outputs, and sums per pixel), at hostile sizes: H
     not a multiple of the 8-row tile, W not of the tile width, odd inputs
-    at stride 2, Cin 96 (12 stages, two output tiles of 64)."""
+    at stride 2, Cin 96 (12 stages, two output tiles of 64); row 16's
+    instance (one tile of 96 outputs) in its prep and res_proj forms."""
     args, kw, plain, n = _conv_case(form, cin, b, h, w, seed)
     got = emulate_conv(*args, **kw, want_stats=want_stats)
     want = plain(want_stats=want_stats)
@@ -409,12 +451,14 @@ def test_single_tf32_pass_is_reported_beside(form, cin, b, h, w, seed):
     assert e1 > 10 * e3
 
 
-@pytest.mark.parametrize("form", ["prep", "res"])
+@pytest.mark.parametrize("form", ["prep", "res", "l2res"])
 def test_mask_before_the_prep_misses_plain_at_the_border(form):
     """The mask trap: zeros put in before the prep (as TMA's fill would
-    leave them) become relu(shift) > 0 at the border, far outside the
-    tolerance; the interior agrees."""
-    args, kw, plain, n = _conv_case(form, 64, 1, 12, 20, 5)
+    leave them) become relu(shift) > 0 at the border (for kResProj,
+    relu(rt + relu(t)), also > 0), far outside the tolerance; the
+    interior agrees."""
+    cin = 96 if form == "l2res" else 64
+    args, kw, plain, n = _conv_case(form, cin, 1, 12, 20, 5)
     y, _ = plain()
     good, _ = emulate_conv(*args, **kw)
     bad, _ = emulate_conv(*args, **kw, mask_after_prep=False)
@@ -427,29 +471,37 @@ def test_mask_before_the_prep_misses_plain_at_the_border(form):
 
 @pytest.fixture
 def emulated(monkeypatch):
-    """The port's fused stages with rows 9 and 15 replaced by the
+    """The port's fused stages with rows 9, 15 and 16 replaced by the
     emulation (the other wrappers take their plain versions)."""
     monkeypatch.setattr(ce, "stage_conv", emulated_stage_conv)
     monkeypatch.setattr(ce, "l2_entry", emulated_l2_entry)
+    monkeypatch.setattr(ce, "l2_conv", emulated_l2_conv)
 
 
-@pytest.mark.parametrize("stage", ["stem_layer1", "fused_layer2"])
-def test_emulated_stages_match_jax(emulated, stage):
+@pytest.mark.parametrize("stage,hw", [("stem_layer1", (16, 24)),
+                                      ("fused_layer2", (16, 24)),
+                                      ("fused_layer2", (14, 22))],
+                         ids=["stem_layer1", "fused_layer2",
+                              "fused_layer2_odd"])
+def test_emulated_stages_match_jax(emulated, stage, hw):
     """``stem_layer1`` (four row-9 convs, the block boundary's res form)
-    and ``fused_layer2`` (row 15's entry) at the model's widths (64 in, 96
-    out), 2 images of 16x24, the JAX stages in interpret mode: within the
-    stage tests' tolerance.  The stem's input is centred below 0, so
-    every channel's prep shift is positive."""
+    and ``fused_layer2`` (row 15's entry, then row 16's three convs in
+    their prep and res_proj forms) at the model's widths (64 in, 96 out),
+    2 images of 16x24, and layer2 at 14x22 (a 7x11 output: odd width and
+    height), the JAX stages in interpret mode: within the stage tests'
+    tolerance.  The stem's input is centred below 0, so every channel's
+    prep shift is positive."""
     rng = np.random.default_rng(11)
+    h, w = hw
     with pe.override_fused_stem(True), pl2.override_fused_layer2(True):
         if stage == "stem_layer1":
-            y1 = (rng.normal(size=(2, 16, 24, 64)) * 2
+            y1 = (rng.normal(size=(2, h, w, 64)) * 2
                   - 0.7).astype(np.float32)
             jp, tp = _convs(rng, ("c10", "c11", "c20", "c21"), 3, 64, 64)
             want = jax.jit(pe.stem_layer1)(jnp.asarray(y1), jp)
             got = es.stem_layer1(_nchw(y1), tp)
         else:
-            t_in = np.abs(rng.normal(size=(2, 16, 24, 64))).astype(np.float32)
+            t_in = np.abs(rng.normal(size=(2, h, w, 64))).astype(np.float32)
             jp, tp = _layer2_params(rng, 64, 96)
             want = jax.jit(pl2.fused_layer2)(jnp.asarray(t_in), jp)
             got = es.fused_layer2(_nchw(t_in), tp)

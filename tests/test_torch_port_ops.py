@@ -223,10 +223,10 @@ def test_kernel_sources_carry_their_notes():
                 "alt_corr_epi": ("_alt_pyr_radial_epi_kernel",),
                 "alt_corr_bwd": ("_alt_pyr_bwd_kernel",),
                 "gru_update": ("_gru_update_kernel",),
-                "enc_conv": ("_stem7_kernel", "_stem7s2_kernel",
-                             "_l2_conv_kernel", "_l2_conv_res_kernel"),
+                "enc_conv": ("_stem7_kernel", "_stem7s2_kernel"),
                 "enc_conv_tc": ("_enc_conv_kernel", "_enc_conv_res_kernel",
-                                "_l2_entry_kernel"),
+                                "_l2_entry_kernel", "_l2_conv_kernel",
+                                "_l2_conv_res_kernel"),
                 "enc_stats": ("_in_stats_kernel", "_packed_stats",
                               "_dual_sum_kernel"),
                 "enc_finish": ("_enc_finish_kernel", "_l2_finish_kernel"),
