@@ -17,7 +17,11 @@ as a ratio to its plain version's time): the serving path's lookup and
 fused update (a 540x960 request pads to the 576x960 bucket, so the
 1/4-resolution grid is 144x240 with C=256 and hidden 128), the training
 path's lookup and its
-backward (batch 6 of 320x720 crops: 480 rows of 180 pixels, C=256), and
+backward (batch 6 of 320x720 crops: 480 rows of 180 pixels, C=256), the
+lookup also on a smooth disparity field (its own ``serve_smooth`` row)
+and, held only, on jumps wider than its staging buffer (its wide-span
+path), the backward also with infinite cotangents (NaN and +-inf exactly
+where plain has them), and
 the fused encoder stages' kernels at the fused serving path's shapes
 (fnet's 2 images and cnet's 1 at 576x960, layer2 at 288x480), the
 stride-2 conv1 at the ``n_downsample=3`` shape and the stats kernel at a
@@ -40,7 +44,8 @@ correlation: (9) hold its kernels against their plain versions, bitwise,
 at the serving shape (the 144x240 volume pyramid, level widths
 240/120/60/30; the int8 volume of 1x144x240 features, C=256) and the
 training shape (6x80x180): the volume lookup, its backward (also two
-calls bitwise equal) and the int8 volume, the lookup beside its library
+calls bitwise equal, and on NaN and far coordinates and +-inf and NaN
+cotangents) and the int8 volume, the lookup beside its library
 call (``F.grid_sample``, 4 calls, one per level, as upstream
 RAFT-Stereo's ``bilinear_sampler``) and the backward beside their
 autograd backward; (10) serve three requests with
@@ -464,6 +469,12 @@ def kernel_phase(model, lo_hw, torch):
     x = (torch.arange(w, device=dev, dtype=torch.float32) + disp).contiguous()
     r = cfg.corr_radius
     rows.append(lookup_row(state, x, r, "serve", torch))
+    # -- the lookup on a smooth field (real disparities are smooth: a
+    # low-frequency sine of x and y in [-60, 0]), and on jumps wider than
+    # the kernel's staging buffer (its wide-span path), held only
+    rows.append(lookup_row(state, smooth_field(1, h, w, torch), r,
+                           "serve_smooth", torch))
+    lookup_hold(state, jump_field(1, h, w, torch), r, "wide-span", torch)
 
     # -- update
     rows.append(update_row(model, lo_hw, disp, randn, "serve", torch))
@@ -516,7 +527,77 @@ def kernel_phase(model, lo_hw, torch):
                      **dict(zip(("bound_ms", "bound_by"),
                                 bound(nbytes, flops))),
                      library_ms=None))
+
+    # -- infinite cotangents: the dense hat's +-inf on the columns their
+    # taps weight, NaN on the level's others and on the pixel's df1
+    xi, gi = x.clone(), gout.clone()
+    xi[0, 5, 40], xi[1, 7, 90] = 80.5, 33.0   # level 1: x_l 40.25, 16.5
+    gi[0, 5, 40, k] = float("inf")            # level 1, tap 0
+    gi[1, 7, 90, k + r] = -float("inf")       # level 1, the middle tap
+    got = cuda_alt.alt_corr_backward(state.fmap1, state.f2cat, state.widths,
+                                     xi, gi, r)
+    want = cuda_alt.alt_corr_backward_plain(state.fmap1, state.f2cat,
+                                            state.widths, xi, gi, r)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("df1", "df2"), got, want):
+        inf, ok = w.isinf(), torch.isfinite(w)
+        same = (torch.equal(a.isnan(), w.isnan())
+                and torch.equal(a.isinf(), inf)
+                and torch.equal(a[inf], w[inf]))
+        err = float((a[ok] - w[ok]).abs().max())
+        scale = max(1.0, float(w[ok].abs().max()))
+        print(f"alt_corr_bwd (infinite cotangents) {name}: NaN and +-inf "
+              f"where plain has them: {same} ({int(w.isnan().sum())} NaN, "
+              f"{int(inf.sum())} inf); max_abs_err {err:.3e} elsewhere")
+        check(same and err <= BACKWARD_TOL * scale,
+              f"alt_corr_bwd's non-finite {name} differs from plain's")
+    check(bool(got[1].isinf().any()), "alt_corr_bwd: no +-inf column")
     return rows
+
+
+def smooth_field(b, h, w, torch):
+    """x (b, h, w) on the card: column plus a disparity that is a
+    low-frequency sine of x and y in [-60, 0]."""
+    yy = torch.arange(b * h, dtype=torch.float32).reshape(b, h, 1)
+    xx = torch.arange(w, dtype=torch.float32)
+    disp = -30.0 + 30.0 * torch.sin(2 * np.pi * (xx / 97.0 + yy / 13.0))
+    return (xx + disp).cuda().contiguous()
+
+
+def jump_field(b, h, w, torch):
+    """x (b, h, w) on the card: 8-pixel stripes near column 0 and near
+    the row's end, so every tile's level-0 span exceeds the lookup
+    kernel's staging buffer (its wide-span path)."""
+    g = torch.Generator().manual_seed(9)
+    xx = torch.arange(w, dtype=torch.float32)
+    base = torch.where((xx // 8) % 2 == 1, float(w - 12), 0.0)
+    return (base + 10.0 * torch.rand((b, h, w), generator=g)).cuda()
+
+
+def lookup_hold(state, x, r, label, torch, dtype=None):
+    """The lookup kernel against its plain version on x, timed, with no
+    row: within LOOKUP_TOL (fp32) or LOOKUP_BF16_ULPS (bf16 out)."""
+    from raftstereo_tpu_torch.ops import cuda_alt
+
+    dtype = dtype or torch.float32
+
+    def kern():
+        return cuda_alt.alt_corr(state.fmap1, state.f2cat, state.widths, x,
+                                 r, dtype)
+
+    got = kern()
+    want = cuda_alt.alt_corr_plain(state.fmap1, state.f2cat, state.widths,
+                                   x, r, dtype)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        err, tol = ulps(got, want), LOOKUP_BF16_ULPS
+    else:
+        err, tol = float((got - want).abs().max()), LOOKUP_TOL
+    ms = time_ms(kern, 50)
+    print(f"alt_corr ({label}, {dims(x)}, {dtype}) err {err:.3e} (tol {tol})"
+          f" ms {ms:.4f} [{CARD}]")
+    check(err <= tol, f"alt_corr disagrees with its plain version by {err} "
+                      f"on the {label} field")
 
 
 def _leaves(out):
@@ -1017,6 +1098,7 @@ def volume_kernel_phase(cfg, lo_hw, torch):
                           4 * (k1.numel() + gout.numel() + x.numel()),
                           6 * k * k1.numel(), lib=lib_bwd, reps=10))
         del levels, calls, outs, gouts
+        vol_bwd_nonfinite_hold(x, gout, st.widths, r, torch)
 
     # -- the int8 volume at the serving shape
     h, w = lo_hw
@@ -1043,6 +1125,40 @@ def volume_kernel_phase(cfg, lo_hw, torch):
                       3 * got.numel(), lib=int_mm,
                       int8_ops=2 * got.numel() * c))
     return rows
+
+
+def vol_bwd_nonfinite_hold(x, gout, widths, r, torch) -> None:
+    """Row 6 on NaN coordinates, +-inf and NaN cotangents, integer and
+    half-integer coordinates and coordinates far past both edges: NaN
+    where plain is NaN and the same bits elsewhere (+0, -0 and +-inf
+    included), two calls alike."""
+    from raftstereo_tpu_torch.ops import cuda_vol
+
+    k = 2 * r + 1
+    x, g = x.clone(), gout.clone()
+    x[0, 0, :10] = torch.tensor([float("nan"), -200.5, 480.25, 1e7, -1e7,
+                                 1e30, -1e30, float("inf"), -float("inf"),
+                                 2.0 ** 24 + 2])
+    x[0, 1] = torch.arange(x.shape[2], device=x.device) * 0.5 - 8.0
+    x[0, 2, 3], x[0, 2, 9] = r + 0.5, 0.25 - r
+    g[0, 2, 3, 0] = float("inf")       # level 0's first tap: columns 0, 1
+    g[0, 2, 9, k - 1] = -float("inf")  # its last tap: columns 0, 1
+    g[1, 0, 5, k + 2] = float("nan")
+    g[1, 1, :, 0] = -0.0
+    g[1, 2, :, -1] = 1e-41             # subnormal
+    k1, k2 = (cuda_vol.vol_lookup_backward(x, g, widths, r) for _ in "ab")
+    want = cuda_vol.vol_lookup_backward_plain(x, g, widths, r)
+    torch.cuda.synchronize()
+    ok = ~want.isnan()
+    same = all(torch.equal(a.isnan(), ~ok)
+               and torch.equal(a[ok].view(torch.int32),
+                               want[ok].view(torch.int32)) for a in (k1, k2))
+    print(f"vol_lookup_bwd (non-finite and far inputs, dvol {dims(k1)}): "
+          f"bitwise equal to plain and repeatable: {same} "
+          f"({int((~ok).sum())} NaN, {int(want.isinf().sum())} inf)")
+    check(same and bool(want.isinf().any()),
+          "vol_lookup_bwd differs from its plain version on non-finite "
+          "inputs")
 
 
 def ulps(got, want) -> float:
@@ -1113,6 +1229,8 @@ def bf16_kernel_phase(model, lo_hw, torch):
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=None, **extra))
 
+    lookup_hold(state, jump_field(1, h, w, torch), r, "wide-span", torch,
+                bf)
     row("alt_corr", "serve_bf16", "alt_corr",
         "raftstereo_tpu/ops/pallas_alt.py:158",
         lambda: cuda_alt.alt_corr(state.fmap1, state.f2cat, state.widths, x,
@@ -1989,6 +2107,8 @@ def main() -> int:
                    for _ in range(2)) for _ in range(REQUESTS)]
     by_path = {"serve": serve_and_check(
         model, dict(alt_corr=ITERS, gru_update=ITERS), rng)}
+    # the smooth-field row times the serving path's lookup
+    by_path["serve_smooth"] = by_path["serve"]
     del model
     torch.cuda.empty_cache()
 

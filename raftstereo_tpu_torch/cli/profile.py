@@ -54,7 +54,7 @@ _GROUPS = {"enc_conv_tc": ("enc_conv_tc_kernel", "enc_conv_tc_stats_kernel"),
            "enc_stats": ("enc_plane_stats_kernel",),
            "dual_sums": ("enc_dual_sums_kernel",),
            "enc_finish": ("enc_finish_kernel",),
-           "alt_corr": ("alt_corr_kernel",),
+           "alt_corr": ("alt_corr_kernel", "alt_corr_bf16_kernel"),
            "alt_corr_epi": ("alt_corr_epi_kernel",),
            "alt_corr_bwd": ("alt_corr_bwd_kernel",),
            "corr_vol": ("corr_vol_kernel",),

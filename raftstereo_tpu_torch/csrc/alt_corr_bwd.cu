@@ -13,12 +13,20 @@
 //   df1[n,i,:]    = sum_{l,d}   c[n,i,l,d] * f2_l[n, b+d, :]
 //   df2_l[n,j,:]  = sum_{i,d: b+d=j} c[n,i,l,d] * f1[n,i,:]
 // over columns inside [0, w2_l - 1]; the rest get nothing, as the TPU
-// kernel discards the mass that lands on its lane padding.  A NaN
-// coordinate, or a non-finite cotangent, of level l poisons that pixel's
-// df1 and every column of level l in its row with NaN, as the TPU kernel's
-// dense hat matrix max(0, 1 - |j - t|) does; where an infinite cotangent's
-// tap weights a column (at most two), the dense hat gives that column
-// +-inf instead (inf * 0 = NaN on the others), and this kernel NaN.
+// kernel discards the mass that lands on its lane padding.  Non-finite
+// values follow the TPU kernel's dense hat matrix max(0, 1 - |j - t|):
+// a NaN coordinate, or a NaN cotangent, of level l makes that pixel's df1
+// and every column of level l in its row NaN.  An infinite cotangent g_k
+// at a finite coordinate gives the columns its tap weights (b+k with 1-f,
+// b+k+1 with f; at most two) their dense value, +-inf through the sums
+// (or NaN where inf - inf, inf * 0 or an fmap element of 0 make it so),
+// and every other column of the level in that row NaN (inf * 0); the
+// pixel's df1 is NaN unless the tap weights every column of the level.
+// The row tables carry this: a coefficient is NaN where an infinite tap
+// of its pixel does not reach its column, each level keeps the columns
+// that every infinite pixel's window covers (the rest of the level is
+// NaN), and each window base carries a bit that makes the pixel's df1
+// NaN.  Finite inputs take none of these paths.
 //
 // Design.  The TPU kernel builds a dense (block x W2) hat matrix in VMEM
 // and runs two matrix-unit products per block.  Here a block of 32 warps
@@ -61,6 +69,7 @@
 // built once per slice.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 
 namespace {
@@ -70,8 +79,7 @@ constexpr int kWarpsPerBlock = 32;
 constexpr int kVec = 4;                // channels per lane
 constexpr int kSlice = 32 * kVec;      // channels per block
 constexpr int kThreads = 32 * kWarpsPerBlock;
-constexpr int kFar = 0x40000000;      // window base that covers no column
-constexpr int kPoisoned = 0x40000001; // window base of a NaN pixel/level
+constexpr int kFar = 0x20000000;      // window base that covers no column
 constexpr int kMaxSmem = 232448;      // bytes a block may opt in to
 
 struct Levels {
@@ -102,7 +110,9 @@ __device__ __forceinline__ void store4(float* p, const float (&v)[kVec]) {
 }
 
 // Shared memory of one block: the coefficients [W1*L][D] and the window
-// bases [L][W1].
+// bases [L][W1], each stored as 2 * base + (1 if the pixel's df1 is NaN
+// through this level).  Static: the columns [keep_lo, keep_hi] of each
+// level that stay finite in the row (64 bytes, kept free by `launch`).
 template <int R>
 long smem_bytes(int w1, int nlev) {
   return (long)w1 * nlev * (2 * R + 3) * 4;
@@ -114,7 +124,9 @@ alt_corr_bwd_kernel(const Args a) {
   constexpr int K = 2 * R + 1;
   constexpr int D = K + 1;  // columns a pixel's window covers per level
   extern __shared__ __align__(16) float smem[];
-  __shared__ int poison;    // bit l: level l of this row is poisoned
+  // Level l's columns outside [keep_lo, keep_hi] are NaN in this row: the
+  // intersection of its infinite pixels' windows, empty for a NaN one.
+  __shared__ int keep_lo[kMaxLevels], keep_hi[kMaxLevels];
   const Levels& lv = a.lv;
   const int L = lv.n, w1 = a.w1, w2cat = a.w2cat, c = a.c;
   const long n = blockIdx.x / a.nslice;
@@ -127,40 +139,59 @@ alt_corr_bwd_kernel(const Args a) {
   const float* f1row = a.f1 + n * (long)w1 * c + c0 + lane * kVec;
   const float* f2row = a.f2 + n * (long)w2cat * c + c0 + lane * kVec;
 
-  if (threadIdx.x == 0) poison = 0;
+  if (threadIdx.x < kMaxLevels) {
+    keep_lo[threadIdx.x] = INT_MIN;
+    keep_hi[threadIdx.x] = INT_MAX;
+  }
   __syncthreads();
 
   // Tables: one thread per (pixel, level).
   for (int t = threadIdx.x; t < w1 * L; t += blockDim.x) {
     const int i = t / L, l = t - (t / L) * L;
+    const int width = lv.width[l];
     const float xv = a.x[n * w1 + i];
     const float* gp = a.g + (n * w1 + i) * (long)(L * K) + l * K;
     float gk[K];
-    bool bad = isnan(xv);
+    bool nan_in = isnan(xv);
+    unsigned inf_taps = 0;  // bit k: g_k is infinite
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       gk[k] = gp[k];
-      bad = bad || !isfinite(gk[k]);
+      nan_in = nan_in || isnan(gk[k]);
+      if (isinf(gk[k])) inf_taps |= 1u << k;
     }
     const float xl = xv * (1.0f / (float)(1 << l));
     const float b0 = floorf(xl);
     const float fr = xl - b0;
     const float lo = b0 - (float)R;
     int b = kFar;
-    if (bad) {
-      b = kPoisoned;
-      if (lv.width[l] > 0) atomicOr(&poison, 1 << l);
-    } else if (lo <= (float)(lv.width[l] - 1) && lo + (float)K >= 0.f) {
+    bool df1_nan = false;
+    if (!nan_in && lo <= (float)(width - 1) && lo + (float)K >= 0.f)
       b = (int)lo;  // in [-K, width-1]: no overflow
+    if (nan_in || (inf_taps && b == kFar)) {
+      // Every column of the level in this row is NaN.
+      b = kFar;
+      df1_nan = true;
+      atomicMax(&keep_lo[l], INT_MAX);
+    } else if (inf_taps) {
+      // Only the window's columns can stay finite; df1 is NaN if a column
+      // of the level lies outside it.
+      atomicMax(&keep_lo[l], b);
+      atomicMin(&keep_hi[l], b + D - 1);
+      df1_nan = b > 0 || b + D - 1 < width - 1;
     }
-    base[l * w1 + i] = b;
+    base[l * w1 + i] = 2 * b + (int)df1_nan;
     float* cp = coef + (long)t * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       float v = 0.f;
       if (d < K) v = gk[d] * (1.f - fr);
       if (d > 0) v += gk[d - 1] * fr;
-      cp[d] = v * a.scale;
+      // Column b+d is weighted by taps d-1 and d only: an infinite tap
+      // elsewhere puts inf * 0 on it.
+      const unsigned reach =
+          (d < K ? 1u << d : 0u) | (d > 0 ? 1u << (d - 1) : 0u);
+      cp[d] = (inf_taps & ~reach) ? NAN : v * a.scale;
     }
   }
   __syncthreads();
@@ -178,7 +209,7 @@ alt_corr_bwd_kernel(const Args a) {
       float cf = 0.f;
       bool hit = false;
       if (i < w1) {
-        const int d = jl - base[l * w1 + i];  // sentinels give d < 0
+        const int d = jl - (base[l * w1 + i] >> 1);  // kFar gives d < 0
         if (d >= 0 && d < D) {
           hit = true;
           cf = coef[(long)(i * L + l) * D + d];
@@ -208,7 +239,7 @@ alt_corr_bwd_kernel(const Args a) {
         }
       }
     }
-    if ((poison >> l) & 1) {
+    if (jl < keep_lo[l] || jl > keep_hi[l]) {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) acc[e] = NAN;
     }
@@ -224,8 +255,8 @@ alt_corr_bwd_kernel(const Args a) {
     for (int e = 0; e < kVec; ++e) acc[e] = 0.f;
     bool bad = false;
     for (int l = 0; l < L; ++l) {
-      const int b = base[l * w1 + i], width = lv.width[l];
-      if (b == kPoisoned) {
+      const int bv = base[l * w1 + i], b = bv >> 1, width = lv.width[l];
+      if (bv & 1) {
         bad = bad || width > 0;
         continue;
       }
@@ -257,7 +288,8 @@ alt_corr_bwd_kernel(const Args a) {
 template <int R>
 int launch(Args a, long rows, cudaStream_t stream) {
   const long smem = smem_bytes<R>(a.w1, a.lv.n);
-  if (smem > kMaxSmem - 64) return (int)cudaErrorInvalidValue;  // `poison`
+  // 64 bytes stay free for keep_lo/keep_hi
+  if (smem > kMaxSmem - 64) return (int)cudaErrorInvalidValue;
   auto kernel = alt_corr_bwd_kernel<R>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(

@@ -12,15 +12,18 @@ outside [0, w2_l - 1]; NaN coordinates give NaN.
 
 The bound on an H100 and what the kernel's design does about it are in
 the source's note: bytes bound (about 100 MB per call at the flagship
-shapes, about 30 us at 3.35 TB/s); one warp per pixel computes only the
-window dot products the pixel needs.
+shapes, about 30 us at 3.35 TB/s); a block stages a tile of 32 pixels'
+fmap1 rows and the span of fmap2 rows their windows cover in shared
+memory, and each thread sums whole window dot products from there (a
+level whose span outgrows the staging buffer reads fmap2 from global
+memory instead, in the same kernel).
 
 The backward replaces ``_alt_pyr_bwd_kernel`` of the same file, with the
 radial taps of ``_make_alt_pyr_radial``'s VJP: bytes bound (about 521 MB
 per call at the training shapes, about 0.16 ms); one block of 32 warps
 per image row and 128-channel slice, which re-reads its slice of the
-row's fmaps through L1; deterministic, with no floating-point atomics
-(see the source's note).
+row's fmaps through L1; deterministic, with no floating-point atomics;
+NaN and +-inf where the dense hat gives them (see the source's note).
 
 The forward takes fp32 or bf16 feature maps and emits fp32 or bf16
 features (``out_dtype``), accumulating in fp32 and rounding once; the
@@ -235,8 +238,10 @@ def alt_corr_backward_plain(fmap1: torch.Tensor, f2cat: torch.Tensor,
     """Plain PyTorch VJP of the lookup, in the TPU kernel's form: per level
     the dense hat matrix dm[i, j] = s * sum_k g[i, k] * max(0, 1 - |j -
     t_k|) over the level's real columns (t_k = x * 2^-l + k - r), then two
-    matmuls.  A NaN coordinate or a non-finite cotangent makes that
-    level's hat row NaN, as on the TPU.  g (B, H, W1, L*(2r+1)) ->
+    matmuls.  A NaN coordinate or cotangent makes that level's hat row
+    NaN; an infinite cotangent makes it +-inf on the (at most two) columns
+    its tap weights and NaN (inf * 0) on the others, as on the TPU.
+    g (B, H, W1, L*(2r+1)) ->
     ``(df1, df2cat)`` shaped like fmap1 and f2cat."""
     c = fmap1.shape[-1]
     scale = 1.0 / float(c) ** 0.5

@@ -7,9 +7,11 @@ one block per (image row, slice of 128 channels, the source's kSlice),
 each building the row's coefficient and window-base tables; df1 as one
 fmaf chain per channel over the levels ascending, then the taps
 ascending; df2 as one fmaf chain per channel over the row's pixels
-ascending; poisoning by NaN coordinates and non-finite cotangents.  The
-emulation is held against the plain version (``alt_corr_backward_plain``)
-within ``chip_smoke.BACKWARD_TOL``, and, through the pyramid's pooling,
+ascending; the non-finite values of NaN coordinates and of NaN and
+infinite cotangents, as the dense hat gives them.  The emulation is held
+against the plain version (``alt_corr_backward_plain``) within
+``chip_smoke.BACKWARD_TOL``, with NaN and +-inf exactly where it has
+them, and, through the pyramid's pooling,
 against the JAX package's ``custom_vjp`` of the Pallas lookup (its
 ``_alt_pyr_bwd_kernel`` in interpret mode).  Inputs are made with numpy
 from a seed.
@@ -77,31 +79,50 @@ def emulate(f1, f2cat, widths, x, g, radius):
     df1 = torch.empty_like(f1r)
     df2 = torch.empty_like(f2r)
     scale = torch.tensor(1.0 / float(c) ** 0.5)
+    far = 2 ** 29
     for c0 in range(0, c, cs):  # the slices: each rebuilds the tables
         sl = slice(c0, c0 + cs)
         # tables, one thread per (pixel, level)
         coef = torch.zeros(rows, w1, nlev, d_n)
-        base = torch.full((rows, w1, nlev), 2 ** 30, dtype=torch.long)
-        bad = torch.zeros(rows, w1, nlev, dtype=torch.bool)
+        base = torch.full((rows, w1, nlev), far, dtype=torch.long)
+        df1_nan = torch.zeros(rows, w1, nlev, dtype=torch.bool)
+        # columns [keep_lo, keep_hi] of each level stay finite in the row
+        keep_lo = torch.full((rows, nlev), -2 ** 31, dtype=torch.long)
+        keep_hi = torch.full((rows, nlev), 2 ** 31 - 1, dtype=torch.long)
         for lvl, width in enumerate(widths):
             gk = gr[:, :, lvl]
-            bad[:, :, lvl] = torch.isnan(xr) | ~torch.isfinite(gk).all(-1)
+            nan_in = torch.isnan(xr) | torch.isnan(gk).any(-1)
+            inf_k = torch.isinf(gk)                      # (rows, W1, K)
+            inf_any = inf_k.any(-1)
             xl = xr * (1.0 / float(1 << lvl))
             b0 = torch.floor(xl)
             fr = xl - b0
             lo = b0 - float(radius)
             near = (lo <= float(width - 1)) & (lo + float(k) >= 0.0)
-            base[:, :, lvl] = torch.where(near & ~bad[:, :, lvl],
-                                          lo.nan_to_num(0.0).long(), 2 ** 30)
+            has_b = near & ~nan_in
+            b = torch.where(has_b, lo.nan_to_num(0.0), 0.0).long()
+            whole = nan_in | (inf_any & ~has_b)   # every column NaN
+            part = inf_any & has_b                # the window's may not be
+            base[:, :, lvl] = torch.where(has_b & ~whole, b, far)
+            df1_nan[:, :, lvl] = whole | (part & ((b > 0)
+                                                  | (b + d_n - 1 < width - 1)))
+            big = 2 ** 31 - 1
+            keep_lo[:, lvl] = torch.where(
+                whole.any(1), big,
+                torch.where(part, b, -big - 1).amax(1))
+            keep_hi[:, lvl] = torch.where(part, b + d_n - 1, big).amin(1)
             for d in range(d_n):
                 v = torch.zeros(rows, w1)
                 if d < k:
                     v = gk[..., d] * (1.0 - fr)
                 if d > 0:
                     v = v + gk[..., d - 1] * fr
-                coef[:, :, lvl, d] = v * scale
-        poison = torch.stack([bad[:, :, lvl].any(1) & (widths[lvl] > 0)
-                              for lvl in range(nlev)], 1)   # (rows, L)
+                # an infinite tap that does not reach column b+d: inf * 0
+                reach = torch.zeros(k, dtype=torch.bool)
+                reach[max(d - 1, 0):d + 1] = True
+                elsewhere = (inf_k & ~reach).any(-1)
+                coef[:, :, lvl, d] = torch.where(elsewhere, torch.nan,
+                                                 v * scale)
         # df1: levels ascending, then taps ascending
         acc = torch.zeros(rows, w1, cs)
         for lvl, width in enumerate(widths):
@@ -113,7 +134,7 @@ def emulate(f1, f2cat, widths, x, g, radius):
                                  col[..., None].expand(-1, -1, cs))
                 acc = torch.where(ok[..., None],
                                   _fma(coef[:, :, lvl, d, None], v, acc), acc)
-        pix_bad = (bad & (torch.tensor(widths) > 0)).any(-1)
+        pix_bad = (df1_nan & (torch.tensor(widths) > 0)).any(-1)
         df1[:, :, sl] = torch.where(pix_bad[..., None], torch.nan, acc)
         # df2: the row's pixels ascending
         acc = torch.zeros(rows, w2cat, cs)
@@ -127,7 +148,9 @@ def emulate(f1, f2cat, widths, x, g, radius):
                                    f1r[r, i, sl], acc[r, col])
         lvl_of = torch.repeat_interleave(torch.arange(nlev),
                                          torch.tensor(widths))
-        col_bad = poison[:, lvl_of]                       # (rows, W2cat)
+        jl = torch.arange(w2cat) - torch.tensor(offs)[lvl_of]
+        col_bad = ((jl < keep_lo[:, lvl_of])
+                   | (jl > keep_hi[:, lvl_of]))          # (rows, W2cat)
         df2[:, :, sl] = torch.where(col_bad[..., None], torch.nan, acc)
     return df1.reshape(f1.shape), df2.reshape(f2cat.shape)
 
@@ -138,8 +161,12 @@ def _inputs(case, seed=3, c=128):
     (x = column - 60*U(0, 1)); ``poison``: a NaN coordinate and an
     infinite cotangent; ``outside``: coordinates past every level and
     partly past each edge; ``wide``: a row of 440 pixels, C 256 (two
-    slices)."""
-    b, h, w = (1, 2, 440) if case == "wide" else (1, 3, 180)
+    slices); ``inf_mix``: rows of 12 (levels 12/6/3/1) with an infinite
+    cotangent whose window covers its whole level, two infinite pixels
+    whose windows overlap, one at a tap on an integer coordinate, a -inf
+    one and a NaN cotangent."""
+    b, h, w = {"wide": (1, 2, 440), "inf_mix": (1, 3, 12)}.get(case,
+                                                              (1, 3, 180))
     c = 256 if case == "wide" else c
     rng = np.random.default_rng(seed)
     f1 = rng.normal(size=(b, h, w, c)).astype(np.float32)
@@ -152,6 +179,18 @@ def _inputs(case, seed=3, c=128):
         # level 2 of row 2, at a pixel whose tap 3 weights two columns
         x[0, 2, 100] = 70.5
         g[0, 2, 100, 2 * (2 * RADIUS + 1) + 3] = np.inf
+    if case == "inf_mix":
+        kk = 2 * RADIUS + 1
+        x[0] = np.arange(w) - 0.75
+        x[0, 0, 2] = 4.0      # level 3 (1 wide): x_l = 0.5
+        g[0, 0, 2, 3 * kk + RADIUS] = np.inf
+        x[0, 1, 3:5] = [3.25, 4.25]  # both taps weight columns 3 and 4
+        g[0, 1, 3, RADIUS] = np.inf
+        g[0, 1, 4, RADIUS - 1] = np.inf
+        x[0, 2, 6] = 6.0      # tap 2 on column 4 (weight 1), column 5: 0
+        g[0, 2, 6, 2] = np.inf
+        g[0, 2, 9, kk + 5] = -np.inf
+        g[0, 2, 10, 2 * kk] = np.nan
     if case == "outside":
         x[0, 0, :4] = [-200.5, w + 300.25, 1e6, -1e6]
         x[0, 1, :3] = [-3.5, w + 1.75, w - 0.5]
@@ -163,40 +202,55 @@ def _port(f1, f2, x, g):
     return st, _t(x), _t(g)
 
 
-CASES = ["recipe", "poison", "outside", "wide"]
+CASES = ["recipe", "poison", "outside", "wide", "inf_mix"]
 
 
-def _poison_matches(a, w):
-    """The kernel's poisoning against a dense-hat reference: NaN exactly
-    where the reference is not finite.  (An infinite cotangent's tap gives
-    the dense hat +-inf on the two columns it weights and NaN, inf * 0, on
-    the level's others; the kernel poisons the whole level with NaN.)"""
-    return torch.equal(a.isnan(), ~torch.isfinite(w))
+def _nonfinite_matches(a, w):
+    """The kernel's non-finite values against a dense-hat reference: NaN
+    exactly where the reference is NaN, and the same +-inf where it is
+    infinite (an infinite cotangent's tap gives the two columns it weights
+    +-inf and the level's others NaN, inf * 0)."""
+    inf = w.isinf()
+    return (torch.equal(a.isnan(), w.isnan()) and torch.equal(a.isinf(), inf)
+            and torch.equal(a[inf], w[inf]))
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_emulation_within_tol_of_plain(case):
-    """The emulated kernel against ``alt_corr_backward_plain``: NaN where
-    plain is not finite (a poisoned pixel's df1 and its level's columns in
-    that row) and within ``BACKWARD_TOL`` elsewhere."""
+    """The emulated kernel against ``alt_corr_backward_plain``: NaN and
+    +-inf exactly where plain has them (a NaN pixel's df1 and its row's
+    columns; an infinite cotangent's pixel df1 and its level's columns in
+    that row, two of them +-inf) and within ``BACKWARD_TOL`` elsewhere."""
     st, x, g = _port(*_inputs(case))
     got = emulate(st.fmap1, st.f2cat, st.widths, x, g, RADIUS)
     want = cuda_alt.alt_corr_backward_plain(st.fmap1, st.f2cat, st.widths,
                                             x, g, RADIUS)
     for a, w in zip(got, want):
         assert a.shape == w.shape
-        assert _poison_matches(a, w)
+        assert _nonfinite_matches(a, w)
         ok = torch.isfinite(w)
         scale = max(1.0, float(w[ok].abs().max()))
         err = float((a[ok] - w[ok]).abs().max())
         assert err <= BACKWARD_TOL * scale, err
-    assert bool(got[0].isnan().any()) == (case == "poison")
+    assert bool(got[0].isnan().any()) == (case in ("poison", "inf_mix"))
     if case == "poison":
         assert int(want[1][0, 2].isinf().any(-1).sum()) == 2
-        # the inf cotangent poisons level 2's 45 columns of row 2 and the
-        # pixel's df1; the NaN coordinate every level of row 1
-        assert int(got[1][0, 2].isnan().any(-1).sum()) == 45
+        # the inf cotangent gives +-inf on the two columns its tap weights,
+        # NaN on level 2's 43 others in row 2 and on the pixel's df1; the
+        # NaN coordinate poisons every level of row 1
+        assert int(got[1][0, 2].isinf().any(-1).sum()) == 2
+        assert int(got[1][0, 2].isnan().any(-1).sum()) == 43
+        assert bool(got[0][0, 2, 100].isnan().all())
         assert int(got[1][0, 1].isnan().any(-1).sum()) == st.f2cat.shape[2]
+    if case == "inf_mix":
+        df1, df2 = got
+        assert bool(df1[0, 0, 2].isinf().all())   # its level is 1 wide
+        # both windows' +inf taps reach columns 3 and 4 (inf - inf where
+        # the two pixels' fmap1 signs differ); the level's others are NaN
+        assert bool(df2[0, 1, 3:5].isinf().any(-1).all())
+        assert int(df2[0, 1, :12].isnan().all(-1).sum()) == 10
+        assert bool(df2[0, 2, 4].isinf().all())
+        assert bool(df2[0, 2, 5].isnan().all())
 
 
 def test_slice_width_leaves_every_bit(monkeypatch):
@@ -211,14 +265,26 @@ def test_slice_width_leaves_every_bit(monkeypatch):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("case", ["recipe", "poison", "outside"])
+@pytest.mark.parametrize("case", ["recipe", "poison", "outside", "inf_mix"])
 def test_emulation_matches_jax(case):
     """The emulated kernel's gradients, carried to fmap2 through the
     pyramid's pooling, against the JAX ``custom_vjp`` of the Pallas lookup
-    in interpret mode: NaN where JAX is not finite, within
-    ``BACKWARD_TOL`` of max(1, |JAX|) elsewhere."""
+    in interpret mode: NaN and +-inf exactly where JAX has them, within
+    ``BACKWARD_TOL`` of max(1, |JAX|) elsewhere.  One place differs, by
+    the TPU kernel's layout: an infinite tap that weights every column of
+    a 1-wide level gives its pixel's df1 +-inf in the plain version and
+    the kernel, and NaN in JAX, whose hat row also spans the level's lane
+    padding (inf * 0 there, times zero-padded fmap2 rows)."""
     f1, f2, x, g = _inputs(case)
-    want = _vjp_jax("pallas_alt", f1, f2, x, g, LEVELS, RADIUS)
+    want = [np.array(w) for w in _vjp_jax("pallas_alt", f1, f2, x, g,
+                                          LEVELS, RADIUS)]
+    if case == "inf_mix":
+        assert np.isnan(want[0][0, 0, 2]).all()
+        pst, px, pg = _port(f1, f2, x, g)
+        plain_df1 = cuda_alt.alt_corr_backward_plain(
+            pst.fmap1, pst.f2cat, pst.widths, px, pg, RADIUS)[0]
+        assert np.isinf(plain_df1[0, 0, 2].numpy()).all()
+        want[0][0, 0, 2] = plain_df1[0, 0, 2].numpy()
     t2 = _t(f2).requires_grad_()
     st = build_corr_state(_t(f1), t2, LEVELS)
     df1, df2cat = emulate(st.fmap1, st.f2cat.detach(), st.widths, _t(x),
@@ -226,8 +292,8 @@ def test_emulation_matches_jax(case):
     (df2,) = torch.autograd.grad(st.f2cat, t2, df2cat)
     for a, w in zip((df1.numpy(), df2.numpy()), want):
         assert a.shape == w.shape
-        # NaN where JAX is not finite (see ``_poison_matches``)
-        np.testing.assert_array_equal(np.isnan(a), ~np.isfinite(w))
+        # NaN and +-inf exactly where JAX has them
+        assert _nonfinite_matches(torch.from_numpy(a), torch.from_numpy(w))
         ok = np.isfinite(w)
         scale = max(1.0, float(np.abs(w[ok]).max()))
         np.testing.assert_allclose(a[ok], w[ok], rtol=0,

@@ -57,6 +57,62 @@ def test_alt_corr_kernel_matches_plain(dev, radius, levels):
                                equal_nan=True)
 
 
+def _lookup_field(dev, field, b, h, w, rng):
+    """x (b, h, w) on the card: ``smooth``, a low-frequency sine of x and
+    y in [-60, 0]; ``jump``, 8-pixel stripes near column 0 and near the
+    row's end, so every 32-pixel tile's level-0 span exceeds the kernel's
+    staging buffer and takes the wide-span path; ``diverged``, most
+    windows past every level (a diverged disparity field) and every 13th
+    pixel in range, so tiles stage the rows of a few pixels or none."""
+    i = np.arange(w, dtype=np.float32)
+    y = np.arange(b * h, dtype=np.float32).reshape(b, h, 1)
+    if field == "smooth":
+        x = i - 30.0 + 30.0 * np.sin(2 * np.pi * (i / 97.0 + y / 13.0))
+    elif field == "diverged":
+        x = i - 300.0 - 400.0 * rng.uniform(size=(b, h, w))
+        x[..., ::13] = i[::13] - 20.0 * rng.uniform(size=(b, h, w))[..., ::13]
+        x[:, 1:3] = -500.0        # whole rows past every level
+    else:
+        x = np.where((i // 8) % 2 == 1, w - 12.0, 0.0) + rng.uniform(
+            0, 10, (b, h, w))
+    return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("field,dtype", [
+    ("smooth", torch.float32), ("jump", torch.float32),
+    ("diverged", torch.float32), ("smooth", torch.bfloat16),
+    ("jump", torch.bfloat16), ("diverged", torch.bfloat16)],
+    ids=["smooth", "wide_span", "diverged", "smooth_bf16", "wide_span_bf16",
+         "diverged_bf16"])
+def test_alt_corr_kernel_smooth_and_wide_span_fields(dev, field, dtype):
+    """Row 1 on a smooth disparity field (narrow spans, all staged), on
+    a field whose jumps exceed the staging buffer (the wide-span path, in
+    the same kernel) and on a diverged one (tiles that stage a few pixels'
+    rows or none), at the serving row width (240, C=256): within
+    ``LOOKUP_TOL`` (1e-4) of plain in fp32, 1 bf16 ulp of max(1, |plain|)
+    with bf16 feature maps and output; two calls bitwise equal."""
+    rng = np.random.default_rng(31)
+    b, h, w = 1, 6, 240
+    st = build_corr_state(_randn(rng, b, h, w, 256).to(dev),
+                          _randn(rng, b, h, w, 256).to(dev), 4,
+                          corr_dtype=dtype)
+    x = _lookup_field(dev, field, b, h, w, rng)
+    before = cuda_alt.alt_corr.launches
+    got = cuda_alt.alt_corr(st.fmap1, st.f2cat, st.widths, x, 4, dtype)
+    got2 = cuda_alt.alt_corr(st.fmap1, st.f2cat, st.widths, x, 4, dtype)
+    assert cuda_alt.alt_corr.launches == before + 2
+    want = cuda_alt.alt_corr_plain(st.fmap1, st.f2cat, st.widths, x, 4,
+                                   dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, got2)
+    got, want = got.float(), want.float()
+    if dtype == torch.bfloat16:
+        err = (got - want).abs() / want.abs().clamp_min(1.0)
+        assert float(err.max()) <= 2.0 ** -7
+    else:
+        assert float((got - want).abs().max()) <= 1e-4
+
+
 # Row 2's card cases: (n_gru_layers, hd, corr_levels, batch, H, W, seed;
 # the bf16 test takes 30 + seed).  hd 32 and 128, one to three GRU levels
 # (ext 0 or hd), the 18-channel correlation of 2 levels, batch 2, a 37x53
@@ -209,22 +265,24 @@ ROW4_CASES = [
 def test_alt_corr_backward_every_form_matches_plain_and_first_form(
         dev, first_form_bwd, shape, c, levels, radius):
     """Row 4 at each of these shapes: within the plain version's tolerance
-    where that is finite, NaN where it is not (a NaN coordinate poisons
-    its pixel's df1 and its row's columns; an infinite cotangent its
-    pixel's df1 and one level's columns, where the plain version's dense
-    hat gives +-inf on the two columns the tap weights and NaN on the
-    others), two calls bitwise equal, and bitwise equal to the first form
-    of the kernel (the same summation order)."""
+    where that is finite, NaN exactly where it is NaN and the same +-inf
+    where it is infinite (a NaN coordinate poisons its pixel's df1 and its
+    row's columns; an infinite cotangent gives the two columns its tap
+    weights +-inf and the level's others in its row, and its pixel's df1,
+    NaN), two calls bitwise equal, and the finite outputs bitwise equal to
+    the first form of the kernel (the same summation order; the first
+    form wrote NaN where the dense hat gives +-inf)."""
     b, h, w = shape
     rng = np.random.default_rng(w + c + radius)
     st = build_corr_state(_randn(rng, b, h, w, c).to(dev),
                           _randn(rng, b, h, w, c).to(dev), levels)
     x = np.arange(w, dtype=np.float32) + rng.uniform(-w / 3, 10, (b, h, w))
     x[0, 0, :3] = [-200.5, w + 200.25, 1e6]
+    x[0, 0, 5] = 40.5     # level 1: tap 0 weights two columns inside it
     x[-1, -1, -1] = np.nan
     x = torch.from_numpy(x.astype(np.float32)).to(dev)
     g = _randn(rng, b, h, w, levels * (2 * radius + 1))
-    g[0, -1, 1, 2 * radius + 1] = float("inf")   # level 1 of the last row
+    g[0, 0, 5, 2 * radius + 1] = float("inf")   # level 1, tap 0
     g = g.to(dev)
     before = cuda_alt.alt_corr_backward.launches
     k1 = cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x, g,
@@ -237,11 +295,14 @@ def test_alt_corr_backward_every_form_matches_plain_and_first_form(
                                             g, radius)
     torch.cuda.synchronize()
     for a, a2, f, w in zip(k1, k2, first, want):
-        assert _same_bits(a, a2) and _same_bits(a, f)
-        ok = torch.isfinite(w)
-        assert torch.equal(a.isnan(), ~ok) and bool(a.isnan().any())
+        assert _same_bits(a, a2)
+        ok, inf = torch.isfinite(w), w.isinf()
+        assert torch.equal(a.isnan(), w.isnan()) and bool(a.isnan().any())
+        assert torch.equal(a.isinf(), inf) and torch.equal(a[inf], w[inf])
+        assert torch.equal(a[ok], f[ok])
         scale = max(1.0, float(w[ok].abs().max()))
         assert float((a[ok] - w[ok]).abs().max()) <= 1e-4 * scale
+    assert int(k1[1][0, 0].isinf().any(-1).sum()) == 2
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -683,6 +744,47 @@ def test_vol_lookup_backward_kernel_matches_plain(dev, shape, levels, radius):
     assert k1.shape == st.vcat.shape
     assert _same_bits(k1, k2) and _same_bits(k1, want)
     assert bool(torch.isnan(k1).any()) == (shape[2] > 4)
+
+
+# Row 6's non-finite and far cases: (radius, widths, seed).
+VOL_BWD_NONFINITE = [pytest.param(4, (180, 90, 45, 22), 40, id="recipe"),
+                     pytest.param(0, (60, 30), 41, id="radius0"),
+                     pytest.param(8, (64, 32, 16, 8, 4, 2, 1, 0), 42,
+                                  id="radius8_8_levels"),
+                     pytest.param(1, (2,), 43, id="one_level_2_wide")]
+
+
+@pytest.mark.parametrize("radius,widths,seed", VOL_BWD_NONFINITE)
+def test_vol_lookup_backward_nonfinite_bitwise(dev, radius, widths, seed):
+    """Row 6 on NaN coordinates, +-inf and NaN cotangents, -0 and
+    subnormal cotangents, integer and half-integer coordinates and
+    coordinates far past both edges (up to +-1e30 and +-inf): bitwise
+    equal to the plain version's dense form and to a second call."""
+    rng = np.random.default_rng(seed)
+    b, h, w1 = 2, 5, 64
+    k = 2 * radius + 1
+    x = (np.arange(w1) - rng.uniform(0, 40, (b, h, w1))).astype(np.float32)
+    x[0, 0, :10] = [np.nan, -200.5, w1 + 300.25, 1e7, -1e7, 1e30, -1e30,
+                    np.inf, -np.inf, 2.0 ** 24 + 2]
+    x[0, 1] = np.arange(w1) * 0.5 - 8.0    # integers and half-integers
+    g = rng.normal(size=(b, h, w1, len(widths) * k)).astype(np.float32)
+    x[0, 2, 3], x[0, 2, 9] = radius + 0.5, 0.25 - radius
+    g[0, 2, 3, 0] = np.inf        # level 0's first tap: columns 0 and 1
+    g[0, 2, 9, k - 1] = -np.inf   # level 0's last tap: columns 0 and 1
+    g[1, 0, 5, k // 2] = np.nan
+    g[1, 1, :, 0] = -0.0
+    g[1, 2, :, -1] = 1e-41
+    x = torch.from_numpy(x).to(dev)
+    g = torch.from_numpy(g).to(dev)
+    k1 = cuda_vol.vol_lookup_backward(x, g, widths, radius)
+    k2 = cuda_vol.vol_lookup_backward(x, g, widths, radius)
+    want = cuda_vol.vol_lookup_backward_plain(x, g, widths, radius)
+    torch.cuda.synchronize()
+    for a in (k2, want):   # NaN where plain is NaN, the same bits elsewhere
+        ok = ~a.isnan()
+        assert torch.equal(k1.isnan(), ~ok)
+        assert torch.equal(k1[ok].view(torch.int32), a[ok].view(torch.int32))
+    assert bool(want.isnan().any()) and bool(want.isinf().any())
 
 
 @pytest.mark.parametrize("b,h,w1,w2,c", [
