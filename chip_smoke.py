@@ -7,10 +7,11 @@ Phases, none caught: (1) print the card's name and power limit; (2) build
 the CUDA kernels from ``raftstereo_tpu_torch/csrc``, printing ptxas's
 registers, shared memory and spills of each tensor-core kernel (row 2's
 fused update, ``gru_update.cu``; rows 9, 15 and 16's encoder convs,
-``enc_conv_tc.cu``) and, where ``cuobjdump`` exists, the count of
-tensor-core instructions (HMMA/HGMMA) in each library, which must not be
-0; (3) hold each kernel against its plain PyTorch version on the card
-at the shapes its main path gives it, and time both (the tensor-core
+``enc_conv_tc.cu``; row 13's stem, ``enc_conv.cu``) and, where
+``cuobjdump`` exists, the count of tensor-core instructions (HMMA/HGMMA)
+in each library, which must not be 0; (3) hold each kernel against its
+plain PyTorch version on the card at the shapes its main path gives it,
+and time both (the tensor-core
 kernels' ``bound_ms`` is their 3xTF32 tensor-core bound, also
 ``bound_tc_ms``, with ``bound_cuda_core_ms`` beside it; the update also
 as a ratio to its plain version's time): the serving path's lookup and
@@ -23,7 +24,8 @@ and, held only, on jumps wider than its staging buffer (its wide-span
 path), the backward also with infinite cotangents (NaN and +-inf exactly
 where plain has them), and
 the fused encoder stages' kernels at the fused serving path's shapes
-(fnet's 2 images and cnet's 1 at 576x960, layer2 at 288x480), the
+(fnet's 2 images and cnet's 1 at 576x960, each with its own conv1 row;
+layer2 at 288x480), the
 stride-2 conv1 at the ``n_downsample=3`` shape and the stats kernel at a
 batch-3 fnet shape (6 images); the backward and the encoder kernels also
 bitwise repeatable; (4) serve three 540x960, 32-iteration requests of the
@@ -67,7 +69,8 @@ backward).  Every training phase also checks that no kernel off its path
 launched.  Then bf16 serving (``compute_dtype="bfloat16"``, the JAX
 package's ``--mixed_precision``): (16) hold the bf16 forms of the lookup
 and the fused update and the lookup with convc1 fused in (bf16 feature
-maps, the serving shapes) against their plain versions, in bf16 ulps;
+maps, the serving shapes; the two lookups also, held only, on jumps wider
+than the staging buffer) against their plain versions, in bf16 ulps;
 (17) serve three requests with bf16 compute and bf16 feature maps through
 the fused update (32 bf16 lookups and 32 bf16 updates per request) and
 three through the module step (32 fused-convc1 lookups per request, no
@@ -385,7 +388,7 @@ def _ptxas_label(mangled: str) -> str:
     mangled kernel name."""
     name = re.search(r"(gru_mma_conv_kernel|gru_simt_conv_kernel|"
                      r"conv3x3_few_out_kernel|pad_rows_kernel|"
-                     r"enc_conv_tc_kernel)I(.*?)EEv", mangled)
+                     r"enc_conv_tc_kernel|enc_conv_kernel)I(.*?)EEv", mangled)
     if not name:  # _ZN <namespace> <name> E...: lengths, then characters
         ns = re.match(r"_ZN(\d+)", mangled)
         at = ns.end() + int(ns.group(1)) if ns else 0
@@ -403,9 +406,9 @@ def build_report(name, lib) -> None:
     memory is its TMA ring of 128-byte rows, BM = 32*MT pixel rows and BN
     = 16*NT weight rows per plane, 4 stages where one is at most 28 KB,
     else 3, and a barrier per stage; rows 9, 15 and 16's
-    ``enc_conv_tc_kernel<stride,mode,projection,MT,NT>``'s is set at
-    launch), and the tensor-core instructions in the library, which must
-    not be 0."""
+    ``enc_conv_tc_kernel<stride,mode,projection,MT,NT>``'s and row 13's
+    ``stem7_tc_kernel``'s are set at launch), and the tensor-core
+    instructions in the library, which must not be 0."""
     entry = spill = None
     for line in lib.with_suffix(".log").read_text().splitlines():
         props = re.search(r"Function properties for (\S+)", line)
@@ -600,6 +603,29 @@ def lookup_hold(state, x, r, label, torch, dtype=None):
                       f"on the {label} field")
 
 
+def epi_hold(state, x, r, ew, eb, label, torch):
+    """The lookup with convc1 fused against its plain version on x, timed,
+    with no row: within EPI_ULPS, two calls bitwise equal."""
+    from raftstereo_tpu_torch.ops import cuda_alt
+
+    def kern():
+        return cuda_alt.alt_corr_epi(state.fmap1, state.f2cat, state.widths,
+                                     x, r, ew, eb)
+
+    got, again = kern(), kern()
+    want = cuda_alt.alt_corr_epi_plain(state.fmap1, state.f2cat,
+                                       state.widths, x, r, ew, eb)
+    torch.cuda.synchronize()
+    err = ulps(got, want)
+    ms = time_ms(kern, 50)
+    print(f"alt_corr_epi ({label}, {dims(x)}, {state.fmap1.dtype}) err "
+          f"{err:.3f} bf16 ulps (tol {EPI_ULPS}) ms {ms:.4f} [{CARD}]")
+    check(torch.equal(got, again), f"alt_corr_epi: two calls on the {label}"
+                                   f" field differ")
+    check(err <= EPI_ULPS, f"alt_corr_epi disagrees with its plain version "
+                           f"by {err} bf16 ulps on the {label} field")
+
+
 def _leaves(out):
     if out is None:
         return []
@@ -731,7 +757,17 @@ def encoder_kernel_phase(model, bucket, torch):
         lambda: ce.conv_plain(img, w1, b1, 1), n, ENC_TOL,
         4 * (img.numel() + w1.numel() + 64 + out + 2 * 2 * 64),
         conv_cost(img, w1, out, n_in=0),
-        lib=lambda: F.conv2d(img, w1, b1, 1, 3), reps=10)
+        lib=lambda: F.conv2d(img, w1, b1, 1, 3), reps=10,
+        products=conv_products(w1, out))
+    img1 = img[:1].contiguous()  # cnet's image: batch 1, no sums
+    row("stem_conv7", "raftstereo_tpu/ops/pallas_encoder.py:648",
+        f"{dims(img1)} no sums",
+        lambda: ce.stem_conv7(img1, w1, b1, want_stats=False),
+        lambda: ce.conv_plain(img1, w1, b1, 1, want_stats=False), 1.0,
+        ENC_TOL, 4 * (img1.numel() + w1.numel() + 64 + out // 2),
+        conv_products(w1, out // 2) + out // 2,  # the products, the bias
+        lib=lambda: F.conv2d(img1, w1, b1, 1, 3), reps=10,
+        products=conv_products(w1, out // 2))
     x = randn(2, 64, h, w)
     r = randn(2, 64, h, w)
     a, ra = aff(2, 64), aff(2, 64)
@@ -789,13 +825,11 @@ def encoder_kernel_phase(model, bucket, torch):
         FINISH_TOL, 4 * (4 * y.numel() + 6 * 2 * 96), 12 * y.numel(),
         reps=20)
 
-    # -- cnet, 1 image, batch norm: the same kernels without sums
-    img1, x1, t1 = img[:1].contiguous(), x[:1].contiguous(), t[:1].contiguous()
+    # -- cnet, 1 image, batch norm: the same kernels without sums (conv1's
+    # row is above)
+    x1, t1 = x[:1].contiguous(), t[:1].contiguous()
     ab = aff(1, 64)
     for label, kern, plain in (
-            (f"stem_conv7 {dims(img1)} no sums",
-             lambda: ce.stem_conv7(img1, w1, b1, want_stats=False),
-             lambda: ce.conv_plain(img1, w1, b1, 1, want_stats=False)),
             (f"stage_conv {dims(x1)} no sums",
              lambda: ce.stage_conv(x1, ab, wc, bc, want_stats=False),
              lambda: ce.conv_plain(x1, wc, bc, 1, ab, want_stats=False)),
@@ -1242,6 +1276,7 @@ def bf16_kernel_phase(model, lo_hw, torch):
     c1 = model.update_block.encoder.convc1
     ew = c1.weight.detach()[:, :, 0, 0].t().to(bf).contiguous()
     eb = c1.bias.detach().to(bf).contiguous()
+    epi_hold(state, jump_field(1, h, w, torch), r, ew, eb, "wide-span", torch)
     row("alt_corr_epi", "serve_bf16_xla", "alt_corr_epi",
         "raftstereo_tpu/ops/pallas_alt.py:172",
         lambda: cuda_alt.alt_corr_epi(state.fmap1, state.f2cat, state.widths,
@@ -2071,7 +2106,7 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    for name in ("gru_update", "enc_conv_tc"):
+    for name in ("gru_update", "enc_conv_tc", "enc_conv"):
         build_report(name, libs[name])
 
     cfg = RAFTStereoConfig(corr_implementation="pallas_alt",

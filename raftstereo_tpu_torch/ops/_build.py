@@ -3,10 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library, loaded
 with ``ctypes``.  Libraries go to ``raftstereo_tpu_torch/build/`` (git
-ignored), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  The first ``load``
-builds every source at once, one ``nvcc`` process per file, all started
-together.  Nothing builds at import time.
+ignored), named by a hash of the source, every ``csrc/*.cuh`` header and
+the flags, so an edited source or header rebuilds and an unchanged one is
+reused.  The first ``load`` builds every source at once, one ``nvcc``
+process per file, all started together.  Nothing builds at import time.
 """
 
 from __future__ import annotations
@@ -14,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -35,6 +36,20 @@ def sources() -> Dict[str, Path]:
     return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
 
 
+def headers() -> List[Path]:
+    """The headers the sources may include, in name order."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def source_text(name: str) -> str:
+    """Kernel ``name``'s source with the text of each local header it
+    includes (``#include "x.cuh"``) after it."""
+    text = sources()[name].read_text()
+    for inc in re.findall(r'^#include "([^"]+)"', text, re.M):
+        text += "\n" + (CSRC / inc).read_text()
+    return text
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -47,7 +62,10 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(src.read_bytes())
+    for hdr in headers():  # any header may be included: hash them all
+        h.update(hdr.name.encode() + hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
 
 

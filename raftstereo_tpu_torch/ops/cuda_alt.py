@@ -33,7 +33,10 @@ bf16 serving path's form reads about 53 MB per call (about 16 us).
 file: the lookup's columns rounded to bf16, then ``relu(cols @ W + b)``
 with bf16 W and b, fp32 sums, bf16 out.  Inference-only, as in the JAX
 package (training keeps the module conv).  Bytes bound: about 55 MB per
-call at the bf16 serving shapes, about 17 us.
+call at the bf16 serving shapes, about 17 us.  Its kernel shares the
+forward's staged tiles (``csrc/alt_corr_tile.cuh``) and replaces only the
+output step: per 32-pixel tile, the columns and W in shared memory and
+the 32 x 64 product in fp32 FMAs.
 
 ``alt_corr``, ``alt_corr_epi`` and ``alt_corr_backward`` run the plain
 version for CPU tensors and the kernel for CUDA tensors; they never fall
@@ -203,6 +206,8 @@ def alt_corr_epi(fmap1: torch.Tensor, f2cat: torch.Tensor,
         raise ValueError(f"alt_corr_epi takes bf16 w {(lk, 64)} and b (64,);"
                          f" got {w.dtype} {tuple(w.shape)}, {b.dtype} "
                          f"{tuple(b.shape)}")
+    if w.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("alt_corr_epi needs 16-byte aligned w and b")
     dev = fmap1.device
     out = torch.empty((bb, h, w1, 64), dtype=torch.bfloat16, device=dev)
     offs = [sum(widths[:i]) for i in range(nlev)]

@@ -1,7 +1,8 @@
 """The fused encoder stages' kernels: ``csrc/enc_conv_tc.cu`` (the 3x3
 convs of layer1 and layer2 on the tensor cores, 3xTF32: prep ->
-convolution -> + bias), ``csrc/enc_conv.cu`` (the 7x7 stems on the CUDA
-cores), both with per-(image, channel) output sums, ``csrc/enc_stats.cu``
+convolution -> + bias), ``csrc/enc_conv.cu`` (the 7x7 stems: stride 1 on
+the tensor cores, 3xTF32; stride 2 on the CUDA cores), both with
+per-(image, channel) output sums, ``csrc/enc_stats.cu``
 (the plane sums of a tensor, and the two sums of the instance-norm
 backward) and ``csrc/enc_finish.cu`` (the stages' last elementwise pass),
 their plain PyTorch versions, and one wrapper per TPU kernel they
@@ -11,6 +12,7 @@ replace, each with its own ``launches`` count:
 wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
 =====================  ==================================================
 ``stem_conv7``         row 13, ``pallas_encoder.py`` ``_stem7_kernel``
+                       (``enc_conv.cu``, tensor cores)
 ``stem_conv7_s2``      row 12, ``pallas_encoder.py`` ``_stem7s2_kernel``
 ``stage_conv``         row 9, ``pallas_encoder.py`` ``_enc_conv_kernel``,
                        ``_enc_conv_res_kernel`` (``enc_conv_tc.cu``)
@@ -53,8 +55,11 @@ from .cuda_gru import tf32_round
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
 
-# enc_conv.cu's output tile and channel tile (kTileH, kTileW, kCoutTile).
+# enc_conv.cu's output tile and channel tile (kTileH, kTileW, kCoutTile;
+# the tensor-core stem's tile is the same 8x32, all 64 outputs), and the
+# tensor-core stem's weight shape (3 -> 64 channels, 7x7).
 _TILE_H, _TILE_W, _COUT_TILE = 8, 32, 32
+STEM_WEIGHT = (64, 3, 7, 7)
 _NONE, _PREP, _RES, _RES_PROJ = 0, 1, 2, 3
 # enc_conv_tc.cu's geometry: output rows per block (kTH), input channels
 # per stage (kKC), and its instances (kInst) by wrapper: (instance id,
@@ -183,8 +188,10 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
     """One launch of wrapper ``name``'s kernel: ``enc_conv_tc_forward``
     for the tensor-core instances (``TC_INSTANCES``: the 3x3 convs of rows
     9, 15 and 16, weights as ``tc_pack``; ``proj`` the projection's
-    (weight, bias)), else ``enc_conv_forward`` (the 7x7 stems, raw
-    image).  Returns (y, yp or None, stats (B, 2, CH) or None)."""
+    (weight, bias)), ``enc_stem7_tc_forward`` for the stride-1 stem (row
+    13 on the tensor cores, OIHW weights split in the kernel), else
+    ``enc_conv_forward`` (the stride-2 stem, raw image).  Returns (y, yp or
+    None, stats (B, 2, CH) or None)."""
     cout, cin, ks, _ = weight.shape
     b, c, h, wd = x.shape
     if c != cin or cout % _COUT_TILE:
@@ -201,6 +208,7 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
     bias = bias.detach().contiguous()
     bp = None if proj is None else proj[1].detach().contiguous()
     tc = name in TC_INSTANCES
+    stem = name == "stem_conv7"
     if tc:
         inst, inst_stride = TC_INSTANCES[name][:2]
         if ks != 3 or stride != inst_stride:
@@ -209,12 +217,16 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
         ho, wo, _, bn, nb = tc_geometry(h, wd, name)
         w = tc_pack(weight, None if proj is None else proj[0], bn)
     else:
+        if stem and tuple(weight.shape) != STEM_WEIGHT:
+            raise ValueError(f"{name}: weight {tuple(weight.shape)}; the "
+                             f"tensor-core stem takes {STEM_WEIGHT}")
         pad = ks // 2
         ho = (h + 2 * pad - ks) // stride + 1
         wo = (wd + 2 * pad - ks) // stride + 1
         nb = -(-ho // _TILE_H) * -(-wo // _TILE_W)
-        # (Cin, k, k, Cout)
-        w = weight.detach().permute(1, 2, 3, 0).contiguous()
+        # OIHW for the tensor-core stem, else (Cin, k, k, Cout)
+        w = (weight.detach().contiguous() if stem else
+             weight.detach().permute(1, 2, 3, 0).contiguous())
     dev = _check(name, x, s, t, res, rs, rt, w, bias, bp)
     y = torch.empty((b, cout, ho, wo), dtype=torch.float32, device=dev)
     yp = torch.empty_like(y) if proj is not None else None
@@ -229,6 +241,10 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
         ptrs = [_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
                 _ptr(w), _ptr(bias), _ptr(bp), _ptr(y), _ptr(yp)]
         ints = [b, cin, h, wd, cout, inst, mode, nb, bn]
+    elif stem:
+        fn = _build.load("enc_conv").enc_stem7_tc_forward
+        ptrs = [_ptr(x), _ptr(w), _ptr(bias), _ptr(y)]
+        ints = [b, h, wd, nb]
     else:
         fn = _build.load("enc_conv").enc_conv_forward
         ptrs = [_ptr(x), _ptr(w), _ptr(bias), _ptr(y)]

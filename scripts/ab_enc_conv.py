@@ -1,22 +1,28 @@
-"""Rows 9, 15 and 16 (the fused encoder's 3x3 convs: ``stage_conv``,
-``l2_entry`` and ``l2_conv``) of one checkout of the PyTorch port, on the
-card, for A/B comparisons of two trees in one call:
+"""Rows 13, 12, 9, 15 and 16 (the fused encoder's convs: the 7x7 stems
+``stem_conv7`` and ``stem_conv7_s2``, the 3x3 ``stage_conv``, ``l2_entry``
+and ``l2_conv``) of one checkout of the PyTorch port, on the card, for
+A/B comparisons of two trees in one call:
 
-    python3 scripts/ab_enc_conv.py ROOT [--report] [--profile]
+    python3 scripts/ab_enc_conv.py ROOT [--report] [--profile] [--stems]
 
 ROOT is a checkout (or ``git archive``) holding ``raftstereo_tpu_torch``;
 its kernels build under ROOT.  Prints one line per tree: each row's
 CUDA-event time (``chip_smoke.time_ms``, from this script's checkout) at
-the fused serving shapes (fnet 2x64x576x960 with sums, cnet 1 image
-without; the residual form of row 9 with sums; row 16 at layer2's
-2x96x288x480, its res_proj form too) and the fused training shapes (fnet
-12x64x320x720 with sums, cnet 6 images without; row 16 at 12x96x160x360,
-both forms), each with its largest error against the plain version,
-relative to max(1, |plain|) (sums per pixel, as ``chip_smoke.hold``),
-and beside row 16 one ``F.conv2d`` of the same input and weights.
-``--report`` prints the ptxas report (registers, shared memory, spills)
-of the encoder conv libraries first, ``--profile`` each call's kernels
-by device time.  Run parent, change, change, parent in one call and
+the fused serving shapes (row 13: fnet's 2x3x576x960 image with sums,
+cnet's 1 image without; row 12 at the same input with sums, the
+``n_downsample=3`` stem; each beside one ``F.conv2d`` of the same input
+and weights, and with a SHA-256 digest of its outputs; then fnet
+2x64x576x960 with sums, cnet 1 image without; the residual form of row 9
+with sums; row 16 at layer2's 2x96x288x480, its res_proj form too) and
+the fused training shapes (fnet 12x64x320x720 with sums, cnet 6 images
+without; row 16 at 12x96x160x360, both forms), each with its largest
+error against the plain version, relative to max(1, |plain|) (sums per
+pixel, as ``chip_smoke.hold``), and beside row 16 one ``F.conv2d`` of the
+same input and weights.  ``--report`` prints the ptxas report
+(registers, shared memory, spills) of the encoder conv libraries first,
+``--profile`` each call's kernels by device time, ``--stems`` times the
+stems alone (a tree whose ``csrc`` holds only ``enc_conv.cu``: a stem
+form being tried).  Run parent, change, change, parent in one call and
 compare within it.
 """
 
@@ -48,6 +54,7 @@ def main() -> int:
     ap.add_argument("root")
     ap.add_argument("--report", action="store_true")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--stems", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -90,8 +97,49 @@ def main() -> int:
     wp, bp = randn(96, 64, 1, 1, scale=(2 / 64) ** 0.5), randn(96, scale=0.1)
     wl, bl = randn(96, 96, 3, 3, scale=(2 / 864) ** 0.5), randn(96, scale=0.1)
     out = []
-    for path, b, (h, w) in (("serve", 2, (576, 960)),
-                            ("train", 12, (320, 720))):
+    import hashlib
+
+    def sha(outs):
+        hs = hashlib.sha256()
+        for t in outs:
+            hs.update(t.detach().cpu().contiguous().numpy().tobytes())
+        return hs.hexdigest()[:16]
+
+    # -- the stems (rows 13 and 12) at the fused serving input
+    img = torch.tanh(randn(2, 3, 576, 960))
+    img1 = img[:1].contiguous()
+    w1, b1 = randn(64, 3, 7, 7, scale=(2 / 147) ** 0.5), randn(64, scale=0.1)
+    for label, npix, kern, plain, lib in (
+            ("row13 2x3x576x960", 576.0 * 960,
+             lambda: ce.stem_conv7(img, w1, b1),
+             lambda: ce.conv_plain(img, w1, b1, 1),
+             lambda: F.conv2d(img, w1, b1, 1, 3)),
+            ("row13 1x3 no sums", 576.0 * 960,
+             lambda: ce.stem_conv7(img1, w1, b1, want_stats=False),
+             lambda: ce.conv_plain(img1, w1, b1, 1, want_stats=False),
+             lambda: F.conv2d(img1, w1, b1, 1, 3)),
+            ("row12 2x3x576x960", 288.0 * 480,
+             lambda: ce.stem_conv7_s2(img, w1, b1),
+             lambda: ce.conv_plain(img, w1, b1, 2),
+             lambda: F.conv2d(img, w1, b1, 2, 3))):
+        got, got2, want = _leaves(kern()), _leaves(kern()), _leaves(plain())
+        torch.cuda.synchronize()
+        err = 0.0
+        for k, p in zip(got, want):
+            if k.dim() == 2:
+                k, p = k / npix, p / npix
+            err = max(err, float((k - p).abs().max())
+                      / max(1.0, float(p.abs().max())))
+        same = all(torch.equal(a, c) for a, c in zip(got, got2))
+        ms = chip_smoke.time_ms(kern, 10)
+        lib_ms = chip_smoke.time_ms(lib, 10)
+        out.append(f"{label} ms {ms:.4f} err {err:.2e} repeatable {same} "
+                   f"sha {sha(got)} F.conv2d ms {lib_ms:.4f}")
+        del got, got2, want
+    del img, img1
+    torch.cuda.empty_cache()
+    paths = (("serve", 2, (576, 960)), ("train", 12, (320, 720)))
+    for path, b, (h, w) in () if args.stems else paths:
         x, r = randn(b, 64, h, w), randn(b, 64, h, w)
         a, ra = aff(b, 64), aff(b, 64)
         t = torch.relu(x)

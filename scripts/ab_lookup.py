@@ -1,5 +1,5 @@
-"""Rows 1, 6 and 4 (radial) of one checkout of the PyTorch port, on the
-card, for A/B comparisons of two trees in one call:
+"""Rows 1, 18, 6 and 4 (radial) of one checkout of the PyTorch port, on
+the card, for A/B comparisons of two trees in one call:
 
     python3 scripts/ab_lookup.py ROOT [--report] [--profile] [--request]
 
@@ -14,7 +14,14 @@ CUDA-event time (``chip_smoke.time_ms``, ROOT's where ROOT has a
   field (x = column - 60 U(0, 1)) and on a smooth one (a low-frequency
   sine of x and y in [-60, 0]), and at the evaluation grid (1x96x312,
   fp32, random), each with its largest error against the plain version
-  (absolute in fp32, in bf16 ulps of max(1, |plain|) in bf16);
+  (absolute in fp32, in bf16 ulps of max(1, |plain|) in bf16) and a
+  SHA-256 digest of its output: equal digests from two trees mean
+  bitwise equal lookups;
+- row 18, the lookup with convc1 fused (``alt_corr_epi``), at the serving
+  grid with fp32 and with bf16 feature maps, on the random, smooth and
+  jump fields (the jump field's spans outgrow the staging buffer: the
+  wide-span path), with its largest error against the plain version in
+  bf16 ulps;
 - row 6, the volume lookup's backward (``vol_lookup_backward``), at the
   training recipe (6x80x180, levels 180/90/45/22), with whether it is
   bitwise equal to the plain version;
@@ -33,7 +40,9 @@ model (seeded weights, a seeded random 576x960 pair, 32 iterations),
 records the 32 lookups' coordinates, prints their disparity statistics
 and the share of (32-pixel tile, level) spans that outgrow this
 checkout's staging buffer, and times the tree's lookup on each recorded
-input: the lookup as a request drives it.  Run parent, change, change,
+input: the lookup as a request drives it; then the same for the 32
+fused-convc1 lookups of a ``serve_bf16_xla`` request (bf16 compute and
+feature maps, the module GRU step).  Run parent, change, change,
 parent in one call and compare within it.
 """
 
@@ -51,7 +60,8 @@ C, LEVELS, RADIUS = 256, 4, 4
 LOOKUP_SHAPES = (("serve", 1, 144, 240), ("train", 6, 80, 180))
 EVAL_SHAPE = ("eval", 1, 96, 312)
 RECIPE = (6, 80, 180)
-LIBS = ("alt_corr", "corr_vol_bwd", "alt_corr_bwd")
+LIBS = ("alt_corr", "alt_corr_epi", "corr_vol_bwd", "alt_corr_bwd")
+EPI_FIELDS = ("random", "smooth", "jump")
 
 
 def _short(name: str) -> str:
@@ -61,18 +71,26 @@ def _short(name: str) -> str:
 
 
 def digest(tensors) -> str:
+    import torch
+
     h = hashlib.sha256()
     for t in tensors:
-        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
     return h.hexdigest()[:16]
 
 
 def field(kind, b, h, w, g, torch):
     """x (b, h, w): column minus a disparity in [-60, 0], random per pixel
-    or a low-frequency sine of x and y."""
+    or a low-frequency sine of x and y; or ``jump``, stripes whose windows
+    lie a row apart (every tile's level-0 span outgrows the staging
+    buffer)."""
     xx = torch.arange(w, dtype=torch.float32)
     if kind == "random":
         return xx - 60.0 * torch.rand((b, h, w), generator=g)
+    if kind == "jump":  # 8-pixel stripes near column 0 and the row's end
+        base = torch.where((xx // 8) % 2 == 1, float(w - 12), 0.0)
+        return base + 10.0 * torch.rand((b, h, w), generator=g)
     yy = torch.arange(b * h, dtype=torch.float32).reshape(b, h, 1)
     return xx - 30.0 + 30.0 * torch.sin(2 * math.pi * (xx / 97.0
                                                          + yy / 13.0))
@@ -83,8 +101,10 @@ def wide_share(xs, widths, radius) -> str:
     the staging buffer, by this checkout's ``alt_corr.cu`` constants."""
     import numpy as np
 
-    src = open(os.path.join(HERE, "raftstereo_tpu_torch", "csrc",
-                            "alt_corr.cu")).read()
+    csrc = os.path.join(HERE, "raftstereo_tpu_torch", "csrc")
+    src = "".join(open(os.path.join(csrc, f)).read()
+                  for f in ("alt_corr.cu", "alt_corr_tile.cuh")
+                  if os.path.exists(os.path.join(csrc, f)))
     tp, cap = (int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
                for n in ("kTilePix", "kSpanRows"))
     wide = total = 0
@@ -108,23 +128,24 @@ def wide_share(xs, widths, radius) -> str:
     return f"{wide}/{total}"
 
 
-def request(torch, chip_smoke, cuda_alt, root) -> None:
-    """``--request``: the lookups of one served flagship request."""
+def request(torch, chip_smoke, root, label, owner, name, **cfg) -> None:
+    """``--request``: the lookups of one served flagship request (config
+    ``cfg``), recorded where the model calls ``owner.name``, then timed
+    alone on each recorded input."""
     import numpy as np
 
     from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig
 
-    seen, orig = [], cuda_alt.alt_corr
+    seen, orig = [], getattr(owner, name)
 
     def record(fmap1, f2cat, widths, x, radius, *a, **k):
-        seen.append((fmap1, f2cat, tuple(widths), x.clone(), radius))
+        seen.append((fmap1, f2cat, tuple(widths), x.clone(), radius, a, k))
         return orig(fmap1, f2cat, widths, x, radius, *a, **k)
 
     record.launches = 0
-    cuda_alt.alt_corr = record  # _AltCorrFunction calls it by this name
+    setattr(owner, name, record)
     model = RAFTStereo(RAFTStereoConfig(corr_implementation="pallas_alt",
-                                        gru_backend="fused"),
-                       device="cuda", seed=0)
+                                        **cfg), device="cuda", seed=0)
     rng = np.random.default_rng(0)
     left, right = (torch.from_numpy(rng.uniform(0, 255, (1, 576, 960, 3))
                                     .astype(np.float32)).cuda()
@@ -132,19 +153,21 @@ def request(torch, chip_smoke, cuda_alt, root) -> None:
     with torch.inference_mode():
         model(left, right, iters=32, test_mode=True)
     torch.cuda.synchronize()
-    cuda_alt.alt_corr = orig
+    setattr(owner, name, orig)
     xs = [s[3].cpu().numpy() for s in seen]
     disp = np.stack(xs) - np.arange(xs[0].shape[-1])
-    ms = [chip_smoke.time_ms(lambda s=s: orig(*s[:4], s[4]), 20, 3)
+    ms = [chip_smoke.time_ms(lambda s=s: orig(*s[:5], *s[5], **s[6]), 20, 3)
           for s in seen]
-    print(f"{root} [{torch.cuda.get_device_name(0)}] request: {len(seen)} "
-          f"lookups of {tuple(seen[0][3].shape)}, disparity mean "
+    print(f"{root} [{torch.cuda.get_device_name(0)}] request ({label}): "
+          f"{len(seen)} lookups of {tuple(seen[0][3].shape)}, disparity mean "
           f"{disp.mean():.1f} std {disp.std():.1f} (last lookup "
           f"{disp[-1].mean():.1f}), spans past the staging buffer "
           f"{wide_share(xs[::4], seen[0][2], seen[0][4])} of every 4th "
           f"lookup's; kernel time summed over the recorded inputs "
           f"{sum(ms):.3f} ms (first {ms[0]:.4f}, last {ms[-1]:.4f}, max "
           f"{max(ms):.4f})", flush=True)
+    del model, seen
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -171,7 +194,15 @@ def main() -> int:
     fp32_numerics()  # the plain versions' matmuls in fp32, not TF32
     libs = _build.build_all()
     if args.request:
-        request(torch, chip_smoke, cuda_alt, root)
+        from raftstereo_tpu_torch.ops import corr
+
+        # _AltCorrFunction calls cuda_alt.alt_corr by that name; the
+        # fused-convc1 lookup is called from ops.corr
+        request(torch, chip_smoke, root, "fp32, fused update", cuda_alt,
+                "alt_corr", gru_backend="fused")
+        request(torch, chip_smoke, root, "serve_bf16_xla", corr,
+                "alt_corr_epi", gru_backend="xla", compute_dtype="bfloat16",
+                corr_dtype="bfloat16")
         return 0
     if args.report:
         for name in (n for n in LIBS if n in libs):
@@ -230,10 +261,45 @@ def main() -> int:
             ms = chip_smoke.time_ms(kern, 50)
             tag = "bf16" if dtype == torch.bfloat16 else "fp32"
             out.append(f"alt_corr {label} {tag} {kind} {b}x{h}x{w} ms "
-                       f"{ms:.4f} err {err}")
+                       f"{ms:.4f} err {err} sha {digest([got])}")
             profile(f"alt_corr {label} {tag} {kind}", kern)
             del x, got, want
         states.clear()
+        torch.cuda.empty_cache()
+
+    if "alt_corr_epi" in libs:
+        # -- row 18 at the serving grid, both fmap dtypes
+        label, b, h, w = LOOKUP_SHAPES[0]
+        ew = (0.15 * torch.randn((LEVELS * (2 * RADIUS + 1), 64),
+                                 generator=g)).to(dev, torch.bfloat16)
+        eb = (0.1 * torch.randn((64,), generator=g)).to(dev, torch.bfloat16)
+        for dtype in (torch.float32, torch.bfloat16):
+            st = build_corr_state(
+                torch.randn((b, h, w, C), generator=g).to(dev),
+                torch.randn((b, h, w, C), generator=g).to(dev), LEVELS,
+                corr_dtype=dtype)
+            for kind in EPI_FIELDS:
+                x = field(kind, b, h, w, g, torch).to(dev).contiguous()
+
+                def epi():
+                    return cuda_alt.alt_corr_epi(st.fmap1, st.f2cat,
+                                                 st.widths, x, RADIUS, ew, eb)
+
+                got, got2 = epi(), epi()
+                want = cuda_alt.alt_corr_epi_plain(st.fmap1, st.f2cat,
+                                                   st.widths, x, RADIUS, ew,
+                                                   eb)
+                torch.cuda.synchronize()
+                same = torch.equal(got, got2)
+                ms = chip_smoke.time_ms(epi, 50)
+                tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+                out.append(f"alt_corr_epi {label} {tag}-in {kind} "
+                           f"{b}x{h}x{w} ms {ms:.4f} err "
+                           f"{chip_smoke.ulps(got, want):.2f}ulp "
+                           f"repeatable {same}")
+                profile(f"alt_corr_epi {label} {tag} {kind}", epi)
+                del x, got, got2, want
+            del st
         torch.cuda.empty_cache()
 
     # -- row 6 and row 4 radial at the recipe

@@ -38,8 +38,9 @@ LEVELS, RADIUS = 4, 4
 
 
 def geometry():
-    """The source's tiling constants."""
-    src = _build.sources()["alt_corr"].read_text()
+    """The source's tiling constants (in ``alt_corr_tile.cuh``, the staging
+    that ``alt_corr.cu`` and ``alt_corr_epi.cu`` share)."""
+    src = _build.source_text("alt_corr")
     names = ("kThreads", "kTilePix", "kSpanRows", "kRowBytes")
     return {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
             for n in names}

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig
+from raftstereo_tpu_torch.device import fp32_numerics
 from raftstereo_tpu_torch.ops import (_build, cuda_alt, cuda_encoder,
                                      cuda_gru, cuda_vol, quant)
 from raftstereo_tpu_torch.ops.corr import build_corr_state
@@ -432,6 +433,35 @@ def test_stem_conv7_kernels_match_plain(dev, b, h, w):
         _assert_kernel(*_twice(fn, img, wt, bias))
         y, st = fn(img, wt, bias, want_stats=False)
         assert st is None
+
+
+@pytest.mark.parametrize("b,want_stats", [(1, False), (2, True), (1, True),
+                                          (2, False)],
+                         ids=["cnet_b1", "fnet_b2_sums", "b1_sums",
+                              "b2_no_sums"])
+def test_stem_conv7_tensor_core_serving_shapes(dev, b, want_stats):
+    """Row 13 on the tensor cores at the fused serving input (576x960, the
+    model's 3 -> 64 channels): cnet's batch 1 without sums and fnet's
+    batch 2 with sums (and the other two pairings); within ENC_TOL (1e-4
+    of max(1, |plain|)) of plain, the sums per pixel; two calls bitwise
+    equal.  The plain version runs on the card in full fp32 (cuDNN's
+    default TF32 would be ~3e-4 off)."""
+    fp32_numerics()
+    rng = np.random.default_rng(13)
+    img = torch.tanh(_randn(rng, b, 3, 576, 960)).to(dev)
+    wt, bias = _wb(rng, dev, 64, 3, 7)
+    before = cuda_encoder.stem_conv7.launches
+    k1 = cuda_encoder.stem_conv7(img, wt, bias, want_stats=want_stats)
+    k2 = cuda_encoder.stem_conv7(img, wt, bias, want_stats=want_stats)
+    assert cuda_encoder.stem_conv7.launches == before + 2
+    want = cuda_encoder.conv_plain(img, wt, bias, 1, want_stats=want_stats)
+    torch.cuda.synchronize()
+    assert (k1[1] is None) == (not want_stats)
+    for a, c, p in zip(_leaves(k1), _leaves(k2), _leaves(want)):
+        assert torch.equal(a, c)
+        n = 576.0 * 960 if a.dim() == 2 else 1.0
+        scale = max(1.0, float((p / n).abs().max()))
+        assert float(((a - p) / n).abs().max()) <= 1e-4 * scale
 
 
 @pytest.mark.parametrize("cin,b,h,w", [(64, 2, 13, 2), (64, 1, 19, 45),
@@ -976,6 +1006,101 @@ def test_alt_corr_epi_kernel_matches_plain(dev, fmap_dtype):
     assert got.dtype == torch.bfloat16 and got.shape == (2, 11, 20, 64)
     assert _bf16_ulps(got, want) <= 2.0
     assert (got == 0).any() and (got > 0).any()
+    assert torch.isnan(got[1, 3, 4]).all()
+    got2 = cuda_alt.alt_corr_epi(st.fmap1, st.f2cat, st.widths, x, 4, ew, eb)
+    assert _same_bits(got, got2)
+
+
+@pytest.mark.parametrize("field,fmap_dtype", [
+    ("jump", torch.float32), ("jump", torch.bfloat16),
+    ("smooth", torch.float32), ("smooth", torch.bfloat16),
+    ("nan", torch.bfloat16)],
+    ids=["wide_span", "wide_span_bf16", "smooth", "smooth_bf16", "nan_bf16"])
+def test_alt_corr_epi_kernel_serving_fields(dev, field, fmap_dtype):
+    """Row 18 at the serving grid (1x144x240, C=256, 4 levels of radius 4)
+    on row 1's staged tiles: a field whose jumps outgrow the staging
+    buffer (the wide-span path), a smooth one, and the random field with
+    NaN and far coordinates; within 2 bf16 ulps of plain, NaN exactly
+    where plain has NaN, two calls bitwise equal."""
+    rng = np.random.default_rng(23)
+    b, h, w = 1, 144, 240
+    st = build_corr_state(_randn(rng, b, h, w, 256).to(dev),
+                          _randn(rng, b, h, w, 256).to(dev), 4,
+                          corr_dtype=fmap_dtype)
+    if field == "nan":
+        x = np.arange(w, dtype=np.float32) - rng.uniform(0, 60, (b, h, w))
+        x[0, ::7, ::11] = np.nan
+        x[0, 3, :4] = [-500.0, w + 400.5, np.inf, -np.inf]
+        x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    else:
+        x = _lookup_field(dev, field, b, h, w, rng)
+    ew = (_randn(rng, 36, 64) / 6).to(dev, torch.bfloat16)
+    eb = (_randn(rng, 64) / 10).to(dev, torch.bfloat16)
+    before = cuda_alt.alt_corr_epi.launches
+    got = cuda_alt.alt_corr_epi(st.fmap1, st.f2cat, st.widths, x, 4, ew, eb)
+    got2 = cuda_alt.alt_corr_epi(st.fmap1, st.f2cat, st.widths, x, 4, ew, eb)
+    assert cuda_alt.alt_corr_epi.launches == before + 2
+    want = cuda_alt.alt_corr_epi_plain(st.fmap1, st.f2cat, st.widths, x, 4,
+                                       ew, eb)
+    torch.cuda.synchronize()
+    assert _same_bits(got, got2)
+    assert _bf16_ulps(got, want) <= 2.0   # NaN positions equal
+    if field == "nan":
+        assert torch.isnan(got[0, ::7, ::11]).all()
+        assert torch.isnan(got[0, 3, 2:4]).all()
+
+
+# Row 1's outputs on numpy-seeded inputs, one digest per (field, fmap
+# dtype), from the kernel as it was before its staging and dot loop moved
+# into alt_corr_tile.cuh, measured on an H100 (CUDA 12.8) by
+# scripts/row1_digest.py: the shared header left row 1 bitwise unchanged.
+ROW1_DIGESTS = {"random_fp32": "95e207a9178831d8",
+                "smooth_fp32": "598867e7bba4d336",
+                "jump_fp32": "222fce4fd99b16e1",
+                "diverged_fp32": "4da9f036368a20a9",
+                "random_bf16": "541294ffa9fa69be",
+                "smooth_bf16": "f7adae6e2e7ad332",
+                "jump_bf16": "e4202c6f9e33cafe",
+                "diverged_bf16": "abec6880bba188b3"}
+
+
+def row1_digest_cases(dev):
+    """(case id, thunk) for each row-1 digest case: the serving grid's
+    1x144x240 feature maps, fp32 and bf16, out in the fmaps' dtype, on the
+    random, smooth, jump and diverged fields."""
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        rng = np.random.default_rng(41)
+        b, h, w = 1, 144, 240
+        st = build_corr_state(_randn(rng, b, h, w, 256).to(dev),
+                              _randn(rng, b, h, w, 256).to(dev), 4,
+                              corr_dtype=dtype)
+        for field in ("random", "smooth", "jump", "diverged"):
+            if field == "random":
+                x = torch.from_numpy((np.arange(w, dtype=np.float32)
+                                      - rng.uniform(0, 60, (b, h, w)))
+                                     .astype(np.float32)).to(dev)
+            else:
+                x = _lookup_field(dev, field, b, h, w, rng)
+            tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+            cases.append((f"{field}_{tag}",
+                          lambda st=st, x=x, dtype=dtype: cuda_alt.alt_corr(
+                              st.fmap1, st.f2cat, st.widths, x, 4, dtype)))
+    return cases
+
+
+def sha256(t):
+    import hashlib
+    return hashlib.sha256(t.cpu().contiguous().view(torch.uint8).numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def test_alt_corr_bitwise_unchanged_by_the_shared_header(dev):
+    """Row 1 after its staging and dot loop moved into alt_corr_tile.cuh
+    (shared with row 18): the same output bits as the parent's kernel on
+    every digest case, fp32 and bf16."""
+    got = {cid: sha256(fn()) for cid, fn in row1_digest_cases(dev)}
+    assert got == ROW1_DIGESTS
 
 
 @pytest.mark.parametrize("n,hd,levels,b,h,w,seed", GRU_CASES)

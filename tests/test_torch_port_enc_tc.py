@@ -212,26 +212,27 @@ def _butterfly(v, masks):
     return v
 
 
-def _kernel_sums(y, inst):
+def _kernel_sums(y, inst, warps_m=4):
     """(sum, sum of squares) over (H, W) of fp32 ``y`` in the kernel's
     order for the instance of wrapper ``inst``: per block, each lane over
     its pixels (m-tiles in order, rows g then g + 8), a butterfly over the
-    8 lanes g of a channel, the 4 pixel warps in order; then the stats
-    kernel over the blocks (lane l sums blocks l, l + 32, ... in order,
-    then a butterfly)."""
+    8 lanes g of a channel, the ``warps_m`` pixel warps in order; then the
+    stats kernel over the blocks (lane l sums blocks l, l + 32, ... in
+    order, then a butterfly).  (Row 13's stem takes the 8x32 tile of
+    ``stage_conv`` with its own ``warps_m``.)"""
     b, c, ho, wo = y.shape
     tw = ce.TC_INSTANCES[inst][2]
-    mt_n = tw // 8                       # m-tiles per warp: 4 x 16*MT = 8*tw
+    mt_n = 8 * tw // (16 * warps_m)      # m-tiles per warp: 8 rows x tw
     ty, tx = -(-ho // 8), -(-wo // tw)
     yt = F.pad(y, (0, tx * tw - wo, 0, ty * 8 - ho))
     yt = yt.reshape(b, c, ty, 8, tx, tw).permute(0, 1, 2, 4, 3, 5)
-    wm, i, half, g = torch.meshgrid(torch.arange(4), torch.arange(mt_n),
-                                    torch.arange(2), torch.arange(8),
-                                    indexing="ij")
+    wm, i, half, g = torch.meshgrid(torch.arange(warps_m),
+                                    torch.arange(mt_n), torch.arange(2),
+                                    torch.arange(8), indexing="ij")
     mt = wm * mt_n + i
     ly = mt // (tw // 16)
     lx = (mt % (tw // 16)) * 16 + g + 8 * half
-    v = yt[..., ly, lx]                  # (b, c, ty, tx, 4, MT, 2, 8)
+    v = yt[..., ly, lx]                  # (b, c, ty, tx, WM, MT, 2, 8)
     s1 = torch.zeros(v.shape[:5] + (8,))
     s2 = torch.zeros_like(s1)
     for ii in range(mt_n):
@@ -242,7 +243,9 @@ def _kernel_sums(y, inst):
     out = []
     for s in (s1, s2):
         s = _butterfly(s, (1, 2, 4))[..., 0]           # lanes g: bits 2-4
-        blk = ((s[..., 0] + s[..., 1]) + s[..., 2]) + s[..., 3]
+        blk = s[..., 0]
+        for w in range(1, warps_m):                    # pixel warps in order
+            blk = blk + s[..., w]
         blk = blk.reshape(b, c, ty * tx)                  # block order
         nb = blk.shape[-1]
         lanes = torch.zeros(b, c, 32)

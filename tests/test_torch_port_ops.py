@@ -254,6 +254,23 @@ def test_library_name_follows_source_content(tmp_path, monkeypatch):
     assert first.parent == tmp_path and first.name.startswith("libk_")
 
 
+def test_library_name_follows_header_content(tmp_path, monkeypatch):
+    """An edited header (``csrc/*.cuh``) gives every source a new library
+    name, so the sources that include it rebuild; ``source_text`` appends
+    the headers a source includes."""
+    monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text('// k\n#include "t.cuh"\n')
+    hdr = tmp_path / "t.cuh"
+    hdr.write_text("// one")
+    first = _build._target(src)
+    hdr.write_text("// two")
+    assert _build._target(src) != first
+    assert _build.headers() == [hdr]
+    assert _build.source_text("k").endswith("// two")
+
+
 def test_build_without_toolkit_raises(tmp_path, monkeypatch):
     if _build.shutil.which("nvcc") or _build.Path(
             "/usr/local/cuda/bin/nvcc").exists():
