@@ -47,7 +47,12 @@ at the serving shape (the 144x240 volume pyramid, level widths
 240/120/60/30; the int8 volume of 1x144x240 features, C=256) and the
 training shape (6x80x180): the volume lookup, its backward (also two
 calls bitwise equal, and on NaN and far coordinates and +-inf and NaN
-cotangents) and the int8 volume, the lookup beside its library
+cotangents) and the int8 volume, the lookup and the int8 volume also two
+calls bitwise equal and on hostile inputs (the lookup on taps that round
+across an integer, NaN, +-inf, +-1e30, integers and half-integers, a
+zero-width level, radius 0 and 8 levels, a misaligned volume; the int8
+volume at C = 16, 48 and 272, W2 = 9 and 130, W1 = 241, codes of +-127
+and -128 on every channel, zero scales), the lookup beside its library
 call (``F.grid_sample``, 4 calls, one per level, as upstream
 RAFT-Stereo's ``bilinear_sampler``) and the backward beside their
 autograd backward; (10) serve three requests with
@@ -1084,12 +1089,12 @@ def volume_kernel_phase(cfg, lo_hw, torch):
         def plain():
             return cuda_vol.vol_lookup_plain(st.vcat, st.widths, x, r)
 
-        got, want = kern(), plain()
+        got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
+        ok = int_bits(got, want, torch) and int_bits(got, again, torch)
         print(f"vol_lookup ({path}, vcat {dims(st.vcat)}): bitwise equal "
-              f"to its plain version: {same_bits(got, want, torch)}")
-        check(same_bits(got, want, torch),
-              f"vol_lookup differs from its plain version ({path})")
+              f"to its plain version and repeatable: {ok}")
+        check(ok, f"vol_lookup differs from its plain version ({path})")
         _, calls = sampler(st.vcat, st.widths, x)
         lib_out = torch.cat([f().reshape(got.shape[:3] + (k,))
                              for f in calls], -1)
@@ -1153,12 +1158,93 @@ def volume_kernel_phase(cfg, lo_hw, torch):
     print(f"int8_volume (serve_quant, {dims(got)}): bitwise equal to its "
           f"plain version: {torch.equal(got, want)}")
     check(torch.equal(got, want), "int8_volume differs from its plain version")
+    again = vol()
+    torch.cuda.synchronize()
+    check(same_bits(got, again, torch), "int8_volume is not bitwise "
+                                        "repeatable")
     rows.append(timed("int8_volume", "serve_quant", vol, vol_plain,
                       q1.numel() + q2.numel()
                       + 4 * (s1.numel() + s2.numel() + got.numel()),
                       3 * got.numel(), lib=int_mm,
                       int8_ops=2 * got.numel() * c))
+    vol_fwd_hostile_hold(torch)
+    int8_hostile_hold(torch)
     return rows
+
+
+def int_bits(a, b, torch) -> bool:
+    """NaN at the same places, the same bits elsewhere (-0 apart from
+    +0)."""
+    ok = ~a.isnan()
+    return (torch.equal(ok, ~b.isnan())
+            and torch.equal(a[ok].view(torch.int32), b[ok].view(torch.int32)))
+
+
+def vol_fwd_hostile_hold(torch) -> None:
+    """Row 5 on coordinates whose rounded taps cross an integer (a window
+    of K+2 columns, or a tap that repeats its neighbour's floor), NaN,
+    +-inf, +-1e30, integers and half-integers, coordinates past both edges,
+    a zero-width level, radius 0 and 8 levels (radius 8: the per-tap form),
+    and a volume whose rows start at another 4-byte alignment: bitwise
+    equal to plain and to a second call."""
+    from raftstereo_tpu_torch.ops import cuda_vol
+
+    g = torch.Generator().manual_seed(5)
+    b, h, w1 = 2, 5, 64
+    for widths, r, shift in (((64, 32, 16, 8), 4, 0), ((64, 32, 16, 8), 4, 1),
+                             ((64, 32, 0, 8), 2, 0), ((64, 32), 0, 1),
+                             ((64, 32, 16, 8, 4, 2, 1, 0), 8, 0),
+                             ((64, 32, 16, 8, 4, 2, 1, 0), 3, 1)):
+        w2 = sum(widths)
+        x = torch.arange(w1) - 40.0 * torch.rand((b, h, w1), generator=g)
+        x[0, 0, :14] = torch.tensor(
+            [float("nan"), float("inf"), -float("inf"), 1e30, -1e30,
+             127.99999, 0.99999994, 63.99999, 2.0 ** 24 + 2, -200.5,
+             w1 + 300.25, r + 0.5, -r - 1.0000001, 31.999998])
+        x[0, 1] = torch.arange(w1) * 0.5 - 8.0
+        x[1, 2] = torch.arange(w1) - 0.0000019
+        x = x.cuda().contiguous()
+        base = torch.randn(b * h * w1 * w2 + 1, generator=g).cuda()
+        vcat = base[shift:shift + b * h * w1 * w2].view(b, h, w1, w2)
+        k1, k2 = (cuda_vol.vol_lookup(vcat, widths, x, r) for _ in "ab")
+        want = cuda_vol.vol_lookup_plain(vcat, widths, x, r)
+        torch.cuda.synchronize()
+        ok = int_bits(k1, want, torch) and int_bits(k1, k2, torch)
+        print(f"vol_lookup (hostile, widths {widths}, radius {r}, vcat "
+              f"offset {shift}): bitwise equal to plain and repeatable: {ok}")
+        check(ok, f"vol_lookup differs from its plain version on hostile "
+                  f"inputs (widths {widths}, radius {r})")
+
+
+def int8_hostile_hold(torch) -> None:
+    """Row 7 on C = 16 and 48 (a k-step past C, zero-filled), C = 272 (two
+    channel chunks), W2 = 9 and 130 and W1 = 241 (ragged tiles), rows of
+    +127, -127 and -128 on every channel, random codes in [-128, 127] and
+    zero scales: bitwise equal to plain (int32 views) and to a second
+    call."""
+    from raftstereo_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(7)
+    for w1, w2, c in ((9, 9, 16), (130, 130, 48), (240, 9, 48),
+                      (241, 130, 16), (48, 240, 272)):
+        q1, q2 = (torch.randint(-128, 128, (1, 3, w, c), generator=g,
+                                dtype=torch.int8) for w in (w1, w2))
+        for q in (q1, q2):
+            q[0, 0, 0], q[0, 0, 1], q[0, 0, -1] = 127, -127, -128
+        s1, s2 = (0.001 + 0.1 * torch.rand((1, 3, w), generator=g)
+                  for w in (w1, w2))
+        s1[0, 1, w1 // 2] = 0.0
+        s2[0, 2] = 0.0
+        q1, q2, s1, s2 = (t.cuda() for t in (q1, q2, s1, s2))
+        k1, k2 = (quant.int8_corr_volume(q1, s1, q2, s2) for _ in "ab")
+        want = quant.int8_volume_plain(q1, s1, q2, s2)
+        torch.cuda.synchronize()
+        ok = int_bits(k1, want, torch) and int_bits(k1, k2, torch)
+        print(f"int8_volume (hostile, W1 {w1}, W2 {w2}, C {c}, codes "
+              f"-128..127, zero scales): bitwise equal to plain and "
+              f"repeatable: {ok}")
+        check(ok, f"int8_volume differs from its plain version on hostile "
+                  f"inputs (W1 {w1}, W2 {w2}, C {c})")
 
 
 def vol_bwd_nonfinite_hold(x, gout, widths, r, torch) -> None:

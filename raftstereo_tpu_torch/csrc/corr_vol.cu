@@ -18,27 +18,50 @@
 //
 // Design.  The TPU kernel reduces each tap over the whole (lane-padded)
 // W2 row with the dense hat weight, because its vector unit has no
-// gather.  Here one thread computes one output value and reads only the
-// two volume columns that carry weight, testing them against the level's
-// real width in float before any integer cast (false for NaN).
+// gather.  Here the work is per (pixel, level) item, not per output: a
+// thread owns one (pixel, level) item, loads the pixel's x and reads the
+// level's window, the columns [floor(t_0), floor(t_{K-1}) + 1], into
+// registers: 16-byte loads from the 16-byte-aligned address at or below
+// the window (the rows are not aligned: W2cat is 450 at serving), scalar
+// loads for a chunk that reaches past the level, and only the chunks the
+// window touches, all issued before the first is used.  Each tap then
+// takes its two columns from the window by its own floor: floor(t_k) -
+// floor(t_0) is k, or k +- 1 where the rounded taps cross an integer (x =
+// 127.99999 at level 0 rounds t_5 to 129.0; rounding never lowers a floor
+// below 2^24, where every integer is a float), so the window takes up to
+// K+2 columns, as row 6's `KW`, and each tap selects its pair among three
+// at compile-time register indices.  A window that reaches 2^24 (where
+// f + 1 rounds back to f in the plain version's float arithmetic; on a
+// level that wide) or misses the level reads each tap's two columns from
+// global memory, the per-tap form, in the same kernel; so does every tap
+// at a radius above kMaxWindowRadius (the window is sized at compile time,
+// one instance per radius up to it).  The block's outputs, a contiguous
+// run of its pixels' L*K values each, are staged in shared memory and
+// written as 16-byte coalesced stores.  The level table goes to shared
+// memory by compile-time indices, so it never lands in local memory.
 //
 // Bound on an H100 SXM (3.35 TB/s): at the serving shape (144x240
 // pixels, 4 levels of radius 4, level widths 240/120/60/30) the function
-// needs the taps' columns of the volume (at most 10 per pixel and level,
-// about 5.5 MB), x and the output (5 MB): about 11 MB, 3 us; at the
-// training shape (6x80x180) about 27 MB, 8 us.  Its arithmetic is a few
-// operations per output, so it is bound by bytes.  What this design does
-// about it: nothing but the needed columns is read; consecutive threads
-// write consecutive outputs, and the 36 outputs of a pixel read one
-// volume row, whose columns share cache lines.
+// needs the taps' columns of the volume (at most K+1 = 10 per pixel and
+// level, about 5.5 MB), x and the output (5 MB): about 11 MB, 3 us; at
+// the training shape (6x80x180) about 27 MB, 8 us.  Its arithmetic is a
+// few operations per output, so it is bound by bytes.  The volume (62 MB
+// at serving, 116 MB at training) does not stay in the 50 MB L2, and a
+// window's 40 bytes come in 32-byte sectors: the design reads no sector
+// the window does not touch and each column once, with its loads in
+// flight together, where the first form issued two dependent 4-byte loads
+// per output.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kMaxLevels = 8;
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;        // one (pixel, level) item a thread
+constexpr int kMaxWindowRadius = 4;  // radii with a register window
+constexpr int kStageBudget = 48 * 1024;
 
 struct Levels {
   int n;
@@ -46,67 +69,177 @@ struct Levels {
   int width[kMaxLevels];  // real width w_l of level l
 };
 
-// Level l's first column, width and 2^-l, selected with compile-time
-// indices so the table stays in the kernel's parameter space (a runtime
-// index would copy it to local memory).
-__device__ __forceinline__ void level_of(const Levels& lv, int l, int& off,
-                                         int& width, float& inv) {
-  off = lv.off[0];
-  width = lv.width[0];
-  inv = 1.f;
-#pragma unroll
-  for (int i = 1; i < kMaxLevels; ++i)
-    if (i == l) {
-      off = lv.off[i];
-      width = lv.width[i];
-      inv = 1.0f / (float)(1 << i);
-    }
+// One tap's value from its two columns va (at fa = floor(t)) and vb (at
+// fa + 1), each weighted only where it lies in [0, last].
+__device__ __forceinline__ float tap_value(float t, float fa, float va,
+                                           float vb, float last) {
+  const float fb = fa + 1.f;
+  float p0 = 0.f, p1 = 0.f;
+  if (fa >= 0.f && fa <= last) p0 = __fmul_rn(va, 1.f - fabsf(fa - t));
+  if (fb >= 0.f && fb <= last) p1 = __fmul_rn(vb, 1.f - fabsf(fb - t));
+  return __fadd_rn(p0, p1);
 }
 
+// The per-tap form: the tap's two columns read from global memory (false
+// tests, NaN and +-inf included, read nothing).
+__device__ __forceinline__ float tap_global(const float* vol, long rowe,
+                                           float t, float last) {
+  const float fa = floorf(t), fb = fa + 1.f;
+  float va = 0.f, vb = 0.f;
+  if (fa >= 0.f && fa <= last) va = __ldg(vol + rowe + (long)fa);
+  if (fb >= 0.f && fb <= last) vb = __ldg(vol + rowe + (long)fb);
+  return tap_value(t, fa, va, vb, last);
+}
+
+// KC = K = 2r+1 for the windowed instances, 0 for the per-tap form at any
+// radius.
+template <int KC>
 __global__ void __launch_bounds__(kThreads)
 corr_vol_kernel(const float* __restrict__ vol, const float* __restrict__ x,
-                float* __restrict__ out, unsigned nout, int w2cat, int radius,
-                Levels lv) {
-  const unsigned e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= nout) return;
-  const unsigned K = 2 * radius + 1;
-  const unsigned lk = lv.n * K;
-  const unsigned pix = e / lk;
-  const unsigned q = e - pix * lk;
-  const int l = (int)(q / K);
-  const int k = (int)(q - l * K);
-  int off, width;
-  float inv;
-  level_of(lv, l, off, width, inv);
-  float v = 0.f;
-  if (width > 0) {
-    // x * 2^-l is exact; the tap offset is one float add, as in JAX.
-    const float t = __fadd_rn(__fmul_rn(x[pix], inv), (float)(k - radius));
-    if (isnan(t)) {
-      v = NAN;
-    } else {
-      const float f0 = floorf(t);
-      const float f1 = f0 + 1.f;
-      const float last = (float)(width - 1);
-      const float* row = vol + (long)pix * w2cat + off;
-      float p0 = 0.f, p1 = 0.f;
-      if (f0 >= 0.f && f0 <= last)
-        p0 = __fmul_rn(row[(int)f0], 1.f - fabsf(f0 - t));
-      if (f1 >= 0.f && f1 <= last)
-        p1 = __fmul_rn(row[(int)f1], 1.f - fabsf(f1 - t));
-      v = __fadd_rn(p0, p1);
+                float* __restrict__ out, long npix, int w2cat, int radius,
+                int pix_per_block, Levels lv) {
+  extern __shared__ __align__(16) float stage[];  // [np][L*K]
+  __shared__ int s_off[kMaxLevels], s_width[kMaxLevels];
+  constexpr int KW = KC + 2;                // window columns
+  constexpr int NQ = (KW + 3 + 3) / 4;      // float4s covering it, any shift
+  const int L = lv.n;
+  const int K = KC > 0 ? KC : 2 * radius + 1;
+  const int LK = L * K;
+  const long p0 = (long)blockIdx.x * pix_per_block;
+  const int np = (int)min((long)pix_per_block, npix - p0);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l) {
+      s_off[l] = lv.off[l];
+      s_width[l] = lv.width[l];
     }
   }
-  out[e] = v;
+  __syncthreads();
+
+  // This thread's item: pixel p0 + i / L, level i % L.
+  const int i = threadIdx.x;
+  if (i < np * L) {
+    const int l = i % L;
+    const int width = s_width[l];
+    const float last = (float)(width - 1);
+    const long rowe = (p0 + i / L) * (long)w2cat + s_off[l];
+    const float xl = __fmul_rn(x[p0 + i / L], 1.0f / (float)(1 << l));
+    float* o = stage + i * K;               // x * 2^-l above is exact
+    if (width == 0) {
+      for (int k = 0; k < K; ++k) o[k] = 0.f;
+    } else if (isnan(xl)) {
+      for (int k = 0; k < K; ++k) o[k] = NAN;
+    } else if constexpr (KC > 0) {
+      const float f0 = floorf(__fadd_rn(xl, (float)(-radius)));
+      const float fe = floorf(__fadd_rn(xl, (float)radius)) + 1.f;
+      // The window [f0, fe] meets the level and lies below 2^24, where
+      // each column f + 1 is the float the plain version forms (false for
+      // +-inf).
+      const bool have =
+          f0 >= (float)(1 - KW) && f0 <= last && fe < 16777216.f;
+      // win[j] = column f0 + j - shift where it lies in the level, read
+      // in the 16-byte chunks the window touches.
+      float win[4 * NQ];
+#pragma unroll
+      for (int j = 0; j < 4 * NQ; ++j) win[j] = 0.f;
+      int shift = 0;
+      if (have) {
+        const int c0 = (int)f0, span = (int)(fe - f0), cw = width - 1;
+        const long e0 = rowe + c0;
+        shift = (int)(((uintptr_t)vol / sizeof(float) + e0) & 3);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          if (4 * q > shift + span) break;   // past the window
+          const int ca = c0 - shift + 4 * q;   // the chunk's first column
+          if (ca >= 0 && ca + 3 <= cw) {
+            const float4 v = __ldg(
+                reinterpret_cast<const float4*>(vol + e0 - shift + 4 * q));
+            win[4 * q] = v.x;
+            win[4 * q + 1] = v.y;
+            win[4 * q + 2] = v.z;
+            win[4 * q + 3] = v.w;
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (ca + j >= 0 && ca + j <= cw)
+                win[4 * q + j] = __ldg(vol + e0 - shift + 4 * q + j);
+          }
+        }
+      }
+      // w[j] = column f0 + j
+      float w[KW];
+#pragma unroll
+      for (int j = 0; j < KW; ++j)
+        w[j] = shift == 0 ? win[j]
+             : shift == 1 ? win[j + 1]
+             : shift == 2 ? win[j + 2] : win[j + 3];
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+        const float t = __fadd_rn(xl, (float)(k - radius));
+        const float fa = floorf(t);
+        const float d = fa - f0;   // k - 1, k or k + 1 in a window
+        float v;
+        if (have && d == (float)k) {
+          v = tap_value(t, fa, w[k], w[k + 1], last);
+        } else if (have && d == (float)(k + 1)) {
+          v = tap_value(t, fa, w[k + 1], w[k + 2], last);
+        } else if (k > 0 && have && d == (float)(k - 1)) {
+          v = tap_value(t, fa, w[k > 0 ? k - 1 : 0], w[k], last);
+        } else {
+          v = tap_global(vol, rowe, t, last);
+        }
+        o[k] = v;
+      }
+    } else {
+      // The per-tap form at any radius.
+      for (int k = 0; k < K; ++k)
+        o[k] = tap_global(vol, rowe, __fadd_rn(xl, (float)(k - radius)),
+                          last);
+    }
+  }
+  __syncthreads();
+
+  // The block's run of np * L*K outputs: 16-byte stores where the run and
+  // the stage line up (the run starts 16-byte aligned when `out` does:
+  // pix_per_block is a multiple of 4), scalar ones otherwise.
+  float* run = out + p0 * LK;
+  const int n = np * LK;
+  if ((((uintptr_t)run) & 15) == 0) {
+    const int nvec = n >> 2;
+    for (int q = threadIdx.x; q < nvec; q += kThreads)
+      reinterpret_cast<float4*>(run)[q] =
+          reinterpret_cast<const float4*>(stage)[q];
+    for (int e = 4 * nvec + threadIdx.x; e < n; e += kThreads)
+      run[e] = stage[e];
+  } else {
+    for (int e = threadIdx.x; e < n; e += kThreads) run[e] = stage[e];
+  }
+}
+
+template <int KC>
+int launch(const float* vol, const float* x, float* out, long npix,
+           int w2cat, int radius, const Levels& lv, cudaStream_t stream) {
+  const int lk = lv.n * (2 * radius + 1);
+  // Pixels per block: a multiple of 4, one item a thread, their outputs
+  // within the stage budget.
+  int pix = (kThreads / lv.n) & ~3;
+  while (pix > 4 && (long)pix * lk * (long)sizeof(float) > kStageBudget)
+    pix -= 4;
+  const long blocks = (npix + pix - 1) / pix;
+  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  corr_vol_kernel<KC><<<(unsigned)blocks, kThreads,
+                        (size_t)pix * lk * sizeof(float), stream>>>(
+      vol, x, out, npix, w2cat, radius, pix, lv);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // vol (npix, w2cat): the volume pyramid concatenated along W2 at its real
 // level widths; x (npix,): level-0 coordinates; out (npix,
-// nlev*(2*radius+1)).  All fp32 and contiguous.  radius 0..64, nlev
-// 1..8, widths summing to w2cat, fewer than 2^32 - 256 outputs.  Returns
-// the CUDA error code of the launch (0 on success).
+// nlev*(2*radius+1)).  All fp32 and contiguous, vol 4-byte aligned.
+// radius 0..64, nlev 1..8, widths summing to w2cat.  Returns the CUDA
+// error code of the launch (0 on success).
 extern "C" int corr_vol_forward(const float* vol, const float* x, float* out,
                                 long npix, int w2cat, int radius, int nlev,
                                 const int* offsets, const int* widths,
@@ -119,11 +252,15 @@ extern "C" int corr_vol_forward(const float* vol, const float* x, float* out,
     lv.off[l] = l < nlev ? offsets[l] : 0;
     lv.width[l] = l < nlev ? widths[l] : 0;
   }
-  const long nout = npix * (long)nlev * (2 * radius + 1);
-  if (nout == 0) return 0;
-  if (nout > 0xffffff00L) return (int)cudaErrorInvalidValue;  // 32-bit index
-  const unsigned blocks = (unsigned)((nout + kThreads - 1) / kThreads);
-  corr_vol_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      vol, x, out, (unsigned)nout, w2cat, radius, lv);
-  return (int)cudaGetLastError();
+  if (npix == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static_assert(kMaxWindowRadius == 4, "one instance per windowed radius");
+  switch (radius) {
+    case 0: return launch<1>(vol, x, out, npix, w2cat, radius, lv, s);
+    case 1: return launch<3>(vol, x, out, npix, w2cat, radius, lv, s);
+    case 2: return launch<5>(vol, x, out, npix, w2cat, radius, lv, s);
+    case 3: return launch<7>(vol, x, out, npix, w2cat, radius, lv, s);
+    case 4: return launch<9>(vol, x, out, npix, w2cat, radius, lv, s);
+    default: return launch<0>(vol, x, out, npix, w2cat, radius, lv, s);
+  }
 }

@@ -16,10 +16,11 @@ pixel's whole level segment, as the TPU's dense form does.
 The bounds on an H100 and what the kernels' designs do about them are in
 the sources' notes: both bound by bytes (the forward about 11 MB per call
 at the serving shape, the backward about 129 MB at the training shape);
-the forward reads only the two weighted columns of each tap, the
-backward streams each pixel run's outputs once with no atomics: +0
-outside each clean level's window of taps, which needs no arithmetic,
-and the K-term sum inside it.
+the forward reads each (pixel, level) window of taps once, in 16-byte
+loads, and takes every tap's two columns from it; the backward streams
+each pixel run's outputs once with no atomics: +0 outside each clean
+level's window of taps, which needs no arithmetic, and the K-term sum
+inside it.
 
 ``vol_lookup`` and ``vol_lookup_backward`` run the plain version for CPU
 tensors and the kernel for CUDA tensors; they never fall back from one

@@ -15,8 +15,10 @@ bits.  The accuracy-tier vocabulary waits for bf16 compute (ROADMAP Queue
 Replaces the TPU kernel ``raftstereo_tpu/ops/quant.py``
 ``_int8_volume_kernel``.  Its bound on an H100 and what the design does
 about it are in the source's note: bound by bytes (about 51 MB per call
-at the serving shape, 15 us); this first form runs on the dp4a integer
-pipes, not the tensor cores.
+at the serving shape, 15 us, most of it the fp32 volume it writes); the
+product runs on the int8 tensor cores (``mma.sync`` m16n8k32 from
+``ldmatrix``) and the epilogue stages each tile in shared memory for
+coalesced 16-byte row stores.
 
 ``int8_corr_volume`` runs the plain version for CPU tensors and the
 kernel for CUDA tensors; it never falls back from one to the other.

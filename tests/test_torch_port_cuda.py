@@ -748,12 +748,65 @@ def test_vol_lookup_kernel_matches_plain(dev, shape, levels, radius):
                            nan=shape[2] > 4)
     before = cuda_vol.vol_lookup.launches
     got = cuda_vol.vol_lookup(st.vcat, st.widths, x, radius)
-    assert cuda_vol.vol_lookup.launches == before + 1
+    again = cuda_vol.vol_lookup(st.vcat, st.widths, x, radius)
+    assert cuda_vol.vol_lookup.launches == before + 2
     want = cuda_vol.vol_lookup_plain(st.vcat, st.widths, x, radius)
     torch.cuda.synchronize()
     assert _same_bits(got, want)
+    assert _int_bits(got, again)
     if shape[2] > 4:
         assert torch.isnan(got[-1, -1, -1]).all()
+
+
+def _int_bits(a, b):
+    """NaN at the same places and the same bits elsewhere (-0 apart from
+    +0)."""
+    ok = ~a.isnan()
+    return (torch.equal(ok, ~b.isnan())
+            and torch.equal(a[ok].view(torch.int32), b[ok].view(torch.int32)))
+
+
+# Row 5's hostile cases: (widths, radius, misaligned vcat).  The windowed
+# instances take radius 0..4; radius 8 takes the per-tap form.
+VOL_FWD_HOSTILE = [
+    pytest.param((64, 32, 16, 8), 4, False, id="recipe_levels"),
+    pytest.param((64, 32, 16, 8), 4, True, id="misaligned_vcat"),
+    pytest.param((64, 32, 0, 8), 2, False, id="zero_width_level"),
+    pytest.param((64, 32), 0, True, id="radius0"),
+    pytest.param((64, 32, 16, 8, 4, 2, 1, 0), 8, False,
+                 id="radius8_8_levels"),
+    pytest.param((64, 32, 16, 8, 4, 2, 1, 0), 3, True, id="8_levels"),
+]
+
+
+@pytest.mark.parametrize("widths,radius,misaligned", VOL_FWD_HOSTILE)
+def test_vol_lookup_hostile_bitwise(dev, widths, radius, misaligned):
+    """Row 5 on coordinates whose rounded taps cross an integer (x =
+    127.99999 and 0.99999994: a window of K+2 columns and one whose
+    second tap repeats the first's floor), NaN, +-inf, +-1e30, integers and
+    half-integers, coordinates past both edges, and a volume whose rows
+    start at every 4-byte alignment: bitwise equal to the plain version
+    and to a second call."""
+    rng = np.random.default_rng(60 + radius)
+    b, h, w1 = 2, 5, 64
+    w2 = sum(widths)
+    x = (np.arange(w1) - rng.uniform(0, 40, (b, h, w1))).astype(np.float32)
+    x[0, 0, :14] = [np.nan, np.inf, -np.inf, 1e30, -1e30, 127.99999,
+                    0.99999994, 63.99999, 2.0 ** 24 + 2, -200.5, w1 + 300.25,
+                    radius + 0.5, -radius - 1.0000001, 31.999998]
+    x[0, 1] = np.arange(w1) * 0.5 - 8.0    # integers and half-integers
+    x[1, 2] = np.arange(w1) - 0.0000019    # just below each integer
+    base = _randn(rng, b * h * w1 * w2 + 1).to(dev)
+    vcat = base[int(misaligned):][:b * h * w1 * w2].view(b, h, w1, w2)
+    x = torch.from_numpy(x).to(dev)
+    before = cuda_vol.vol_lookup.launches
+    k1 = cuda_vol.vol_lookup(vcat, widths, x, radius)
+    k2 = cuda_vol.vol_lookup(vcat, widths, x, radius)
+    assert cuda_vol.vol_lookup.launches == before + 2
+    want = cuda_vol.vol_lookup_plain(vcat, widths, x, radius)
+    torch.cuda.synchronize()
+    assert _int_bits(k1, want) and _int_bits(k1, k2)
+    assert bool(want.isnan().any()) and bool((want != 0).any())
 
 
 @pytest.mark.parametrize("shape,levels,radius", [
@@ -828,10 +881,48 @@ def test_int8_volume_kernel_matches_plain(dev, b, h, w1, w2, c):
     q2, s2 = quant.quantize_rows(3 * _randn(rng, b, h, w2, c).to(dev))
     before = quant.int8_corr_volume.launches
     got = quant.int8_corr_volume(q1, s1, q2, s2)
-    assert quant.int8_corr_volume.launches == before + 1
+    again = quant.int8_corr_volume(q1, s1, q2, s2)
+    assert quant.int8_corr_volume.launches == before + 2
     want = quant.int8_volume_plain(q1, s1, q2, s2)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert _int_bits(got, want) and _int_bits(got, again)
+
+
+@pytest.mark.parametrize("w1,w2,c", [(9, 9, 16), (130, 130, 48),
+                                     (240, 9, 48), (241, 130, 16),
+                                     (48, 240, 272)],
+                         ids=["c16_w9", "c48_w130", "c48_w2_9", "c16_w241",
+                              "c272_two_k_chunks"])
+def test_int8_volume_hostile_bitwise(dev, w1, w2, c):
+    """Row 7 on the full int8 range: rows of +127, -127 and -128 on every
+    channel (the extreme sums, -128 x -128 included), random codes in
+    [-128, 127], a zero scale (signed zeros), ragged W1 and W2 and C not a
+    multiple of the 32-deep k-step: bitwise equal to the plain version
+    (int32 views, -0 apart from +0) and to a second call."""
+    rng = np.random.default_rng(w1 + w2 + c)
+    b, h = 1, 3
+    q1 = rng.integers(-128, 128, (b, h, w1, c)).astype(np.int8)
+    q2 = rng.integers(-128, 128, (b, h, w2, c)).astype(np.int8)
+    for q in (q1, q2):
+        q[0, 0, 0], q[0, 0, 1], q[0, 0, -1] = 127, -127, -128
+    s1 = rng.uniform(1e-3, 0.1, (b, h, w1)).astype(np.float32)
+    s2 = rng.uniform(1e-3, 0.1, (b, h, w2)).astype(np.float32)
+    s1[0, 1, w1 // 2] = 0.0
+    s2[0, 2, :] = 0.0
+    q1, q2, s1, s2 = (torch.from_numpy(a).to(dev) for a in (q1, q2, s1, s2))
+    before = quant.int8_corr_volume.launches
+    k1 = quant.int8_corr_volume(q1, s1, q2, s2)
+    k2 = quant.int8_corr_volume(q1, s1, q2, s2)
+    assert quant.int8_corr_volume.launches == before + 2
+    want = quant.int8_volume_plain(q1, s1, q2, s2)
+    torch.cuda.synchronize()
+    assert _int_bits(k1, want) and _int_bits(k1, k2)
+    one = torch.ones((1,), device=dev)
+    acc = quant.int8_volume_plain(q1[0, 0, -1:], one, q2[0, 0, -1:], one)
+    assert float(acc) == np.float32(128 * 128 * c) * np.float32(
+        quant.inv_sqrt_channels(c))    # -128 x -128 on every channel
+    assert bool(torch.signbit(want[want == 0]).any())  # a -0 held
 
 
 def test_vol_wrappers_raise_instead_of_falling_back(dev):
