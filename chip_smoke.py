@@ -83,10 +83,16 @@ other counted kernel), replies bitwise equal to direct engine calls;
 (18) hold each bf16 path's card forward against the CPU's with the card's
 encoder outputs pinned.  Then the op functions and evaluation: (19) hold
 the lookup at caller-given taps (row 3, at the serving pyramid and the
-training shape in fp32, and in bf16), its general-taps backward (row 4,
-bitwise repeatable) and the stand-alone instance norm (row 8, fp32 at a
-576x960 bucket's fnet norm and at the training shape, bf16; relu on and
-off) against their plain versions, timed; (20) run the op path: each
+training shape in fp32, and in bf16; two calls bitwise equal), its
+general-taps backward (row 4, bitwise repeatable), both also on coherent
+taps (smooth centres; row 3 at the serving and training shapes, row 4 at
+the training shape) with their outputs' SHA-256 digests printed, row 3's
+general form (a warp per pixel; 16 rows of 240 pixels, one 700-wide level,
+400 taps a pixel, whose dots outgrow the tiled form's shared memory) held
+and timed, and the
+stand-alone instance norm (row 8, fp32 at a 576x960 bucket's fnet norm
+and at the training shape, bf16; relu on and off) against their plain
+versions, timed; (20) run the op path: each
 ``pallas_alt_pyramid_flat`` forward and backward launches exactly one
 row 3 and one row 4 kernel, each ``instance_norm_act`` forward and
 backward one stats and one apply kernel, and gradients match the CPU's
@@ -114,6 +120,7 @@ import base64
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import io
 import json
 import os
@@ -1695,6 +1702,40 @@ def op_taps(b, h, w1, widths, k, g, torch):
     return taps.cuda().contiguous()
 
 
+def op_taps_smooth(b, h, w1, widths, k, g, torch):
+    """``op_taps`` with coherent centres: per level the centre follows a
+    slowly varying disparity along each row (a sine of x and y in [0, 60]
+    at level 0, scaled to the level), taps 0-4 the radial pattern around
+    it, taps 5-8 within 4 of it (7 an integer); the same far tap and NaN
+    tap."""
+    xx = torch.arange(w1, dtype=torch.float32)
+    yy = (torch.arange(b * h) % h).float().reshape(-1, 1)
+    disp = 30.0 + 30.0 * torch.sin(2 * np.pi * (xx / 97.0 + yy / 13.0))
+    cols = []
+    for w in widths:
+        centre = ((xx - disp) * (w / w1))[..., None]   # (B*H, W1, 1)
+        t = centre + torch.rand((b * h, w1, k), generator=g) * 8 - 4
+        t[..., :5] = centre + torch.arange(-2.0, 3.0)
+        t[..., 7] = torch.floor(t[..., 7])
+        cols.append(t)
+    taps = torch.cat(cols, dim=-1)
+    taps[0, 0, k - 1] = 1e6
+    taps[-1, -1, 2] = float("nan")
+    return taps.cuda().contiguous()
+
+
+def digest(*ts) -> str:
+    """SHA-256 (first 16 hex digits) of tensors' bytes: equal digests from
+    two trees mean bitwise equal outputs."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
 def taps_columns(taps, widths, k, torch) -> int:
     """Distinct (pixel, level, column) pairs inside the levels that the
     taps weight: the dot products the lookup needs."""
@@ -1770,17 +1811,19 @@ def op_kernel_phase(lo_hw, torch):
         def plain():
             return al.alt_corr_taps_plain(f1, f2, taps, st.widths, odt)
 
-        got, want = kern(), plain()
+        got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         check(got.dtype == odt and int(got.isnan().sum()) == 1,
               f"alt_corr_taps ({path}): dtype {got.dtype}, "
               f"{int(got.isnan().sum())} NaN entries (want 1)")
+        check(same_bits(got.float(), again.float(), torch),
+              f"alt_corr_taps ({path}): two calls on the same inputs differ")
         err = rel_err(got, want, torch)
         tol = BF16_ULP * LOOKUP_BF16_ULPS if odt == bf else TAPS_TOL
         abs_err = float((got.float() - want.float()).nan_to_num().abs().max())
         print(f"alt_corr_taps ({path}, {dims(f1)} x {dims(f2)}, taps "
               f"{dims(taps)}) max_abs_err {abs_err:.3e}, max rel {err:.3e} "
-              f"(tol {tol})")
+              f"(tol {tol}); bitwise repeatable; sha {digest(got)}")
         check(err <= tol, f"alt_corr_taps disagrees with its plain version "
                           f"by {err} ({path})")
         ms, plain_ms = time_ms(kern, 50), time_ms(plain, 5)
@@ -1799,6 +1842,10 @@ def op_kernel_phase(lo_hw, torch):
                          max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=None))
+        if path in ("op_serve", "op_train"):
+            smooth_taps_hold(path, f1, f2, st.widths, (b, h, w), k, g, torch)
+        if path == "op_serve":
+            general_taps_hold(g, torch)
         if path != "op_train":
             continue
         gout = randn(*taps.shape)
@@ -1824,7 +1871,7 @@ def op_kernel_phase(lo_hw, torch):
                       for a, p in zip(k1, want))
         print(f"alt_corr_taps_bwd ({path}) max_abs_err {abs_err:.3e}, "
               f"{err:.3e} of the largest (tol {BACKWARD_TOL}); bitwise "
-              f"repeatable")
+              f"repeatable; sha {digest(*k1)}")
         check(err <= BACKWARD_TOL, f"alt_corr_taps_bwd disagrees with its "
                                    f"plain version by {err}")
         ms, plain_ms = time_ms(bwd, 20), time_ms(bwd_plain, 5)
@@ -1886,6 +1933,94 @@ def op_kernel_phase(lo_hw, torch):
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=lib_ms))
     return rows, inputs
+
+
+def smooth_taps_hold(path, f1, f2, widths, bhw, k, g, torch):
+    """Rows 3 and (at op_train) 4 general on ``op_taps_smooth``'s coherent
+    taps, with no row: held against their plain versions (TAPS_TOL; row 4
+    BACKWARD_TOL, bitwise repeatable, its NaN tap poisoning), two calls of
+    row 3 bitwise equal, timed, digests printed."""
+    from raftstereo_tpu_torch.ops import alt_lookup as al
+
+    taps = op_taps_smooth(*bhw, widths, k, g, torch)
+
+    def kern():
+        return al.alt_corr_taps(f1, f2, taps, widths)
+
+    got, again = kern(), kern()
+    want = al.alt_corr_taps_plain(f1, f2, taps, widths)
+    torch.cuda.synchronize()
+    err = rel_err(got, want, torch)
+    check(int(got.isnan().sum()) == 1 and same_bits(got, again, torch),
+          f"alt_corr_taps ({path}, smooth taps): {int(got.isnan().sum())} "
+          f"NaN entries (want 1), or two calls differ")
+    check(err <= TAPS_TOL, f"alt_corr_taps disagrees with its plain version "
+                           f"by {err} ({path}, smooth taps)")
+    ms = time_ms(kern, 50)
+    print(f"alt_corr_taps ({path}, smooth taps) max rel {err:.3e} (tol "
+          f"{TAPS_TOL}); bitwise repeatable; sha {digest(got)} ms {ms:.4f} "
+          f"[{CARD}]")
+    if path != "op_train":
+        return
+    gout = torch.randn(taps.shape, generator=g).cuda()
+
+    def bwd():
+        return al.alt_corr_taps_backward(f1, f2, taps, gout, widths)
+
+    k1, k2 = bwd(), bwd()
+    want = al.alt_corr_taps_backward_plain(f1, f2, taps, gout, widths)
+    torch.cuda.synchronize()
+    check(all(same_bits(a, b_, torch) for a, b_ in zip(k1, k2)),
+          "alt_corr_taps_bwd (smooth taps): two calls differ")
+    check(all(int(a.isnan().sum()) > 0 for a in k1),
+          "alt_corr_taps_bwd (smooth taps): the NaN tap poisoned nothing")
+    scale = max(1.0, *(float(p[torch.isfinite(p)].abs().max())
+                       for p in want))
+    err = max(rel_err(a / scale, p / scale, torch) for a, p in zip(k1, want))
+    check(err <= BACKWARD_TOL, f"alt_corr_taps_bwd disagrees with its plain "
+                               f"version by {err} (smooth taps)")
+    ms = time_ms(bwd, 20)
+    print(f"alt_corr_taps_bwd ({path}, smooth taps) {err:.3e} of the largest "
+          f"(tol {BACKWARD_TOL}); bitwise repeatable; sha {digest(*k1)} ms "
+          f"{ms:.4f} [{CARD}]")
+
+
+def general_taps_hold(g, torch):
+    """Row 3's general form, which the lookup takes where a tile's dots
+    outgrow shared memory: 16 rows of 240 pixels, one 700-wide level and
+    400 taps a pixel in ``op_taps``' pattern, C=256, with no row.  Checks
+    that the tiled form is not taken there, holds the kernel against its
+    plain version (TAPS_TOL, one NaN at the NaN tap), two calls bitwise
+    equal, and times both."""
+    from raftstereo_tpu_torch.ops import alt_lookup as al
+
+    rows, w1, widths, k, c = 16, 240, (700,), 400, 256
+    check(al.alt_corr_taps_form(w1, widths, k) == "general",
+          f"alt_corr_taps ({w1} pixels, widths {widths}, {k} taps): the "
+          f"tiled form was taken; the hold wants the general form")
+    f1 = torch.randn((rows, w1, c), generator=g).cuda()
+    f2 = torch.randn((rows, sum(widths), c), generator=g).cuda()
+    taps = op_taps(1, rows, w1, widths, k, g, torch)
+
+    def kern():
+        return al.alt_corr_taps(f1, f2, taps, widths)
+
+    def plain():
+        return al.alt_corr_taps_plain(f1, f2, taps, widths)
+
+    got, again, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    err = rel_err(got, want, torch)
+    check(int(got.isnan().sum()) == 1 and same_bits(got, again, torch),
+          f"alt_corr_taps (general form): {int(got.isnan().sum())} NaN "
+          f"entries (want 1), or two calls differ")
+    check(err <= TAPS_TOL, f"alt_corr_taps disagrees with its plain version "
+                           f"by {err} (general form)")
+    ms, plain_ms = time_ms(kern, 20), time_ms(plain, 5)
+    print(f"alt_corr_taps (general form, {dims(f1)} x {dims(f2)}, taps "
+          f"{dims(taps)}) max rel {err:.3e} (tol {TAPS_TOL}); bitwise "
+          f"repeatable; sha {digest(got)} ms {ms:.4f} plain_ms "
+          f"{plain_ms:.4f} [{CARD}]")
 
 
 def op_path_phase(inputs, torch):

@@ -58,10 +58,10 @@
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s fp32 outside the tensor
 // cores): at 6x80 rows of 180 pixels, level widths 180/90/45/22, C=256 and
-// 4 levels of radius 4, the call must read fmap1 (44 MB), the fmap2
-// pyramid (83 MB), x and g (13 MB) and write df1 and df2 (127 MB): about
-// 521 MB, 0.16 ms.  The useful work is about 3.5 GFLOP (0.05 ms), so it
-// is bound by bytes.  What holds this design back from that: the reads
+// 4 levels of radius 4, the call must read fmap1 (88 MB), the fmap2
+// pyramid (166 MB), x and g (13 MB) and write df1 and df2 (254 MB):
+// about 521 MB, 0.16 ms.  The useful work is about 3.5 GFLOP (0.05 ms),
+// so it is bound by bytes.  What holds this design back from that: the reads
 // that miss L1 (a pixel's windows lie where its disparity puts them, so
 // random disparities scatter them over the row), df2's scan of every
 // pixel of the row for each column's hits, the per-hit work (ballot,

@@ -137,6 +137,34 @@ def alt_corr_taps(f1flat: torch.Tensor, f2cat: torch.Tensor,
     (N, W1, L*K) fp32 -> (N, W1, L*K) in ``out_dtype`` (fp32 or bf16)."""
     if all(t.device.type == "cpu" for t in (f1flat, f2cat, taps)):
         return alt_corr_taps_plain(f1flat, f2cat, taps, widths, out_dtype)
+    out = _taps_kernel(f1flat, f2cat, taps, widths, out_dtype)
+    alt_corr_taps.launches += 1
+    return out
+
+
+_FORMS = {"auto": -1, "tiled": 0, "general": 1}
+
+
+def alt_corr_taps_form(w1: int, widths: Sequence[int], kk: int) -> str:
+    """The kernel's form at these sizes: ``"tiled"`` (a block per image
+    row, tile of pixels and group of levels) or ``"general"`` (a warp per
+    pixel, where a tile's dots outgrow shared memory).  Builds the kernel
+    on first use (needs the CUDA toolkit)."""
+    widths = [int(w) for w in widths]
+    fn = _build.load("alt_corr_taps").alt_corr_taps_forward_form
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    rc = fn(w1, kk, len(widths), (ctypes.c_int * len(widths))(*widths))
+    if rc not in (0, 1):
+        raise ValueError(f"alt_corr_taps takes 1..{_MAX_LEVELS} levels, "
+                         f"not {len(widths)}")
+    return ("tiled", "general")[rc]
+
+
+def _taps_kernel(f1flat, f2cat, taps, widths, out_dtype, form="auto"):
+    """``alt_corr_taps``' CUDA kernel, uncounted, in the given form
+    (``"auto"``: the one ``alt_corr_taps_form`` names; ``"tiled"`` or
+    ``"general"`` to time one against the other)."""
     n, w1, c, widths, kk = _check_cuda("alt_corr_taps", f1flat, f2cat, taps,
                                        widths)
     if out_dtype not in _DTYPES:
@@ -147,9 +175,9 @@ def alt_corr_taps(f1flat: torch.Tensor, f2cat: torch.Tensor,
     f1flat, f2cat = (_kernel_layout(t, chunk) for t in (f1flat, f2cat))
     out = torch.empty(taps.shape, dtype=out_dtype, device=taps.device)
     offs = [sum(widths[:i]) for i in range(nlev)]
-    fn = _build.load("alt_corr_taps").alt_corr_taps_forward
+    fn = _build.load("alt_corr_taps").alt_corr_taps_forward_as
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_long]
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_long]
                    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                            ctypes.c_void_p, ctypes.c_void_p,
                                            ctypes.c_int, ctypes.c_int,
@@ -158,15 +186,15 @@ def alt_corr_taps(f1flat: torch.Tensor, f2cat: torch.Tensor,
     dev = f1flat.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(f1flat.data_ptr(), f2cat.data_ptr(), taps.data_ptr(),
-                out.data_ptr(), n * w1, w1, f2cat.shape[1], f1flat.shape[-1],
-                kk, 1.0 / float(c) ** 0.5, nlev, ints(*offs), ints(*widths),
+        rc = fn(_FORMS[form], f1flat.data_ptr(), f2cat.data_ptr(),
+                taps.data_ptr(), out.data_ptr(), n * w1, w1, f2cat.shape[1],
+                f1flat.shape[-1], kk, 1.0 / float(c) ** 0.5, nlev,
+                ints(*offs), ints(*widths),
                 int(f1flat.dtype == torch.bfloat16),
                 int(out_dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"alt_corr_taps kernel launch failed: CUDA error "
                            f"{rc}")
-    alt_corr_taps.launches += 1
     return out
 
 
@@ -210,9 +238,14 @@ def alt_corr_taps_backward(f1flat: torch.Tensor, f2cat: torch.Tensor,
                            widths: Sequence[int]
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """VJP of ``alt_corr_taps`` for the cotangent ``g`` (fp32): the plain
-    version for CPU tensors, the CUDA kernel for CUDA tensors (counted in
-    ``alt_corr_taps_backward.launches``).  Returns ``(df1, df2cat)``; two
-    calls on the same CUDA inputs give equal bits."""
+    version for CPU tensors, the CUDA kernels for CUDA tensors (one count
+    in ``alt_corr_taps_backward.launches`` a call, which launches two
+    kernels, ``alt_corr_taps_bwd_lists_kernel`` then
+    ``alt_corr_taps_bwd_grads_kernel``, per batch of rows).  Returns
+    ``(df1, df2cat)``; two calls on the same CUDA inputs give equal bits.
+    The lists take a workspace of up to 32 bytes a tap: a batch of rows
+    takes at most 256 MiB, or one row's lists where a row needs more
+    (``alt_corr_taps_backward_batch``)."""
     if all(t.device.type == "cpu" for t in (f1flat, f2cat, taps, g)):
         return alt_corr_taps_backward_plain(f1flat, f2cat, taps, g, widths)
     n, w1, c, widths, kk = _check_cuda(
@@ -222,23 +255,32 @@ def alt_corr_taps_backward(f1flat: torch.Tensor, f2cat: torch.Tensor,
         raise ValueError(f"alt_corr_taps_backward takes a float32 cotangent "
                          f"shaped like the taps; got {g.dtype} "
                          f"{tuple(g.shape)}")
-    nlev = len(widths)
+    nlev, w2cat = len(widths), f2cat.shape[1]
     lib = _build.load("alt_corr_taps_bwd")
     tile = lib.alt_corr_taps_backward_tile
     tile.restype = ctypes.c_int
-    tile.argtypes = [ctypes.c_int] * 3
-    if w1 and tile(w1, nlev, kk) < 1:
+    tile.argtypes = [ctypes.c_int] * 4
+    if tile(w1, w2cat, nlev, kk) < 1:
         raise NotImplementedError(
             f"alt_corr_taps_backward: {nlev * kk} taps per pixel; one "
             f"pixel's tables must fit in shared memory (see ROADMAP.md "
-            f"Queue 2, limits of the op-path kernels)")
+            f"Queue 2, limits of the op-path kernels; the lists' workspace "
+            f"takes up to 32 bytes a tap, at most 256 MiB a batch of rows "
+            f"or one row's)")
+    space = lib.alt_corr_taps_backward_workspace
+    space.restype = ctypes.c_long
+    space.argtypes = [ctypes.c_long] + [ctypes.c_int] * 4
     f1flat, f2cat = (_kernel_layout(t, 128) for t in (f1flat, f2cat))
     df1 = torch.empty_like(f1flat)
     df2 = torch.empty_like(f2cat)
+    # the kernels' lists of runs and entries (the caching allocator's
+    # blocks are 512-byte aligned)
+    work = torch.empty(space(n, w1, w2cat, nlev, kk), dtype=torch.uint8,
+                       device=f1flat.device)
     offs = [sum(widths[:i]) for i in range(nlev)]
     fn = lib.alt_corr_taps_backward
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_long]
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_long]
                    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                            ctypes.c_void_p, ctypes.c_void_p,
                                            ctypes.c_void_p])
@@ -247,10 +289,10 @@ def alt_corr_taps_backward(f1flat: torch.Tensor, f2cat: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(f1flat.data_ptr(), f2cat.data_ptr(), taps.data_ptr(),
-                g.data_ptr(), df1.data_ptr(), df2.data_ptr(), n, w1,
-                f2cat.shape[1], f1flat.shape[-1], kk, 1.0 / float(c) ** 0.5,
-                nlev,
-                ints(*offs), ints(*widths), stream)
+                g.data_ptr(), df1.data_ptr(), df2.data_ptr(),
+                work.data_ptr(), n, w1, w2cat, f1flat.shape[-1], kk,
+                1.0 / float(c) ** 0.5, nlev, ints(*offs), ints(*widths),
+                stream)
     if rc != 0:
         raise RuntimeError(f"alt_corr_taps_backward kernel launch failed: "
                            f"CUDA error {rc}")

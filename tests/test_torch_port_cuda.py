@@ -1337,6 +1337,98 @@ def test_alt_corr_taps_backward_kernel_matches_plain(dev, n, w1, widths, c):
         assert torch.equal(a[~ok].nan_to_num(7.0), w[~ok].nan_to_num(7.0))
 
 
+def _edge_taps(taps, widths, kk):
+    """Taps at -1, 0, w - 1 and w (the last tap of each level) on the
+    last row's pixels 4-7."""
+    for lvl, w in enumerate(widths):
+        taps[-1, 4:8, lvl * kk + kk - 1] = torch.tensor(
+            [-1.0, 0.0, w - 1.0, float(w)])
+    return taps
+
+
+@pytest.mark.parametrize("n,w1,widths,kk,c,dtype,out_dtype", [
+    (2, 20, (20, 0, 1, 5), 9, 128, torch.float32, torch.float32),
+    (2, 70, (70, 35, 17, 8), 9, 384, torch.float32, torch.float32),
+    (2, 70, (70, 35, 17, 8), 9, 256, torch.bfloat16, torch.bfloat16),
+    (1, 8, (100, 50), 300, 128, torch.float32, torch.float32),
+    (1, 8, (700,), 400, 128, torch.float32, torch.float32)],
+    ids=["w0w1", "ragged_c384", "ragged_bf16", "many_taps", "general"])
+def test_alt_corr_taps_kernel_hostile_cases(dev, n, w1, widths, kk, c,
+                                            dtype, out_dtype):
+    """Row 3 on the CPU emulation's hostile cases
+    (``tests/test_torch_port_taps_fwd.py``): levels of width 0 and 1, W1
+    not a multiple of the 64-pixel tile, C = 384, taps at -1, 0, w - 1
+    and w, 300 taps a level (several rounds of slots), and a 700-wide
+    level with 400 taps (the general form); within 1e-5 of max(1,
+    |plain|) in fp32 and one bf16 ulp with a bf16 output, NaN only at the
+    NaN tap, two calls bitwise equal."""
+    from raftstereo_tpu_torch.ops import alt_lookup
+
+    rng = np.random.default_rng(44)
+    f1, f2, taps = _taps_inputs(dev, rng, n, w1, widths, kk, dtype, c)
+    taps = _edge_taps(taps, widths, kk)
+    assert alt_lookup.alt_corr_taps_form(w1, widths, kk) == (
+        "general" if kk == 400 else "tiled")
+    got = alt_lookup.alt_corr_taps(f1, f2, taps, widths, out_dtype)
+    again = alt_lookup.alt_corr_taps(f1, f2, taps, widths, out_dtype)
+    want = alt_lookup.alt_corr_taps_plain(f1, f2, taps, widths, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(got.float().nan_to_num(7.0),
+                       again.float().nan_to_num(7.0))
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().sum() == 1
+    tol = 1.0 if out_dtype == torch.bfloat16 else 1e-5 * 2 ** 7
+    assert _bf16_ulps(got, want) <= tol
+
+
+@pytest.mark.parametrize("n,w1,widths,kk,c", [
+    (2, 20, (20, 0, 1, 5), 9, 128), (2, 70, (70, 35, 17, 8), 9, 384),
+    (2, 4, (64, 32), 9500, 128), (6, 180, (64, 32), 9500, 128)],
+    ids=["w0w1", "ragged_c384", "taps_near_limit", "near_limit_batches"])
+def test_alt_corr_taps_backward_kernel_hostile_cases(dev, n, w1, widths, kk,
+                                                     c):
+    """Row 4 with general taps on the CPU emulation's hostile cases
+    (``tests/test_torch_port_taps_bwd.py``): levels of width 0 and 1, W1
+    not a multiple of 32, C = 384, taps at -1, 0, w - 1 and w, NaN, +inf
+    and -inf cotangents, and 19,000 taps a pixel in two levels (one
+    pixel's tables fill shared memory; 20,000 are refused), also at 6 rows
+    of 180 pixels, whose lists (55 MB a row) run in two batches of rows
+    sharing the workspace.  Bitwise repeatable, NaN and
+    +-inf where plain has them, within 1e-4 of the largest elsewhere."""
+    from raftstereo_tpu_torch.ops import alt_lookup
+
+    rng = np.random.default_rng(45)
+    f1, f2, taps = _taps_inputs(dev, rng, n, w1, widths, kk, c=c)
+    if w1 >= 8:
+        taps = _edge_taps(taps, widths, kk)
+    g = _randn(rng, *taps.shape).to(dev)
+    g[0, 1, 3] = float("inf")
+    g[0, 2, kk + 1 if len(widths) > 1 else 5] = float("nan")
+    g[-1, -1, 0] = -float("inf")
+    k1 = alt_lookup.alt_corr_taps_backward(f1, f2, taps, g, widths)
+    k2 = alt_lookup.alt_corr_taps_backward(f1, f2, taps, g, widths)
+    want = alt_lookup.alt_corr_taps_backward_plain(f1, f2, taps, g, widths)
+    torch.cuda.synchronize()
+    for a, b, w in zip(k1, k2, want):
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+        assert torch.equal(a.isnan(), w.isnan())
+        assert torch.equal(a.isinf(), w.isinf())
+        assert torch.equal(a[w.isinf()], w[w.isinf()])
+        ok = torch.isfinite(w)
+        assert bool(ok.any())
+        scale = max(1.0, float(w[ok].abs().max()))
+        assert float((a[ok] - w[ok]).abs().max()) <= 1e-4 * scale
+    batch = _build.load("alt_corr_taps_bwd").alt_corr_taps_backward_batch
+    batch.restype = ctypes.c_long
+    batch.argtypes = [ctypes.c_long] + [ctypes.c_int] * 4
+    rows_a_batch = batch(n, w1, sum(widths), len(widths), kk)
+    assert (rows_a_batch < n) == (w1 == 180)
+    if kk == 9500:
+        with pytest.raises(NotImplementedError, match="tables must fit"):
+            alt_lookup.alt_corr_taps_backward(
+                f1, f2, taps[..., :1].repeat(1, 1, 20000).contiguous(),
+                g[..., :1].repeat(1, 1, 20000).contiguous(), widths)
+
+
 @pytest.mark.parametrize("shape,dtype,relu", [
     ((2, 64, 36, 60), torch.float32, False),
     ((2, 64, 36, 60), torch.float32, True),
