@@ -7,7 +7,7 @@ Phases, none caught: (1) print the card's name and power limit; (2) build
 the CUDA kernels from ``raftstereo_tpu_torch/csrc``, printing ptxas's
 registers, shared memory and spills of each tensor-core kernel (row 2's
 fused update, ``gru_update.cu``; rows 9, 15 and 16's encoder convs,
-``enc_conv_tc.cu``; row 13's stem, ``enc_conv.cu``) and, where
+``enc_conv_tc.cu``; rows 13 and 12's stems, ``enc_conv.cu``) and, where
 ``cuobjdump`` exists, the count of tensor-core instructions (HMMA/HGMMA)
 in each library, which must not be 0; (3) hold each kernel against its
 plain PyTorch version on the card at the shapes its main path gives it,
@@ -26,16 +26,20 @@ where plain has them), and
 the fused encoder stages' kernels at the fused serving path's shapes
 (fnet's 2 images and cnet's 1 at 576x960, each with its own conv1 row;
 layer2 at 288x480), the
-stride-2 conv1 at the ``n_downsample=3`` shape and the stats kernel at a
-batch-3 fnet shape (6 images); the backward and the encoder kernels also
-bitwise repeatable; (4) serve three 540x960, 32-iteration requests of the
-flagship model through ``/predict``, check that they are finite, bitwise
-equal to a direct ``BatchEngine.infer_batch`` call, and that each serving
-kernel launched exactly 32 times per request (and no encoder kernel);
-(5) the same with ``fused_encoder=True``, whose encoder kernels must
-launch exactly their per-request counts; (6) hold the card's forward
-against the port's CPU forward (plain versions) on a small pair, plain
-and fused encoders; (7) train the flagship model through
+stride-2 conv1 at the ``n_downsample=3`` path's shapes (fnet's 2 images
+with sums, cnet's 1 without; its row on that path) and the stats kernel
+at a batch-3 fnet shape (6 images); the backward and the encoder kernels
+also bitwise repeatable; (4) serve three 540x960, 32-iteration requests
+of the flagship model through ``/predict``, check that they are finite,
+bitwise equal to a direct ``BatchEngine.infer_batch`` call, and that each
+serving kernel launched exactly 32 times per request (and no encoder
+kernel); (5) the same with ``fused_encoder=True``, whose encoder kernels
+must launch exactly their per-request counts, then with
+``fused_encoder=True`` and ``n_downsample=3`` (``serve_fused_ds3``: the
+stride-2 conv1, row 12, twice a request and the stride-1 one never,
+``FUSED_PER_REQUEST_DS3``); (6) hold the card's forward against the
+port's CPU forward (plain versions) on a small pair, plain and fused
+encoders (and the ``n_downsample=3`` fused model); (7) train the flagship model through
 ``cli.train.train`` on ``ShiftStereoDataset`` at the recipe shape (batch
 6, 320x720, 16 iterations): 6 steps, then a second call that resumes from
 the step-6 checkpoint and runs to step 8; every loss finite, the lookup
@@ -90,12 +94,14 @@ the training shape) with their outputs' SHA-256 digests printed, row 3's
 general form (a warp per pixel; 16 rows of 240 pixels, one 700-wide level,
 400 taps a pixel, whose dots outgrow the tiled form's shared memory) held
 and timed, and the
-stand-alone instance norm (row 8, fp32 at a 576x960 bucket's fnet norm
-and at the training shape, bf16; relu on and off) against their plain
-versions, timed; (20) run the op path: each
-``pallas_alt_pyramid_flat`` forward and backward launches exactly one
-row 3 and one row 4 kernel, each ``instance_norm_act`` forward and
-backward one stats and one apply kernel, and gradients match the CPU's
+stand-alone instance norm (row 8 at a 576x960 bucket's fnet norm and at
+the training shape, fp32 and bf16; relu on and off) against their plain
+versions, both forms timed (the one-pass cluster form that the op takes
+at these shapes and the stats + apply form), and at shapes under the
+50 MB L2 cache also with the cache flushed between calls; (20) run the
+op path: each ``pallas_alt_pyramid_flat`` forward and backward launches
+exactly one row 3 and one row 4 kernel, each ``instance_norm_act``
+forward and backward one cluster kernel, and gradients match the CPU's
 on a small shape; (21) evaluate the flagship at full width on a
 synthetic KITTI tree of 10 pairs at 375x1242, first through the
 ``Evaluator`` at a padded shape (384x1248) that the process has not run
@@ -144,6 +150,7 @@ PEAK_BF16_FLOP_PER_S = 989e12
 PEAK_TF32_FLOP_PER_S = 495e12  # one TF32 pass; fp32 as 3xTF32 takes three
 PEAK_INT8_OPS_PER_S = 1979e12
 SLEEP_CYCLES = 20_000_000  # ~10 ms at the card's clock: time_ms's stream hold
+L2_BYTES = 50e6  # the H100's L2 cache; time_cold_ms writes 128 MB between calls
 CARD = "card not read yet"  # nvidia-smi's name and power limit, set by main
 
 ITERS = 32
@@ -167,10 +174,13 @@ DUAL_TOL = 1e-5        # relative to max(1, |plain|), per-pixel means: fp32
 # Per-request launches of the fused encoder kernels (fnet + cnet, one
 # each per stage call): conv1, the four layer1 convs, the finish, the
 # layer2 entry, its three convs and its finish; 0 for the stride-2 conv1
-# and the stats kernel at batch 1.
+# and the stats kernel at batch 1.  With n_downsample=3 conv1 is the
+# stride-2 one (row 12) for both encoders, the rest as before.
 FUSED_PER_REQUEST = {"stem_conv7": 2, "stem_conv7_s2": 0, "stage_conv": 8,
                      "plane_stats": 0, "stage_finish": 2, "l2_entry": 2,
                      "l2_conv": 6, "l2_finish": 2}
+FUSED_PER_REQUEST_DS3 = dict(FUSED_PER_REQUEST, stem_conv7=0,
+                             stem_conv7_s2=2)
 # Per-step launches of the fused encoder kernels on the training path at
 # the recipe (fnet 12 images, cnet 6: more than the fused conv1 takes, so
 # conv1 runs in cuDNN, fnet's stage takes its first sums from the stats
@@ -221,7 +231,7 @@ COUNTER = {"alt_corr_bwd": "alt_corr_backward",
            "vol_lookup_bwd": "vol_lookup_backward",
            "int8_volume": "int8_corr_volume",
            "alt_corr_taps_bwd": "alt_corr_taps_backward",
-           "instance_norm": "in_stats"}
+           "instance_norm": "in_norm_cluster"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -259,6 +269,28 @@ def time_ms(fn, reps: int, rounds: int = 5) -> float:
             times.append(a.elapsed_time(b) / reps)
         else:
             cycles *= 2
+    return statistics.median(times)
+
+
+def time_cold_ms(fn, reps: int = 10) -> float:
+    """Device time of one ``fn()`` call in ms with the L2 cache flushed
+    before it (128 MB written between calls): CUDA events around each call
+    alone, behind a short sleep kernel that holds the stream while the
+    host enqueues it; the median of ``reps`` calls, after one warm-up."""
+    import torch
+
+    flush = torch.empty(32 * 2 ** 20, dtype=torch.float32, device="cuda")
+    fn()
+    times = []
+    for i in range(reps):
+        flush.fill_(float(i))
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(SLEEP_CYCLES // 10)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
     return statistics.median(times)
 
 
@@ -400,7 +432,7 @@ def _ptxas_label(mangled: str) -> str:
     mangled kernel name."""
     name = re.search(r"(gru_mma_conv_kernel|gru_simt_conv_kernel|"
                      r"conv3x3_few_out_kernel|pad_rows_kernel|"
-                     r"enc_conv_tc_kernel|enc_conv_kernel)I(.*?)EEv", mangled)
+                     r"enc_conv_tc_kernel|stem7_tc_kernel)I(.*?)EEv", mangled)
     if not name:  # _ZN <namespace> <name> E...: lengths, then characters
         ns = re.match(r"_ZN(\d+)", mangled)
         at = ns.end() + int(ns.group(1)) if ns else 0
@@ -418,9 +450,9 @@ def build_report(name, lib) -> None:
     memory is its TMA ring of 128-byte rows, BM = 32*MT pixel rows and BN
     = 16*NT weight rows per plane, 4 stages where one is at most 28 KB,
     else 3, and a barrier per stage; rows 9, 15 and 16's
-    ``enc_conv_tc_kernel<stride,mode,projection,MT,NT>``'s and row 13's
-    ``stem7_tc_kernel``'s are set at launch), and the tensor-core
-    instructions in the library, which must not be 0."""
+    ``enc_conv_tc_kernel<stride,mode,projection,MT,NT>``'s and rows 13
+    and 12's ``stem7_tc_kernel<stride>``'s are set at launch), and the
+    tensor-core instructions in the library, which must not be 0."""
     entry = spill = None
     for line in lib.with_suffix(".log").read_text().splitlines():
         props = re.search(r"Function properties for (\S+)", line)
@@ -730,8 +762,8 @@ def encoder_kernel_phase(model, bucket, torch):
     """The fused encoder kernels against their plain versions at the fused
     serving path's shapes (fnet: 2 images, instance norm with sums; cnet:
     1 image, batch norm without), plus the stride-2 conv1 at the
-    ``n_downsample=3`` shape and the stats kernel at a batch-3 fnet; one
-    timed row per kernel."""
+    ``n_downsample=3`` path's shapes (its row on ``serve_fused_ds3``) and
+    the stats kernel at a batch-3 fnet; one timed row per kernel."""
     import torch.nn.functional as F
 
     from raftstereo_tpu_torch.ops import cuda_encoder as ce
@@ -863,16 +895,23 @@ def encoder_kernel_phase(model, bucket, torch):
                                    res_relu=False, want_stats=False))):
         hold(label, kern, plain, 1.0, ENC_TOL, torch)
 
-    # -- off the batch-1 path: the stride-2 conv1 (row 12) at the
-    # n_downsample=3 shape, the stats kernel (row 10) at a batch-3 fnet
+    # -- the n_downsample=3 path: the stride-2 conv1 (row 12), fnet's 2
+    # images with sums (timed) and cnet's 1 without (held)
     outs2 = 2 * 64 * h2 * w2
-    row("stem_conv7_s2", "raftstereo_tpu/ops/pallas_encoder.py:721",
-        f"{dims(img)} (n_downsample=3)",
-        lambda: ce.stem_conv7_s2(img, w1, b1),
-        lambda: ce.conv_plain(img, w1, b1, 2), n2, ENC_TOL,
-        4 * (img.numel() + w1.numel() + 64 + outs2 + 2 * 2 * 64),
-        conv_cost(img, w1, outs2, n_in=0),
-        lib=lambda: F.conv2d(img, w1, b1, 2, 3), reps=10)
+    enc_row(rows, "serve_fused_ds3", "stem_conv7_s2",
+            "raftstereo_tpu/ops/pallas_encoder.py:721",
+            f"{dims(img)} (n_downsample=3)",
+            lambda: ce.stem_conv7_s2(img, w1, b1),
+            lambda: ce.conv_plain(img, w1, b1, 2), n2, ENC_TOL,
+            4 * (img.numel() + w1.numel() + 64 + outs2 + 2 * 2 * 64),
+            conv_cost(img, w1, outs2, n_in=0), torch,
+            lib=lambda: F.conv2d(img, w1, b1, 2, 3), reps=10,
+            products=conv_products(w1, outs2))
+    hold(f"stem_conv7_s2 {dims(img1)} no sums (n_downsample=3)",
+         lambda: ce.stem_conv7_s2(img1, w1, b1, want_stats=False),
+         lambda: ce.conv_plain(img1, w1, b1, 2, want_stats=False), 1.0,
+         ENC_TOL, torch)
+    # -- off the batch-1 path: the stats kernel (row 10) at a batch-3 fnet
     big = randn(6, 64, h, w)
     row("plane_stats", "raftstereo_tpu/ops/pallas_norm.py:47 (via "
         "pallas_encoder.py:476)", f"{dims(big)} (batch 3)",
@@ -1677,7 +1716,8 @@ def counted_wrappers():
 
     return training_wrappers() + (alt_lookup.alt_corr_taps,
                                   alt_lookup.alt_corr_taps_backward,
-                                  norm.in_stats, norm.in_apply)
+                                  norm.in_norm_cluster, norm.in_stats,
+                                  norm.in_apply)
 
 
 def launch_counts(fns) -> dict:
@@ -1774,8 +1814,9 @@ def op_kernel_phase(lo_hw, torch):
     (480 rows of 180) in fp32 and at the serving pyramid with bf16 feature
     maps and output; its backward at the training shape; instance norm at
     fnet's first norm of a 576x960 bucket (2x64x288x480) and of the
-    training recipe (12x64x160x360) in fp32 and the first in bf16.
-    Returns the rows and the op path's inputs."""
+    training recipe (12x64x160x360) in fp32 and bf16, both forms.
+    Returns the rows and the op path's inputs by path (``lookup``,
+    ``x``)."""
     import torch.nn.functional as F
 
     from raftstereo_tpu_torch.ops import alt_lookup as al
@@ -1803,7 +1844,7 @@ def op_kernel_phase(lo_hw, torch):
         f2 = st.f2cat.reshape(b * h, -1, c)
         taps = op_taps(b, h, w, st.widths, k, g, torch)
         odt = out_dtype or torch.float32
-        inputs[path] = (f1, f2, taps, st.widths, (b, h, w))
+        inputs[path] = {"lookup": (f1, f2, taps, st.widths, (b, h, w))}
 
         def kern():
             return al.alt_corr_taps(f1, f2, taps, st.widths, odt)
@@ -1892,46 +1933,63 @@ def op_kernel_phase(lo_hw, torch):
     for path, shape, dtype in (("op_serve", (2, 64, 288, 480), torch.float32),
                                ("op_train", (12, 64, 160, 360),
                                 torch.float32),
-                               ("op_serve_bf16", (2, 64, 288, 480), bf)):
+                               ("op_serve_bf16", (2, 64, 288, 480), bf),
+                               ("op_train_bf16", (12, 64, 160, 360), bf)):
         x = (randn(*shape) * 1.5 + 0.4).to(dtype)
-        inputs[path] += (x,)
+        inputs.setdefault(path, {})["x"] = x
+        cs, vals = norm.cluster_plan(shape[2] * shape[3], dtype)
+        esize = 2 if dtype == bf else 4
         for relu in (True, False):
             def kern(relu=relu):
                 return norm.instance_norm_act(x, relu)
 
+            def two(relu=relu):  # the two-kernel form, forced
+                return norm.in_apply(x, *norm.in_stats(x), relu)
+
             def plain(relu=relu):
                 return norm.in_apply_plain(x, *norm.in_stats_plain(x), relu)
 
-            k1, k2, want = kern(), kern(), plain()
+            k1, k2, t1, want = kern(), kern(), two(), plain()
             torch.cuda.synchronize()
             check(torch.equal(k1, k2), "instance_norm: two calls differ")
-            err = rel_err(k1, want, torch)
+            err, err2 = rel_err(k1, want, torch), rel_err(t1, want, torch)
             tol = BF16_ULP if dtype == bf else INORM_TOL
             abs_err = float((k1.float() - want.float()).abs().max())
-            print(f"instance_norm ({path}, {dims(x)} {x.dtype}, relu {relu}) "
-                  f"max_abs_err {abs_err:.3e}, max rel {err:.3e} (tol {tol});"
-                  f" bitwise repeatable")
-            check(err <= tol, f"instance_norm disagrees with its plain "
-                              f"version by {err} ({path}, relu {relu})")
+            print(f"instance_norm ({path}, {dims(x)} {x.dtype}, relu {relu}, "
+                  f"cluster of {cs} x {vals * esize} B) max_abs_err "
+                  f"{abs_err:.3e}, max rel {err:.3e}, stats + apply "
+                  f"{err2:.3e} (tol {tol}); bitwise repeatable")
+            check(err <= tol and err2 <= tol,
+                  f"instance_norm disagrees with its plain version by "
+                  f"{err} (cluster), {err2} (two kernels) ({path}, relu "
+                  f"{relu})")
         mean, rstd = norm.in_stats(x)
         ms, plain_ms = time_ms(kern, 20), time_ms(plain, 5)
+        ms_two = time_ms(two, 20)
         ms_stats = time_ms(lambda: norm.in_stats(x), 20)
         ms_apply = time_ms(lambda: norm.in_apply(x, mean, rstd), 20)
         lib_ms = time_ms(lambda: F.instance_norm(x, eps=1e-5), 20)
-        esize = 2 if dtype == bf else 4
+        cold = {}
+        if x.numel() * esize < L2_BYTES:  # back-to-back calls find x in L2
+            cold = dict(ms_l2_cold=time_cold_ms(kern),
+                        ms_two_kernel_l2_cold=time_cold_ms(two),
+                        library_ms_l2_cold=time_cold_ms(
+                            lambda: F.instance_norm(x, eps=1e-5)))
         bound_ms, bound_by = bound(2 * esize * x.numel(), 5 * x.numel())
-        print(f"instance_norm ({path}) ms {ms:.4f} (stats {ms_stats:.4f}, "
-              f"apply {ms_apply:.4f}) plain_ms {plain_ms:.4f} library_ms "
-              f"{lib_ms:.4f} (F.instance_norm) bound_ms {bound_ms:.4f} "
-              f"({bound_by}) [{CARD}]")
+        print(f"instance_norm ({path}) ms {ms:.4f} (cluster; stats + apply "
+              f"{ms_two:.4f}: stats {ms_stats:.4f}, apply {ms_apply:.4f}) "
+              f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} "
+              f"(F.instance_norm) bound_ms {bound_ms:.4f} ({bound_by}) "
+              + "".join(f"{k} {v:.4f} " for k, v in cold.items())
+              + f"[{CARD}]")
         rows.append(dict(name="instance_norm", path=path, shape=dims(x),
                          route="cuda",
                          source="raftstereo_tpu_torch/csrc/inorm.cu",
                          replaces="raftstereo_tpu/ops/pallas_norm.py:47, :66",
-                         max_abs_err=abs_err, ms=ms, ms_stats=ms_stats,
-                         ms_apply=ms_apply, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=lib_ms))
+                         max_abs_err=abs_err, ms=ms, ms_two_kernel=ms_two,
+                         ms_stats=ms_stats, ms_apply=ms_apply,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms, **cold))
     return rows, inputs
 
 
@@ -2034,27 +2092,35 @@ def op_path_phase(inputs, torch):
 
     fns = counted_wrappers()
     by_path = {}
-    for path, (f1, f2, taps, widths, (b, h, w), x) in inputs.items():
-        bf16 = f1.dtype == torch.bfloat16
+    for path, got_inputs in inputs.items():
+        calls = []
+        if "lookup" in got_inputs:
+            f1, f2, taps, widths, (b, h, w) = got_inputs["lookup"]
+            bf16 = f1.dtype == torch.bfloat16
 
-        def lookup():
-            a, c_ = (t.detach().requires_grad_(not bf16) for t in (f1, f2))
-            out = al.pallas_alt_pyramid_flat(
-                a, c_, taps.reshape(b, h, w, -1), widths,
-                out_dtype=torch.bfloat16 if bf16 else torch.float32)
-            if not bf16:
-                out.backward(torch.ones_like(out))
+            def lookup():
+                a, c_ = (t.detach().requires_grad_(not bf16)
+                         for t in (f1, f2))
+                out = al.pallas_alt_pyramid_flat(
+                    a, c_, taps.reshape(b, h, w, -1), widths,
+                    out_dtype=torch.bfloat16 if bf16 else torch.float32)
+                if not bf16:
+                    out.backward(torch.ones_like(out))
 
-        def inorm():
-            xr = x.detach().requires_grad_(True)
-            y = norm.instance_norm_act(xr, True)
-            y.backward(torch.ones_like(y))
+            calls.append((lookup, dict(alt_corr_taps=1,
+                                       alt_corr_taps_backward=int(
+                                           not bf16))))
+        if "x" in got_inputs:
+            x = got_inputs["x"]
 
+            def inorm():
+                xr = x.detach().requires_grad_(True)
+                y = norm.instance_norm_act(xr, True)
+                y.backward(torch.ones_like(y))
+
+            calls.append((inorm, dict(in_norm_cluster=1)))
         total = dict.fromkeys((fn.__name__ for fn in fns), 0)
-        for call, want in ((lookup, dict(alt_corr_taps=1,
-                                         alt_corr_taps_backward=int(
-                                             not bf16))),
-                           (inorm, dict(in_stats=1, in_apply=1))):
+        for call, want in calls:
             for fn in fns:
                 fn.launches = 0
             call()
@@ -2373,10 +2439,14 @@ def main() -> int:
     # the bf16 paths' card-vs-CPU pairs come from their own generators:
     # the earlier phases' inputs stay as they were.
     vol_rng, bf16_rng = np.random.default_rng(1), np.random.default_rng(2)
+    ds3_rng = np.random.default_rng(3)
     bf16 = dict(compute_dtype="bfloat16", corr_dtype="bfloat16")
     for path, kw, per_request, r in (
             ("serve_fused", dict(fused_encoder=True),
              dict(FUSED_PER_REQUEST, alt_corr=ITERS, gru_update=ITERS), rng),
+            ("serve_fused_ds3", dict(fused_encoder=True, n_downsample=3),
+             dict(FUSED_PER_REQUEST_DS3, alt_corr=ITERS, gru_update=ITERS),
+             ds3_rng),
             ("serve_pallas", dict(corr_implementation="pallas"),
              dict(vol_lookup=ITERS, gru_update=ITERS), vol_rng),
             ("serve_quant", dict(corr_implementation="auto",

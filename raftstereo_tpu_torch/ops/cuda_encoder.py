@@ -1,8 +1,8 @@
 """The fused encoder stages' kernels: ``csrc/enc_conv_tc.cu`` (the 3x3
 convs of layer1 and layer2 on the tensor cores, 3xTF32: prep ->
-convolution -> + bias), ``csrc/enc_conv.cu`` (the 7x7 stems: stride 1 on
-the tensor cores, 3xTF32; stride 2 on the CUDA cores), both with
-per-(image, channel) output sums, ``csrc/enc_stats.cu``
+convolution -> + bias), ``csrc/enc_conv.cu`` (the 7x7 stems, both strides
+one tensor-core kernel, 3xTF32), both with per-(image, channel) output
+sums, ``csrc/enc_stats.cu``
 (the plane sums of a tensor, and the two sums of the instance-norm
 backward) and ``csrc/enc_finish.cu`` (the stages' last elementwise pass),
 their plain PyTorch versions, and one wrapper per TPU kernel they
@@ -14,6 +14,7 @@ wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
 ``stem_conv7``         row 13, ``pallas_encoder.py`` ``_stem7_kernel``
                        (``enc_conv.cu``, tensor cores)
 ``stem_conv7_s2``      row 12, ``pallas_encoder.py`` ``_stem7s2_kernel``
+                       (``enc_conv.cu``, tensor cores)
 ``stage_conv``         row 9, ``pallas_encoder.py`` ``_enc_conv_kernel``,
                        ``_enc_conv_res_kernel`` (``enc_conv_tc.cu``)
 ``plane_stats``        row 10, ``pallas_norm.py`` ``_in_stats_kernel`` as
@@ -55,11 +56,12 @@ from .cuda_gru import tf32_round
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
 
-# enc_conv.cu's output tile and channel tile (kTileH, kTileW, kCoutTile;
-# the tensor-core stem's tile is the same 8x32, all 64 outputs), and the
-# tensor-core stem's weight shape (3 -> 64 channels, 7x7).
+# enc_conv.cu's output tile (kTileH, kTileW: 8x32 pixels, all 64
+# outputs) and weight shape (3 -> 64 channels, 7x7); the tensor-core 3x3
+# convs take Cout in multiples of 32 (enc_conv_tc.cu's entry checks it).
 _TILE_H, _TILE_W, _COUT_TILE = 8, 32, 32
 STEM_WEIGHT = (64, 3, 7, 7)
+STEMS = {"stem_conv7": 1, "stem_conv7_s2": 2}  # wrapper -> stride
 _NONE, _PREP, _RES, _RES_PROJ = 0, 1, 2, 3
 # enc_conv_tc.cu's geometry: output rows per block (kTH), input channels
 # per stage (kKC), and its instances (kInst) by wrapper: (instance id,
@@ -67,6 +69,13 @@ _NONE, _PREP, _RES, _RES_PROJ = 0, 1, 2, 3
 TC_TILE_H, TC_STAGE = 8, 8
 TC_INSTANCES = {"stage_conv": (0, 1, 32, 64), "l2_entry": (1, 2, 16, 96),
                 "l2_conv": (2, 1, 16, 96)}
+
+
+def stem_geometry(h: int, w: int, stride: int):
+    """The stems' output (ho, wo) for an (h, w) image at ``stride`` (7x7,
+    zero padding 3) and their 8x32 output tiles per image ``nb``."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    return ho, wo, -(-ho // _TILE_H) * -(-wo // _TILE_W)
 
 
 def tc_geometry(h: int, w: int, instance: str):
@@ -188,10 +197,9 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
     """One launch of wrapper ``name``'s kernel: ``enc_conv_tc_forward``
     for the tensor-core instances (``TC_INSTANCES``: the 3x3 convs of rows
     9, 15 and 16, weights as ``tc_pack``; ``proj`` the projection's
-    (weight, bias)), ``enc_stem7_tc_forward`` for the stride-1 stem (row
-    13 on the tensor cores, OIHW weights split in the kernel), else
-    ``enc_conv_forward`` (the stride-2 stem, raw image).  Returns (y, yp or
-    None, stats (B, 2, CH) or None)."""
+    (weight, bias)), else ``enc_stem7_tc_forward`` for the stems (``STEMS``:
+    rows 13 and 12 on the tensor cores, the raw image, OIHW weights split
+    in the kernel).  Returns (y, yp or None, stats (B, 2, CH) or None)."""
     cout, cin, ks, _ = weight.shape
     b, c, h, wd = x.shape
     if c != cin or cout % _COUT_TILE:
@@ -208,7 +216,6 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
     bias = bias.detach().contiguous()
     bp = None if proj is None else proj[1].detach().contiguous()
     tc = name in TC_INSTANCES
-    stem = name == "stem_conv7"
     if tc:
         inst, inst_stride = TC_INSTANCES[name][:2]
         if ks != 3 or stride != inst_stride:
@@ -217,16 +224,12 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
         ho, wo, _, bn, nb = tc_geometry(h, wd, name)
         w = tc_pack(weight, None if proj is None else proj[0], bn)
     else:
-        if stem and tuple(weight.shape) != STEM_WEIGHT:
-            raise ValueError(f"{name}: weight {tuple(weight.shape)}; the "
-                             f"tensor-core stem takes {STEM_WEIGHT}")
-        pad = ks // 2
-        ho = (h + 2 * pad - ks) // stride + 1
-        wo = (wd + 2 * pad - ks) // stride + 1
-        nb = -(-ho // _TILE_H) * -(-wo // _TILE_W)
-        # OIHW for the tensor-core stem, else (Cin, k, k, Cout)
-        w = (weight.detach().contiguous() if stem else
-             weight.detach().permute(1, 2, 3, 0).contiguous())
+        if tuple(weight.shape) != STEM_WEIGHT or stride != STEMS[name]:
+            raise ValueError(f"{name}: weight {tuple(weight.shape)}, stride "
+                             f"{stride}; the stem takes {STEM_WEIGHT} at "
+                             f"stride {STEMS[name]}")
+        ho, wo, nb = stem_geometry(h, wd, stride)
+        w = weight.detach().contiguous()
     dev = _check(name, x, s, t, res, rs, rt, w, bias, bp)
     y = torch.empty((b, cout, ho, wo), dtype=torch.float32, device=dev)
     yp = torch.empty_like(y) if proj is not None else None
@@ -241,14 +244,10 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
         ptrs = [_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
                 _ptr(w), _ptr(bias), _ptr(bp), _ptr(y), _ptr(yp)]
         ints = [b, cin, h, wd, cout, inst, mode, nb, bn]
-    elif stem:
+    else:
         fn = _build.load("enc_conv").enc_stem7_tc_forward
         ptrs = [_ptr(x), _ptr(w), _ptr(bias), _ptr(y)]
-        ints = [b, h, wd, nb]
-    else:
-        fn = _build.load("enc_conv").enc_conv_forward
-        ptrs = [_ptr(x), _ptr(w), _ptr(bias), _ptr(y)]
-        ints = [b, cin, h, wd, cout, ks, stride, nb]
+        ints = [b, h, wd, stride, nb]
     ptrs += [_ptr(partials), _ptr(stats)]
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
@@ -282,7 +281,8 @@ def stem_conv7(img: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 def stem_conv7_s2(img: torch.Tensor, weight: torch.Tensor,
                   bias: torch.Tensor, want_stats: bool = True):
     """7x7 stride-2 conv1: output (i, j) reads image rows and columns
-    2i-3 .. 2i+3; ``(y, sums or None)`` (row 12)."""
+    2i-3 .. 2i+3, zero padding on the raw image; ``(y, sums or None)`` (row
+    12)."""
     if _on_cpu(img, weight, bias):
         return conv_plain(img, weight, bias, 2, want_stats=want_stats)
     y, _, st = _conv_cuda("stem_conv7_s2", img, weight, bias, 2,

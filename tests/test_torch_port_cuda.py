@@ -464,6 +464,34 @@ def test_stem_conv7_tensor_core_serving_shapes(dev, b, want_stats):
         assert float(((a - p) / n).abs().max()) <= 1e-4 * scale
 
 
+@pytest.mark.parametrize("b,want_stats", [(1, False), (2, True)],
+                         ids=["cnet_b1", "fnet_b2_sums"])
+def test_stem_conv7_s2_tensor_core_serving_shapes(dev, b, want_stats):
+    """Row 12 on the tensor cores at the ``n_downsample=3`` fused serving
+    input (576x960 -> 288x480, 3 -> 64 channels): cnet's batch 1 without
+    sums and fnet's batch 2 with sums; within ENC_TOL (1e-4 of max(1,
+    |plain|)) of plain in full fp32, the sums per output pixel; two calls
+    bitwise equal, each counted once."""
+    fp32_numerics()
+    rng = np.random.default_rng(12)
+    img = torch.tanh(_randn(rng, b, 3, 576, 960)).to(dev)
+    wt, bias = _wb(rng, dev, 64, 3, 7)
+    fn = cuda_encoder.stem_conv7_s2
+    before = fn.launches
+    k1 = fn(img, wt, bias, want_stats=want_stats)
+    k2 = fn(img, wt, bias, want_stats=want_stats)
+    assert fn.launches == before + 2
+    want = cuda_encoder.conv_plain(img, wt, bias, 2, want_stats=want_stats)
+    torch.cuda.synchronize()
+    assert k1[0].shape == (b, 64, 288, 480)
+    assert (k1[1] is None) == (not want_stats)
+    for a, c, p in zip(_leaves(k1), _leaves(k2), _leaves(want)):
+        assert torch.equal(a, c)
+        n = 288.0 * 480 if a.dim() == 2 else 1.0
+        scale = max(1.0, float((p / n).abs().max()))
+        assert float(((a - p) / n).abs().max()) <= 1e-4 * scale
+
+
 @pytest.mark.parametrize("cin,b,h,w", [(64, 2, 13, 2), (64, 1, 19, 45),
                                        (96, 3, 9, 33)])
 def test_stage_and_l2_conv_kernels_match_plain(dev, cin, b, h, w):
@@ -681,18 +709,22 @@ def test_fused_train_step_on_card_matches_cpu(dev, monkeypatch):
         assert float((gg[k] - gc[k]).abs().max()) <= 1e-3 * gmax, k
 
 
-@pytest.mark.parametrize("batch", [1, 3])
-def test_fused_encoder_on_card_never_runs_plain(dev, batch, monkeypatch):
+@pytest.mark.parametrize("batch,ds", [(1, 2), (3, 2), (1, 3)],
+                         ids=["1", "3", "ds3"])
+def test_fused_encoder_on_card_never_runs_plain(dev, batch, ds, monkeypatch):
     """``fused_encoder=True`` on CUDA tensors: every plain version patched
     to raise, the model runs, launches counted per row (batch 3: fnet's 6
-    images take plain conv1 + the stats kernel), and the result matches
-    the CPU forward (plain versions) within the parity thresholds."""
+    images take plain conv1 + the stats kernel; ``n_downsample=3``: both
+    encoders' conv1 is the stride-2 stem), and the result matches the CPU
+    forward (plain versions) within the parity thresholds."""
     cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
-                           corr_levels=2, corr_radius=2, fused_encoder=True)
+                           corr_levels=2, corr_radius=2, fused_encoder=True,
+                           n_downsample=ds)
     gpu = RAFTStereo(cfg, device=dev, seed=4)
     cpu = RAFTStereo(cfg, device="cpu", seed=4)
     rng = np.random.default_rng(batch)
-    imgs = [torch.from_numpy(rng.uniform(0, 255, (batch, 32, 48, 3))
+    hw = (32, 48) if ds == 2 else (32, 64)
+    imgs = [torch.from_numpy(rng.uniform(0, 255, (batch,) + hw + (3,))
                              .astype(np.float32)) for _ in range(2)]
     lo_c, up_c = cpu(*imgs, iters=3)
 
@@ -708,7 +740,9 @@ def test_fused_encoder_on_card_never_runs_plain(dev, batch, monkeypatch):
     torch.cuda.synchronize()
     got = {fn.__name__: fn.launches for fn in cuda_encoder.WRAPPERS}
     big = batch > 2  # fnet sees 2 * batch images
-    assert got == {"stem_conv7": 2 - big, "stem_conv7_s2": 0,
+    stems = 2 - big
+    assert got == {"stem_conv7": stems * (ds == 2),
+                   "stem_conv7_s2": stems * (ds == 3),
                    "stage_conv": 8, "plane_stats": int(big),
                    "stage_finish": 2, "l2_entry": 2, "l2_conv": 6,
                    "l2_finish": 2, "dual_sums": 0}
@@ -1434,34 +1468,81 @@ def test_alt_corr_taps_backward_kernel_hostile_cases(dev, n, w1, widths, kk,
     ((2, 64, 36, 60), torch.float32, True),
     ((3, 5, 7, 9), torch.float32, True),
     ((2, 64, 36, 60), torch.bfloat16, False),
-    ((2, 64, 36, 60), torch.bfloat16, True)],
-    ids=["fp32", "fp32_relu", "odd", "bf16", "bf16_relu"])
+    ((2, 64, 36, 60), torch.bfloat16, True),
+    ((2, 3, 288, 480), torch.float32, True),
+    ((1, 3, 145, 127), torch.bfloat16, False),
+    ((1, 2, 1024, 1024), torch.float32, True),
+    ((1, 2, 1800, 1024), torch.bfloat16, False)],
+    ids=["fp32", "fp32_relu", "odd", "bf16", "bf16_relu", "serve_planes",
+         "odd_bf16_two_blocks", "two_kernels", "two_kernels_bf16"])
 def test_instance_norm_kernels_match_plain(dev, shape, dtype, relu):
-    """Row 8: stats within 1e-5 relative (plane sums in another order),
-    the output within 1e-5 of max(1, |plain|) in fp32 and one bf16 ulp in
-    bf16; one launch of each kernel, both bitwise repeatable."""
+    """Row 8: ``instance_norm_act`` makes one cluster launch where
+    ``cluster_plan`` takes the plane (here 1, 2 or 8 blocks a plane), else
+    one stats and one apply launch (planes of 4 MB and 3.7 MB); both forms
+    are also forced, each where it applies: the output within 1e-5 of
+    max(1, |plain|) in fp32 and one bf16 ulp in bf16, bitwise repeatable;
+    the stats kernel's statistics within 1e-5 relative (plane sums in
+    another order)."""
     from raftstereo_tpu_torch.ops import norm
 
     rng = np.random.default_rng(42)
     x = (_randn(rng, *shape) * 1.5 + 0.4).to(dev, dtype)
-    s0, a0 = norm.in_stats.launches, norm.in_apply.launches
+    fits = norm.cluster_plan(shape[2] * shape[3], dtype) is not None
+    fns = (norm.in_norm_cluster, norm.in_stats, norm.in_apply)
+    before = [f.launches for f in fns]
     y = norm.instance_norm_act(x, relu)
     y2 = norm.instance_norm_act(x, relu)
-    assert (norm.in_stats.launches, norm.in_apply.launches) == (s0 + 2,
-                                                                a0 + 2)
+    assert [f.launches - b for f, b in zip(fns, before)] == (
+        [2, 0, 0] if fits else [0, 2, 2])
     want = norm.in_apply_plain(x, *norm.in_stats_plain(x), relu)
+    forms = [norm.in_apply(x, *norm.in_stats(x), relu)]
+    if fits:
+        forms.append(norm.in_norm_cluster(x, relu))
+    else:
+        with pytest.raises(ValueError, match="beyond"):
+            norm.in_norm_cluster(x, relu)
     torch.cuda.synchronize()
     assert y.dtype == dtype and torch.equal(y, y2)
+    assert torch.equal(forms[-1], y)
     for got, ref in zip(norm.in_stats(x), norm.in_stats_plain(x)):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
     tol = 1.0 if dtype == torch.bfloat16 else 1e-5 * 2 ** 7
-    assert _bf16_ulps(y, want) <= tol
+    for got in forms:
+        assert _bf16_ulps(got, want) <= tol
+
+
+def test_instance_norm_cluster_special_planes(dev):
+    """Row 8's cluster form on a constant plane (its variance clamped: 0
+    throughout), a NaN plane (NaN throughout), and on a view 4 bytes past
+    a 16-byte boundary (the scalar path), each against plain; one cluster
+    launch a call."""
+    from raftstereo_tpu_torch.ops import norm
+
+    rng = np.random.default_rng(44)
+    x = _randn(rng, 2, 3, 160, 130) * 1.7 + 0.6
+    x[0, 1] = 2001.0
+    x[1, 0, 80, 43] = float("nan")
+    x = x.to(dev)
+    shifted = x.reshape(-1)[1:1 + 3 * 160 * 129].reshape(1, 3, 160, 129)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    before = norm.in_norm_cluster.launches
+    for t in (x, shifted):
+        got = norm.instance_norm_act(t, True)
+        want = norm.in_apply_plain(t, *norm.in_stats_plain(t), True)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        scale = want[ok].abs().clamp_min(1.0)
+        assert float(((got[ok] - want[ok]).abs() / scale).max()) <= 1e-5
+    assert norm.in_norm_cluster.launches == before + 2
+    y = norm.instance_norm_act(x, False)
+    assert not y[0, 1].any() and torch.isnan(y[1, 0]).all()
 
 
 def test_lookup_and_norm_ops_on_card_never_run_plain(dev, monkeypatch):
     """The op path's forward and backward on the card with every plain
     version patched to raise: one lookup and one general backward, or one
-    stats and one apply launch, per call; gradients match the CPU's."""
+    cluster launch of the norm, per call; gradients match the CPU's."""
     from raftstereo_tpu_torch.ops import alt_lookup, norm
 
     rng = np.random.default_rng(43)
@@ -1492,12 +1573,12 @@ def test_lookup_and_norm_ops_on_card_never_run_plain(dev, monkeypatch):
     for name in ("in_stats_plain", "in_apply_plain"):
         monkeypatch.setattr(norm, name, boom)
     fns = (alt_lookup.alt_corr_taps, alt_lookup.alt_corr_taps_backward,
-           norm.in_stats, norm.in_apply)
+           norm.in_norm_cluster, norm.in_stats, norm.in_apply)
     for f in fns:
         f.launches = 0
     got = grads(dev)
     torch.cuda.synchronize()
-    assert [f.launches for f in fns] == [1, 1, 1, 1]
+    assert [f.launches for f in fns] == [1, 1, 1, 0, 0]
     for a, w in zip(got, want):
         scale = max(1.0, float(w.abs().max()))
         assert float((a - w).abs().max()) <= 1e-4 * scale
@@ -1514,3 +1595,9 @@ def test_lookup_and_norm_ops_on_card_never_run_plain(dev, monkeypatch):
                                           (16, 8))
     with pytest.raises(ValueError):  # a non-contiguous tensor
         norm.in_stats(x.to(dev).transpose(2, 3))
+    with pytest.raises(ValueError):  # a non-contiguous tensor
+        norm.in_norm_cluster(x.to(dev).transpose(2, 3))
+    with pytest.raises(ValueError):  # float64
+        norm.in_norm_cluster(x.to(dev).double())
+    with pytest.raises(ValueError, match="beyond"):  # a 4 MB plane
+        norm.in_norm_cluster(torch.zeros((1, 1, 1024, 1024), device=dev))

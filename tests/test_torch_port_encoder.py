@@ -163,20 +163,25 @@ def test_plane_stats_matches_jax():
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def fused_pair():
+def _fused_models(**kw):
     """The JAX model with ``fused_encoder=True`` (its encoders' trunks at
     flagship widths: 64, 96, 128 channels, fnet 256 out; heads of 32),
     its seeded variables, and the port's model on the same weights."""
     jcfg = JaxConfig(fused_encoder=True, corr_implementation="pallas_alt",
-                     gru_backend="fused", **TINY)
+                     gru_backend="fused", **TINY, **kw)
     jmodel = JaxModel(jcfg)
     v = jax.device_get(jax.jit(lambda k: jmodel.init(k, image_hw=(32, 48)))(
         jax.random.key(0)))
-    port = RAFTStereo(RAFTStereoConfig(fused_encoder=True, **TINY),
+    port = RAFTStereo(RAFTStereoConfig(fused_encoder=True, **TINY, **kw),
                       device="cpu")
     port.load_state_dict(variables_to_state_dict(v), strict=True)
     return jmodel, v, port
+
+
+@pytest.fixture(scope="module")
+def fused_pair():
+    """``_fused_models()`` at the default ``n_downsample=2``."""
+    return _fused_models()
 
 
 def _port_encoder(cls, prefix, jax_vars, **kw):
@@ -235,20 +240,26 @@ def test_encoder_matches_jax(fused_pair, kind, ds):
 
 # Thresholds of tests/test_torch_port_model.py: fp32 rounding differences
 # between two frameworks, carried through three GRU iterations.
-@pytest.mark.parametrize("batch", [1, 3])
-def test_model_fused_encoder_matches_jax(fused_pair, batch):
+@pytest.mark.parametrize("batch,ds", [(1, 2), (3, 2), (1, 3)],
+                         ids=["1", "3", "ds3"])
+def test_model_fused_encoder_matches_jax(fused_pair, batch, ds):
     """The whole test-mode forward with ``fused_encoder=True``.  At batch 3
     fnet sees 6 images, more than the fused conv1 takes: conv1 runs plain
     and the stage's first statistics come from the stats kernel (row 10),
-    in both packages."""
-    jmodel, v, port = fused_pair
+    in both packages.  At ``n_downsample=3`` both encoders take the
+    stride-2 conv1 (row 12), on a 32x64 pair (a 4x8 grid)."""
+    jmodel, v, port = fused_pair if ds == 2 else _fused_models(
+        n_downsample=ds)
+    hw = (32, 48) if ds == 2 else (32, 64)
     rng = np.random.default_rng(batch)
-    imgs = [rng.uniform(0, 255, (batch, 32, 48, 3)).astype(np.float32)
+    imgs = [rng.uniform(0, 255, (batch,) + hw + (3,)).astype(np.float32)
             for _ in range(2)]
     lo, up = jax.jit(lambda v, a, b: jmodel.forward(
         v, a, b, iters=3, test_mode=True))(v, *map(jnp.asarray, imgs))
     plo, pup = port(*(torch.from_numpy(i) for i in imgs), iters=3)
-    assert plo.shape == (batch, 8, 12, 1) and pup.shape == (batch, 32, 48, 1)
+    lo_hw = (hw[0] // 2 ** ds, hw[1] // 2 ** ds)
+    assert plo.shape == (batch,) + lo_hw + (1,)
+    assert pup.shape == (batch,) + hw + (1,)
     assert np.abs(np.asarray(lo)).max() > 1.0
     np.testing.assert_allclose(plo.numpy(), np.asarray(lo), rtol=0, atol=2e-3)
     np.testing.assert_allclose(pup.numpy(), np.asarray(up), rtol=0, atol=5e-3)

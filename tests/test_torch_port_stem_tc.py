@@ -39,25 +39,43 @@ from test_torch_port_encoder_train import few_threads  # noqa: F401 autouse
 
 
 @functools.lru_cache(maxsize=None)
-def stem_constants():
-    """The stem kernel's constants, from ``enc_conv.cu``."""
-    src = _build.sources()["enc_conv"].read_text()
+def stem_constants(stride=1):
+    """The stem kernel's constants, from ``enc_conv.cu``, and its staged
+    tile at ``stride`` (``StemTile<S>``): IH rows of IW values, each row
+    S column planes of HALF values PS apart (raw column j at (j % S) * PS
+    + j // S), then kZeros zeros."""
+    src = " ".join(_build.sources()["enc_conv"].read_text().split())
 
     def const(name):
         return int(re.search(rf"\b{name} = (\d+)[,;]", src).group(1))
 
     names = ("kStemIn", "kStemOut", "kStemKS", "kStemWarpsM", "kStemWarpsN",
-             "kStemMT", "kStemNT", "kStemGroup", "kZeros", "kTileH",
-             "kTileW")
+             "kStemMT", "kStemNT", "kStemGroup", "kTileH", "kTileW")
     got = {n: const(n) for n in names}
-    # the K order and the gather table, as the kernel writes them
-    assert "kStemK = kStemIn * kStemKS * kStemKS" in src
-    assert "kStemKSteps = (kStemK + 7) / 8" in src
-    assert "split(__ldg(a.w + n * kStemK + k), hi, lo)" in src
-    assert ("(ci * kStemIH + tap / kStemKS) * kStemIW + tap % kStemKS"
-            in src)
-    got["IH"] = got["kTileH"] + got["kStemKS"] - 1
-    got["IW"] = got["kTileW"] + got["kStemKS"] - 1
+    # the K order, the staged tile, the gather table and a pixel's base, as
+    # the kernel writes them
+    for text in ("kStemK = kStemIn * kStemKS * kStemKS",
+                 "kStemKSteps = (kStemK + 7) / 8",
+                 "split(__ldg(a.w + n * kStemK + k), hi, lo)",
+                 "kIH = (kStemTH - 1) * S + kStemKS",
+                 "kRaw = (kStemTW - 1) * S + kStemKS",
+                 "kHalf = (kRaw + S - 1) / S",
+                 "kPS = S == 1 ? kHalf : 42", "kIW = S * kPS",
+                 "kPlane = kStemIn * kIH * kIW",
+                 "kZeros = ((kStemTH - 1) * S * kIW + kStemTW + 31) / 32 * 32",
+                 "(ci * G::kIH + dy) * G::kIW + (dx % S) * G::kPS + dx / S",
+                 "c = q % G::kPS", "c * S + q / G::kPS", "c < G::kHalf &&",
+                 "(mt / (kStemTW / 16)) * S * G::kIW + "
+                 "(mt % (kStemTW / 16)) * 16 + g",
+                 "kStemTH = kTileH, kStemTW = kTileW"):
+        assert text in src, text
+    s, th, tw, ks = stride, got["kTileH"], got["kTileW"], got["kStemKS"]
+    got["S"] = s
+    got["IH"] = (th - 1) * s + ks
+    got["HALF"] = -(-((tw - 1) * s + ks) // s)
+    got["PS"] = got["HALF"] if s == 1 else 42
+    got["IW"] = s * got["PS"]
+    got["kZeros"] = ((th - 1) * s * got["IW"] + tw + 31) // 32 * 32
     return got
 
 
@@ -75,15 +93,16 @@ def k_table():
     return table
 
 
-def gather_offset(tap):
+def gather_offset(tap, stride=1):
     """The kernel's gather table entry of a k: its (ci, dy, dx)'s plane
-    offset, (ci * IH + dy) * IW + dx; a pad k's, the plane's size (the
-    zeros past it)."""
-    c = stem_constants()
+    offset, (ci * IH + dy) * IW + (dx % S) * PS + dx // S; a pad k's, the
+    plane's size (the zeros past it)."""
+    c = stem_constants(stride)
     if tap is None:
         return c["kStemIn"] * c["IH"] * c["IW"]
     ci, dy, dx = tap
-    return (ci * c["IH"] + dy) * c["IW"] + dx
+    return ((ci * c["IH"] + dy) * c["IW"] + (dx % stride) * c["PS"]
+            + dx // stride)
 
 
 def stem_pack(weight):
@@ -160,10 +179,13 @@ def test_tiles_cover_each_output_once(h, w):
     assert (seen == 1).all()
 
 
-def emulate_stem(img, weight, bias, want_stats=True, passes="3xtf32"):
-    """The kernel's arithmetic: ``(y, sums or None)`` as ``stem_conv7``
-    returns them.  ``passes`` "tf32" keeps a_hi*b_hi alone."""
-    b, _, h, w = img.shape
+def emulate_stem(img, weight, bias, want_stats=True, passes="3xtf32",
+                 stride=1):
+    """The kernel's arithmetic at ``stride``: ``(y, sums or None)`` as
+    ``stem_conv7`` (``stem_conv7_s2``) returns them.  ``passes`` "tf32"
+    keeps a_hi*b_hi alone."""
+    b, _, hi, wi = img.shape
+    h, w = (hi - 1) // stride + 1, (wi - 1) // stride + 1  # the output
     x = F.pad(img, (3, 3, 3, 3))  # zero outside the raw image
     a_hi = tf32_round(x)
     a_lo = tf32_round(x - a_hi)
@@ -183,8 +205,10 @@ def emulate_stem(img, weight, bias, want_stats=True, passes="3xtf32"):
                 continue
             ci, dy, dx = tap
             wh, wl = p_hi[:, s, k], p_lo[:, s, k]
-            xh = a_hi[:, ci, dy:dy + h, dx:dx + w]
-            xl = a_lo[:, ci, dy:dy + h, dx:dx + w]
+            rows = slice(dy, dy + stride * (h - 1) + 1, stride)
+            cols = slice(dx, dx + stride * (w - 1) + 1, stride)
+            xh = a_hi[:, ci, rows, cols]
+            xl = a_lo[:, ci, rows, cols]
             if passes == "3xtf32":
                 fresh += torch.einsum("byx,o->boyx", xl, wh)
                 fresh += torch.einsum("byx,o->boyx", xh, wl)
