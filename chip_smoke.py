@@ -113,7 +113,20 @@ wall apart from the others'; ``kitti-fps``), then through
 launches), and through ``cli.demo`` on 2 pairs (the ``.npy`` equal to
 the Evaluator's output) and once ``--tiled`` (6 tiles, finite); (22)
 hold the lookup and the fused update against their plain versions at the
-evaluation grid (96x312, pyramid widths 312/156/78/39), timed.  Prints
+evaluation grid (96x312, pyramid widths 312/156/78/39), timed.  bf16
+training (``compute_dtype="bfloat16"``): (23) hold row 4's bf16 forms
+against their plain versions, in bf16 ulps with the share of equal
+elements, two calls bitwise equal, SHA-256 digests printed, timed: the
+radial form at the training path's shapes (6x80x180 bf16 feature maps,
+a bf16 cotangent; random and smooth disparities; infinite cotangents
+held) and the general form at the op-train shape (480x180, 36 taps,
+random and smooth taps; the bf16 op path's backward also launches it);
+(24) train 3 steps of the recipe with bf16 compute and bf16 feature maps
+(``train_bf16``): 16 lookups and 16 backward lookups a step, finite
+losses, step walls and peak memory beside the fp32 training path's; (25)
+one 64x96 bf16 step card vs CPU for each correlation dtype, the card's
+encoder outputs pinned in both, within a share of the CPU's
+bf16-vs-fp32 distance.  Prints
 a ``{"kernels": [...]}`` line, one row per kernel and path (the path's
 launches beside the times and bound at its shapes), and, last,
 ``{"ok": true, "device": ...}``.
@@ -216,6 +229,22 @@ BF16_FORWARD_TOL = (1.0, 1.5)
 # of max(1, |plain|) in fp32 (plane sums of up to 138,240 values in
 # another order) and one bf16 ulp in bf16.
 TAPS_TOL, INORM_TOL = 1e-5, 1e-5
+# bf16 training (``compute_dtype="bfloat16"``).  Row 4's bf16 forms
+# (radial and general taps) against their plain versions: within one bf16
+# ulp of max(1, |plain|) per element (the coefficient's fp32 sum and the
+# products' fp32 sums in another order round to the same bf16 value but
+# at a boundary), and at least 99% of the elements equal.
+BWD_BF16_ULPS, BWD_BF16_EQUAL = 1.0, 0.99
+TRAIN_BF16_STEPS = 3
+# The bf16 step, card vs CPU with the encoders pinned (64x96, flagship
+# widths, 3 iterations): the loss within 5e-3 relative, and the
+# predictions, non-encoder gradients and encoder-output cotangents each
+# at most 0.7 of the CPU's bf16-vs-fp32 distance (2-norms).  On the CPU,
+# the same step with its bf16 convs summed in another order (exact
+# products, fp32 sums: as cuDNN's differ from oneDNN's) moved the loss by
+# 1.1e-4-1.6e-3 and sat at 0.13-0.43 of that distance, over three seeds
+# and both correlation dtypes.
+BF16_STEP_LOSS_TOL, BF16_STEP_SHARE = 5e-3, 0.7
 # The evaluation path: a synthetic KITTI tree at KITTI's resolution, the
 # flagship model at 32 iterations; a tiled demo pair in 2x3 tiles.
 KITTI_HW, KITTI_PAIRS = (375, 1242), 10
@@ -575,8 +604,18 @@ def kernel_phase(model, lo_hw, torch):
                                 bound(nbytes, flops))),
                      library_ms=None))
 
-    # -- infinite cotangents: the dense hat's +-inf on the columns their
-    # taps weight, NaN on the level's others and on the pixel's df1
+    inf_cotangent_hold(state, x, gout, r, torch)
+    return rows
+
+
+def inf_cotangent_hold(state, x, gout, r, torch):
+    """Row 4 radial on infinite cotangents: the dense hat's +-inf on the
+    columns their taps weight, NaN on the level's others and on the
+    pixel's df1, exactly where plain has them; within BACKWARD_TOL of
+    max(1, |plain|) elsewhere (fp32 maps), or one bf16 ulp (bf16)."""
+    from raftstereo_tpu_torch.ops import cuda_alt
+
+    k = 2 * r + 1
     xi, gi = x.clone(), gout.clone()
     xi[0, 5, 40], xi[1, 7, 90] = 80.5, 33.0   # level 1: x_l 40.25, 16.5
     gi[0, 5, 40, k] = float("inf")            # level 1, tap 0
@@ -586,20 +625,25 @@ def kernel_phase(model, lo_hw, torch):
     want = cuda_alt.alt_corr_backward_plain(state.fmap1, state.f2cat,
                                             state.widths, xi, gi, r)
     torch.cuda.synchronize()
+    bf16 = state.fmap1.dtype == torch.bfloat16
     for name, a, w in zip(("df1", "df2"), got, want):
         inf, ok = w.isinf(), torch.isfinite(w)
         same = (torch.equal(a.isnan(), w.isnan())
                 and torch.equal(a.isinf(), inf)
                 and torch.equal(a[inf], w[inf]))
-        err = float((a[ok] - w[ok]).abs().max())
-        scale = max(1.0, float(w[ok].abs().max()))
-        print(f"alt_corr_bwd (infinite cotangents) {name}: NaN and +-inf "
-              f"where plain has them: {same} ({int(w.isnan().sum())} NaN, "
-              f"{int(inf.sum())} inf); max_abs_err {err:.3e} elsewhere")
-        check(same and err <= BACKWARD_TOL * scale,
+        if bf16:
+            err, tol = ulps(a[ok], w[ok]), BWD_BF16_ULPS
+            unit = " bf16 ulps"
+        else:
+            err = float((a[ok] - w[ok]).abs().max())
+            tol, unit = BACKWARD_TOL * max(1.0, float(w[ok].abs().max())), ""
+        print(f"alt_corr_bwd {a.dtype} (infinite cotangents) {name}: NaN "
+              f"and +-inf where plain has them: {same} "
+              f"({int(w.isnan().sum())} NaN, {int(inf.sum())} inf); "
+              f"max error {err:.3e}{unit} elsewhere")
+        check(same and err <= tol,
               f"alt_corr_bwd's non-finite {name} differs from plain's")
     check(bool(got[1].isinf().any()), "alt_corr_bwd: no +-inf column")
-    return rows
 
 
 def smooth_field(b, h, w, torch):
@@ -1454,6 +1498,104 @@ def bf16_kernel_phase(model, lo_hw, torch):
     return rows
 
 
+def bwd_bf16_hold(name, path, kern, plain, torch):
+    """A bf16 backward kernel against its plain version: both gradients
+    bf16, within BWD_BF16_ULPS of max(1, |plain|) where plain is finite,
+    at least BWD_BF16_EQUAL of those elements equal, NaN where plain has
+    NaN; two calls bitwise equal.  Returns the largest absolute error and
+    the outputs' digest."""
+    k1, k2, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    check(all(a.dtype == torch.bfloat16 for a in k1 + want),
+          f"{name} ({path}): gradients not bf16")
+    check(all(same_bits(a, b, torch) for a, b in zip(k1, k2)),
+          f"{name} ({path}): two calls on the same inputs differ")
+    err, equal, abs_err = 0.0, 1.0, 0.0
+    for a, w in zip(k1, want):
+        ok = torch.isfinite(w)
+        check(torch.equal(a.isnan(), w.isnan()),
+              f"{name} ({path}): NaN where plain has none, or none where "
+              f"it has")
+        err = max(err, ulps(a[ok], w[ok]))
+        equal = min(equal, float((a[ok] == w[ok]).float().mean()))
+        abs_err = max(abs_err, float((a[ok].float() - w[ok].float())
+                                     .abs().max()))
+    sha = digest(*k1)
+    print(f"{name} ({path}) max {err:.3f} bf16 ulps, max_abs_err "
+          f"{abs_err:.3e}, {equal:.5f} of elements equal (tol "
+          f"{BWD_BF16_ULPS} ulps, {BWD_BF16_EQUAL} equal); bitwise "
+          f"repeatable; sha {sha}")
+    check(err <= BWD_BF16_ULPS and equal >= BWD_BF16_EQUAL,
+          f"{name} ({path}) disagrees with its plain version: {err} bf16 "
+          f"ulps, {equal} of elements equal")
+    return abs_err, sha
+
+
+def bf16_backward_phase(model, torch):
+    """Row 4 radial's bf16 form (``alt_corr_backward`` on bf16 feature
+    maps) at the training path's shapes (6x80x180, C=256, bf16 cotangent),
+    on random and smooth disparities, with infinite cotangents held too:
+    held against its plain version, timed, one row each (paths
+    ``train_bf16``, ``train_bf16_smooth``)."""
+    from raftstereo_tpu_torch.ops import cuda_alt
+    from raftstereo_tpu_torch.ops.corr import build_corr_state
+
+    cfg = model.config
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(7)
+    bh, (th, tw) = TRAIN_BATCH, TRAIN_HW
+    h, w = th // cfg.factor, tw // cfg.factor
+    c, r = model.feature_dim, cfg.corr_radius
+    k = 2 * r + 1
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    state = build_corr_state(randn(bh, h, w, c), randn(bh, h, w, c),
+                             cfg.corr_levels, corr_dtype=bf)
+    gout = randn(bh, h, w, cfg.cor_planes).to(bf)
+    rows = []
+    for path, x in (
+            ("train_bf16", (torch.arange(w, device=dev, dtype=torch.float32)
+                            - 60.0 * torch.rand((bh, h, w), generator=g)
+                            .to(dev)).contiguous()),
+            ("train_bf16_smooth", smooth_field(bh, h, w, torch))):
+        def bwd(x=x):
+            return cuda_alt.alt_corr_backward(state.fmap1, state.f2cat,
+                                              state.widths, x, gout, r)
+
+        def bwd_plain(x=x):
+            return cuda_alt.alt_corr_backward_plain(
+                state.fmap1, state.f2cat, state.widths, x, gout, r)
+
+        abs_err, sha = bwd_bf16_hold("alt_corr_bwd", path, bwd, bwd_plain,
+                                     torch)
+        ms, plain_ms = time_ms(bwd, 20), time_ms(bwd_plain, 5)
+        valid = 0  # (pixel, level, column) pairs inside the level
+        for lvl, w2 in enumerate(state.widths):
+            b0 = torch.floor(x / 2 ** lvl) - r
+            for d in range(k + 1):
+                j = b0 + d
+                valid += int(((j >= 0) & (j <= w2 - 1)).sum())
+        nbytes = (2 * (2 * state.fmap1.numel() + 2 * state.f2cat.numel()
+                       + gout.numel()) + 4 * x.numel())
+        flops = 4 * c * valid + 4 * (k + 1) * x.numel() * len(state.widths)
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"alt_corr_bwd ({path}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bound_ms:.4f} ({bound_by}, {nbytes / 1e6:.1f} MB)"
+              f" [{CARD}]")
+        rows.append(dict(name="alt_corr_bwd", path=path, route="cuda",
+                         source="raftstereo_tpu_torch/csrc/alt_corr_bwd.cu",
+                         replaces="raftstereo_tpu/ops/pallas_alt.py:195",
+                         dtype="bfloat16", max_abs_err=abs_err, sha=sha,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
+
+    inf_cotangent_hold(state, x, gout, r, torch)
+    return rows
+
+
 def bf16_forward_card_vs_cpu(model, rng, torch):
     """A bf16 model's card forward (kernels) against the CPU's (plain
     versions) on a 64x96 pair, with the card's encoder outputs pinned in
@@ -1639,7 +1781,8 @@ def train_phase(torch, mcfg, runs, per_step):
                                     log_dir=os.path.join(tmp, "runs"))
             counts[last] = {fn.__name__: fn.launches for fn in fns}
             print(f"train() {mcfg.corr_implementation}"
-                  f"{' fused encoder' * bool(mcfg.fused_encoder)} to step "
+                  f"{' fused encoder' * bool(mcfg.fused_encoder)}"
+                  f"{' bf16' * (mcfg.compute_dtype == 'bfloat16')} to step "
                   f"{state.step} in {time.perf_counter() - t0:.1f}s; "
                   f"launches {counts[last]}")
             check(state.step == last, f"train() stopped at step {state.step}"
@@ -1708,6 +1851,94 @@ def train_step_card_vs_cpu(torch, batch, mcfg):
           f"train step loss differs card vs CPU: {lg} vs {lc}")
     check(gerr <= STEP_GRAD_TOL * gmax,
           f"train step gradients differ card vs CPU by {gerr}")
+
+
+def pinned_step(model, pinned, batch, dev, torch, dtype=None):
+    """One train-mode forward and backward of ``model`` on ``dev`` (3
+    iterations, ``sequence_loss``) with its encoders' outputs replaced by
+    ``pinned`` (cnet's heads per level, fnet's maps) as leaf tensors in
+    ``dtype`` (default: as given).  Returns the loss, the predictions,
+    the gradients of the non-encoder parameters and the leaves'
+    cotangents, on the CPU."""
+    from raftstereo_tpu_torch.train.loss import sequence_loss
+
+    def leaf(t):
+        return t.detach().to(dev, dtype or t.dtype).clone().requires_grad_()
+
+    couts = [[leaf(t) for t in lvl] for lvl in pinned[0]]
+    fmaps = leaf(pinned[1])
+    model.cnet.forward = lambda x: couts
+    model.fnet.forward = lambda x: fmaps
+    try:
+        preds = model(*(t.to(dev) for t in batch[:2]), iters=3,
+                      test_mode=False)
+        loss, _ = sequence_loss(preds, *(t.to(dev) for t in batch[2:]))
+        loss.backward()
+    finally:
+        del model.cnet.forward, model.fnet.forward
+    grads = {k: p.grad.detach().float().cpu()
+             for k, p in model.named_parameters()
+             if not k.startswith(("cnet.", "fnet."))}
+    cots = [t.grad.detach().float().cpu() for lvl in couts for t in lvl]
+    return (float(loss.detach()), preds.detach().float().cpu(), grads,
+            cots + [fmaps.grad.float().cpu()])
+
+
+def bf16_train_step_card_vs_cpu(torch, batch, corr_dtype):
+    """One bf16 train step (``pallas_alt``, flagship widths, 3 iterations,
+    the 64x96 batch) on the card (the lookup and its backward as kernels,
+    cuDNN's bf16 convs) against the CPU (plain versions, oneDNN's), with
+    the card's bf16 encoder outputs pinned as leaves in both: the loss
+    (within BF16_STEP_LOSS_TOL, relative), and the predictions, the
+    gradients of every non-encoder parameter, and the cotangents reaching
+    fnet's maps and cnet's outputs, each as a 2-norm distance card-CPU at
+    most BF16_STEP_SHARE of the CPU's own bf16-vs-fp32 distance on the
+    same pinned inputs, so a card step that ran fp32 fails."""
+    from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig
+
+    cfg = RAFTStereoConfig(corr_implementation="pallas_alt",
+                           compute_dtype="bfloat16", corr_dtype=corr_dtype)
+    model = RAFTStereo(cfg, device="cuda", seed=1)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    f32_model = RAFTStereo(dataclasses.replace(
+        cfg, compute_dtype="float32", corr_dtype="float32"), device="cpu")
+    f32_model.load_state_dict(cpu_model.state_dict())
+    seen = {}
+    cnet, fnet = model.cnet.forward, model.fnet.forward
+    model.cnet.forward = lambda x: seen.setdefault("cnet", cnet(x))
+    model.fnet.forward = lambda x: seen.setdefault("fnet", fnet(x))
+    try:
+        with torch.no_grad():
+            model(*(t.cuda() for t in batch[:2]), iters=1, test_mode=False)
+    finally:
+        del model.cnet.forward, model.fnet.forward
+    pinned = (seen["cnet"], seen["fnet"])
+    got = pinned_step(model, pinned, batch, "cuda", torch)
+    want = pinned_step(cpu_model, pinned, batch, "cpu", torch)
+    f32 = pinned_step(f32_model, pinned, batch, "cpu", torch, torch.float32)
+    check(np.isfinite(got[0]) and all(bool(torch.isfinite(g).all())
+                                      for g in got[2].values()),
+          f"bf16 train step ({corr_dtype} corr): non-finite loss or gradient")
+
+    def flat(d):
+        return torch.cat([t.reshape(-1) for t in
+                          (d.values() if isinstance(d, dict) else d)])
+
+    loss_err = abs(got[0] - want[0]) / abs(want[0])
+    shares = {}
+    for i, name in ((1, "predictions"), (2, "gradients"), (3, "cotangents")):
+        a, b, c = flat(got[i]), flat(want[i]), flat(f32[i])
+        shares[name] = float((a - b).norm() / (c - b).norm())
+    print(f"bf16 train step ({corr_dtype} corr) card vs cpu (encoders "
+          f"pinned): loss {got[0]:.6g} vs {want[0]:.6g} (fp32 {f32[0]:.6g};"
+          f" relative error {loss_err:.2e}, tol {BF16_STEP_LOSS_TOL}); "
+          f"distance over the cpu's bf16-vs-fp32 distance: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
+          + f" (tol {BF16_STEP_SHARE})")
+    check(loss_err <= BF16_STEP_LOSS_TOL
+          and all(v <= BF16_STEP_SHARE for v in shares.values()),
+          f"card bf16 train step ({corr_dtype} corr) differs from the "
+          f"CPU's: loss {loss_err}, {shares}")
 
 
 def counted_wrappers():
@@ -1836,7 +2067,8 @@ def op_kernel_phase(lo_hw, torch):
                            TRAIN_HW[1] // 4)}
     for path, dtype, out_dtype in (("op_serve", torch.float32, None),
                                    ("op_train", torch.float32, None),
-                                   ("op_serve_bf16", bf, bf)):
+                                   ("op_serve_bf16", bf, bf),
+                                   ("op_train_bf16", bf, bf)):
         b, h, w = shapes[path.replace("_bf16", "")]
         st = build_corr_state(randn(b, h, w, c), randn(b, h, w, c), levels,
                               corr_dtype=dtype)
@@ -1887,6 +2119,9 @@ def op_kernel_phase(lo_hw, torch):
             smooth_taps_hold(path, f1, f2, st.widths, (b, h, w), k, g, torch)
         if path == "op_serve":
             general_taps_hold(g, torch)
+        if path == "op_train_bf16":
+            rows += taps_bwd_bf16_rows(f1, f2, taps, st.widths, (b, h, w), k,
+                                       g, torch)
         if path != "op_train":
             continue
         gout = randn(*taps.shape)
@@ -2043,6 +2278,50 @@ def smooth_taps_hold(path, f1, f2, widths, bhw, k, g, torch):
           f"{ms:.4f} [{CARD}]")
 
 
+def taps_bwd_bf16_rows(f1, f2, taps, widths, bhw, k, g, torch):
+    """Row 4 general's bf16 form (``alt_corr_taps_backward`` on bf16
+    feature maps, a bf16 cotangent) at the op-train shape (480 rows of
+    180 pixels, C=256, 36 taps: ``op_taps``, whose radial taps hit a
+    column with two taps, and the smooth ``op_taps_smooth``): held against
+    its plain version, timed, one row each (paths ``op_train_bf16``,
+    ``op_train_bf16_smooth``)."""
+    from raftstereo_tpu_torch.ops import alt_lookup as al
+
+    rows = []
+    c = f1.shape[-1]
+    for path, tp in (("op_train_bf16", taps),
+                     ("op_train_bf16_smooth",
+                      op_taps_smooth(*bhw, widths, k, g, torch))):
+        gout = torch.randn(tp.shape, generator=g).cuda().to(torch.bfloat16)
+
+        def bwd(tp=tp, gout=gout):
+            return al.alt_corr_taps_backward(f1, f2, tp, gout, widths)
+
+        def bwd_plain(tp=tp, gout=gout):
+            return al.alt_corr_taps_backward_plain(f1, f2, tp, gout, widths)
+
+        abs_err, sha = bwd_bf16_hold("alt_corr_taps_bwd", path, bwd,
+                                     bwd_plain, torch)
+        check(all(int(a.isnan().sum()) > 0 for a in bwd()),
+              f"alt_corr_taps_bwd ({path}): the NaN tap poisoned nothing")
+        ms, plain_ms = time_ms(bwd, 20), time_ms(bwd_plain, 5)
+        nbytes = (2 * (2 * f1.numel() + 2 * f2.numel() + gout.numel())
+                  + 4 * tp.numel())
+        flops = 4 * c * taps_columns(tp, widths, k, torch) + 6 * tp.numel()
+        bound_ms, bound_by = bound(nbytes, flops)
+        print(f"alt_corr_taps_bwd ({path}) ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
+              f"{nbytes / 1e6:.1f} MB) [{CARD}]")
+        rows.append(dict(name="alt_corr_taps_bwd", path=path, route="cuda",
+                         source="raftstereo_tpu_torch/csrc/"
+                                "alt_corr_taps_bwd.cu",
+                         replaces="raftstereo_tpu/ops/pallas_alt.py:195",
+                         dtype="bfloat16", max_abs_err=abs_err, sha=sha,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None))
+    return rows
+
+
 def general_taps_hold(g, torch):
     """Row 3's general form, which the lookup takes where a tile's dots
     outgrow shared memory: 16 rows of 240 pixels, one 700-wide level and
@@ -2083,7 +2362,7 @@ def general_taps_hold(g, torch):
 
 def op_path_phase(inputs, torch):
     """The op path: per shape one ``pallas_alt_pyramid_flat`` forward and
-    ``.backward()`` (bf16: forward only; its gradient is refused) and one
+    ``.backward()`` (fp32 or bf16 feature maps) and one
     ``instance_norm_act`` forward and ``.backward()``; each call launches
     exactly its kernels and no other counted kernel.  Returns launches
     per wrapper name for each path."""
@@ -2099,17 +2378,16 @@ def op_path_phase(inputs, torch):
             bf16 = f1.dtype == torch.bfloat16
 
             def lookup():
-                a, c_ = (t.detach().requires_grad_(not bf16)
-                         for t in (f1, f2))
+                a, c_ = (t.detach().requires_grad_() for t in (f1, f2))
                 out = al.pallas_alt_pyramid_flat(
                     a, c_, taps.reshape(b, h, w, -1), widths,
                     out_dtype=torch.bfloat16 if bf16 else torch.float32)
-                if not bf16:
-                    out.backward(torch.ones_like(out))
+                out.backward(torch.ones_like(out))
+                check(a.grad.dtype == f1.dtype, f"op path {path}: "
+                                                f"gradient {a.grad.dtype}")
 
             calls.append((lookup, dict(alt_corr_taps=1,
-                                       alt_corr_taps_backward=int(
-                                           not bf16))))
+                                       alt_corr_taps_backward=1)))
         if "x" in got_inputs:
             x = got_inputs["x"]
 
@@ -2409,6 +2687,7 @@ def main() -> int:
     rows += train_fused_kernel_phase(model, torch)
     rows += volume_kernel_phase(cfg, lo_hw, torch)
     rows += bf16_kernel_phase(model, lo_hw, torch)
+    rows += bf16_backward_phase(model, torch)
 
     def want(**per_request):
         return {fn.__name__: REQUESTS * per_request.get(fn.__name__, 0)
@@ -2470,28 +2749,36 @@ def main() -> int:
     batch = step_batch(rng, torch)
     lookup = dict(alt_corr=TRAIN_ITERS, alt_corr_backward=TRAIN_ITERS)
     walls = {}
-    for path, impl, fused, runs, per_step in (
-            ("train", "pallas_alt", False,
-             ((TRAIN_STEPS, 0), (RESUME_TO, TRAIN_STEPS)), lookup),
-            ("train_pallas", "pallas", False, ((VOL_STEPS, 0),),
+    for path, kw, runs, per_step in (
+            ("train", {}, ((TRAIN_STEPS, 0), (RESUME_TO, TRAIN_STEPS)),
+             lookup),
+            ("train_pallas", dict(corr_implementation="pallas"),
+             ((VOL_STEPS, 0),),
              dict(vol_lookup=TRAIN_ITERS, vol_lookup_backward=TRAIN_ITERS)),
-            ("train_fused", "pallas_alt", True, ((FUSED_STEPS, 0),),
-             dict(FUSED_PER_STEP, **lookup))):
-        mcfg = RAFTStereoConfig(corr_implementation=impl,
-                                fused_encoder=fused)
+            ("train_fused", dict(fused_encoder=True), ((FUSED_STEPS, 0),),
+             dict(FUSED_PER_STEP, **lookup)),
+            ("train_bf16", bf16, ((TRAIN_BF16_STEPS, 0),), lookup)):
+        mcfg = RAFTStereoConfig(**dict(dict(corr_implementation="pallas_alt",
+                                            fused_encoder=False), **kw))
         by_path[path], secs, peak_gb = train_phase(torch, mcfg, runs,
                                                    per_step)
         walls[path] = (statistics.median(secs[1:]), peak_gb)
-        train_step_card_vs_cpu(torch, batch, mcfg)
+        if path == "train_bf16":
+            for corr_dtype in ("bfloat16", "float32"):
+                bf16_train_step_card_vs_cpu(torch, batch, corr_dtype)
+        else:
+            train_step_card_vs_cpu(torch, batch, mcfg)
         torch.cuda.empty_cache()
-    for path in ("train", "train_fused"):
+    for path in ("train", "train_fused", "train_bf16"):
         print(f"{path}: median step wall (steps 2 on) {walls[path][0]:.3f}s, "
-              f"peak memory {walls[path][1]:.2f} GB")
+              f"peak memory {walls[path][1]:.2f} GB [{CARD}]")
+    by_path["train_bf16_smooth"] = by_path["train_bf16"]
 
     # The op functions (rows 3, 4 with general taps, 8), then evaluation.
     op_rows, op_inputs = op_kernel_phase(lo_hw, torch)
     rows += op_rows
     by_path.update(op_path_phase(op_inputs, torch))
+    by_path["op_train_bf16_smooth"] = by_path["op_train_bf16"]
     del op_inputs
     torch.cuda.empty_cache()
     op_grads_card_vs_cpu(torch)

@@ -5,6 +5,7 @@
         [--mixed_precision [--corr_dtype bfloat16]]
     python -m raftstereo_tpu_torch.cli.profile --train [--remat]
         [--fused_encoder] [--corr_implementation IMPL]
+        [--mixed_precision [--corr_dtype bfloat16]]
 
 Builds the flagship model with seeded weights on the card.  By default it
 warms the engine at the 540x960 bucket and 32 iterations (the serving
@@ -16,9 +17,10 @@ call (``--fused_encoder``: with the fused encoder stages,
 bf16 serving); with
 ``--train`` it profiles one training step of the recipe (batch 6,
 320x720, 16 iterations, ``train.step.make_train_step``) after one warm-up
-step; ``--remat`` recomputes each iteration in the backward pass, and
+step; ``--remat`` recomputes each iteration in the backward pass,
 ``--fused_encoder`` trains through the fused encoder stages and their
-backward.
+backward, and ``--mixed_precision`` (with ``--corr_dtype``) trains in
+bf16.
 Either way it prints one JSON line: the wall time, the summed device
 time of the kernels, the device busy time
 (the union of the kernels' intervals, so overlapping kernels count once)
@@ -29,7 +31,9 @@ second kernel of
 ``enc_stats.cu``), ``enc_finish``, ``alt_corr``, ``alt_corr_epi``,
 ``alt_corr_bwd``, ``corr_vol``, ``corr_vol_bwd``, ``int8_volume``,
 ``gru_update``) and by
-cuDNN/cuBLAS convolutions and products ("conv").  Needs a GPU.
+cuDNN/cuBLAS convolutions and products ("conv"), with the largest
+kernels overall and within "conv" (which names the algorithms cuDNN
+picked).  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -101,7 +105,8 @@ def _serve_call(fused_encoder: bool, corr_implementation: str,
 
 
 def _train_call(remat: bool, corr_implementation: str,
-                fused_encoder: bool):
+                fused_encoder: bool, mixed_precision: bool = False,
+                corr_dtype: str = "float32"):
     from ..config import TrainConfig
     from ..train.optim import make_optimizer
     from ..train.state import TrainState
@@ -109,9 +114,11 @@ def _train_call(remat: bool, corr_implementation: str,
 
     cfg = TrainConfig(batch_size=TRAIN_BATCH, image_size=TRAIN_HW,
                       train_iters=TRAIN_ITERS)
+    compute = "bfloat16" if mixed_precision else "float32"
     model = RAFTStereo(RAFTStereoConfig(
         remat=remat, corr_implementation=corr_implementation,
-        fused_encoder=True if fused_encoder else None),
+        fused_encoder=True if fused_encoder else None,
+        compute_dtype=compute, corr_dtype=corr_dtype),
         device="cuda", seed=0)
     opt, schedule = make_optimizer(cfg, dict(model.named_parameters()))
     state = TrainState(step=0, model=model, opt=opt)
@@ -128,7 +135,9 @@ def _train_call(remat: bool, corr_implementation: str,
                                         "remat": remat,
                                         "fused_encoder": fused_encoder,
                                         "corr_implementation":
-                                            corr_implementation}
+                                            corr_implementation,
+                                        "compute_dtype": compute,
+                                        "corr_dtype": corr_dtype}
 
 
 def main(argv=None) -> int:
@@ -149,7 +158,7 @@ def main(argv=None) -> int:
     p.add_argument("--gru_backend", choices=["auto", "fused", "xla"],
                    default="auto", help="test-mode GRU step")
     p.add_argument("--mixed_precision", action="store_true",
-                   help="serve in bf16 (compute_dtype='bfloat16')")
+                   help="serve or train in bf16 (compute_dtype='bfloat16')")
     p.add_argument("--corr_dtype", choices=["float32", "bfloat16"],
                    default="float32",
                    help="storage dtype of the lookup's feature maps")
@@ -158,13 +167,13 @@ def main(argv=None) -> int:
         p.error("--remat needs --train")
     if args.corr_quant and args.train:
         p.error("--corr_quant serves only: training builds the fp32 volume")
-    if args.train and (args.mixed_precision or args.corr_dtype != "float32"
-                       or args.gru_backend != "auto"):
-        p.error("--mixed_precision, --corr_dtype and --gru_backend are "
-                "serving options")
+    if args.train and args.gru_backend != "auto":
+        p.error("--gru_backend is a serving option: training always takes "
+                "the module step")
     train = args.train
     call, what = (_train_call(args.remat, args.corr_implementation,
-                              args.fused_encoder) if train
+                              args.fused_encoder, args.mixed_precision,
+                              args.corr_dtype) if train
                   else _serve_call(args.fused_encoder,
                                    args.corr_implementation, args.corr_quant,
                                    args.gru_backend, args.mixed_precision,
@@ -195,7 +204,9 @@ def main(argv=None) -> int:
     for name, (ms, _) in by_kernel.items():
         by_group[_group(name)] += ms
     device_ms = sum(v[0] for v in by_kernel.values())
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])
+    top = ranked[:TOP]
+    top_conv = [kv for kv in ranked if _group(kv[0]) == "conv"][:TOP]
     print(json.dumps({
         "card": torch.cuda.get_device_name(0),
         "path": "train_step" if train else "serve_request", **what,
@@ -206,7 +217,9 @@ def main(argv=None) -> int:
         "idle_share": 1.0 - busy_us / 1e3 / wall_ms if wall_ms else None,
         "by_group_ms": dict(by_group),
         "top_kernels": [{"name": n[:80], "ms": ms, "count": c}
-                        for n, (ms, c) in top]}))
+                        for n, (ms, c) in top],
+        "top_conv_kernels": [{"name": n[:120], "ms": ms, "count": c}
+                             for n, (ms, c) in top_conv]}))
     return 0
 
 

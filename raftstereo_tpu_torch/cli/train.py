@@ -1,7 +1,8 @@
 """Train the port's RAFT-Stereo.
 
     python -m raftstereo_tpu_torch.cli.train --name raft-stereo \
-        --train_datasets sceneflow --dataset_root DATA --no_validation
+        --train_datasets sceneflow --dataset_root DATA --no_validation \
+        [--mixed_precision [--corr_dtype bfloat16]]
 
 The counterpart of the JAX package's ``cli/train.py`` on one device: the
 same flags and the same loop, with torch checkpoints (``train.checkpoint``)
@@ -12,6 +13,11 @@ data (``data.synthetic.ShiftStereoDataset``).  Every
 FlyingThings3D TEST split (``eval.validate_things``, at most 200 pairs);
 the split is loaded once at startup, and a missing or empty split fails
 the run before any work unless ``--no_validation`` is given.
+``--mixed_precision`` trains in bf16 as the JAX package does (its
+documented command line ends in it): the encoders and GRUs compute in
+bf16, the parameters, the AdamW moments and the loss stay fp32, with no
+loss scaling; ``--corr_dtype bfloat16`` also stores the lookup's feature
+maps in bf16.
 
 Not ported yet, and refused at startup with ``NotImplementedError``:
 ``--metrics_port``, ``--profile_steps``, ``--faults``, ``--data_parallel``
@@ -125,6 +131,14 @@ def add_train_args(p: argparse.ArgumentParser) -> None:
                         "builds the fp32 volume, as the JAX package does")
     m.add_argument("--remat", action="store_true",
                    help="recompute each GRU iteration in the backward pass")
+    m.add_argument("--mixed_precision", action="store_true",
+                   help="bfloat16 compute for encoders and GRUs "
+                        "(compute_dtype='bfloat16'); parameters, optimizer "
+                        "state and loss stay fp32")
+    m.add_argument("--corr_dtype", choices=["float32", "bfloat16"],
+                   default=mc.corr_dtype,
+                   help="storage dtype of the on-demand lookup's feature "
+                        "maps (bfloat16 needs --mixed_precision)")
 
 
 def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
@@ -154,7 +168,9 @@ def model_config_from_args(args: argparse.Namespace) -> RAFTStereoConfig:
         n_downsample=args.n_downsample, n_gru_layers=args.n_gru_layers,
         hidden_dims=tuple(args.hidden_dims), context_norm=args.context_norm,
         corr_implementation=args.corr_implementation,
-        corr_quant=args.corr_quant, remat=args.remat)
+        corr_quant=args.corr_quant, remat=args.remat,
+        compute_dtype="bfloat16" if args.mixed_precision else "float32",
+        corr_dtype=args.corr_dtype)
 
 
 def check_unported(cfg: TrainConfig, profile_steps, faults, metrics_port,

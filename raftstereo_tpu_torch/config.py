@@ -16,13 +16,13 @@ fused stem + layer1 and layer2 stages (CUDA kernels, and their
 hand-written backward in training).
 
 ``compute_dtype="bfloat16"`` (the JAX package's ``--mixed_precision``)
-runs test-mode inference in bf16 with the plain encoders and any backend;
-``corr_dtype="bfloat16"`` then stores the on-demand lookup's feature maps
-in bf16 (``pallas_alt``; ``reg`` and ``alt`` build in fp32 whatever it
-says, as the JAX package does).  ``check_dtypes`` refuses the bf16
-combinations outside those paths, and a bf16 model refuses a train-mode
-forward.  Every other field value that selects another path raises
-``NotImplementedError`` naming the ROADMAP item that will add it.
+runs inference and training in bf16 with the plain encoders and any
+backend; ``corr_dtype="bfloat16"`` then stores the on-demand lookup's
+feature maps in bf16 (``pallas_alt``; ``reg`` and ``alt`` build in fp32
+whatever it says, as the JAX package does).  ``check_dtypes`` refuses the
+bf16 combinations outside those paths.  Every other field value that
+selects another path raises ``NotImplementedError`` naming the ROADMAP
+item that will add it.
 """
 
 from __future__ import annotations
@@ -119,10 +119,13 @@ def check_supported(config: RAFTStereoConfig) -> None:
 
 
 def check_dtypes(config: RAFTStereoConfig) -> None:
-    """The bf16 paths of this slice: bf16 compute with the plain encoders,
-    the on-demand lookup with bf16 or fp32 feature maps, ``reg``/``alt``
-    (fp32 lookups cast to bf16) and ``pallas`` with its fp32 volume.  Train
-    mode in bf16 is refused at ``forward`` (``RAFTStereo``)."""
+    """The bf16 paths, in inference and training: bf16 compute with the
+    plain encoders, the on-demand lookup with bf16 or fp32 feature maps
+    (its backward's bf16 or fp32 form), ``reg``/``alt`` (fp32 lookups cast
+    to bf16) and ``pallas`` with its fp32 volume.  Refused: bf16
+    correlation at fp32 compute, the int8 tier in bf16 (``corr_quant``,
+    which training would not use either: it builds the fp32 volume), the
+    bf16 ``pallas`` volume, and the fused encoder in bf16."""
     from .ops.corr import resolve_implementation
 
     bf16 = config.compute_dtype == "bfloat16"

@@ -1,5 +1,5 @@
 // Backward of the on-demand all-level correlation lookup for Hopper
-// (sm_90a), fp32.
+// (sm_90a), fp32 and bf16 feature maps.
 //
 // Replaces the TPU kernel raftstereo_tpu/ops/pallas_alt.py
 // `_alt_pyr_bwd_kernel`, launched from `_alt_pyr_bwd_impl` with the radial
@@ -67,7 +67,25 @@
 // pixel of the row for each column's hits, the per-hit work (ballot,
 // shuffle, address) spread over only 4 channels a lane, and the tables
 // built once per slice.
+//
+// The bf16 form (`alt_corr_backward_bf16`: bf16 fmap1 and f2cat, an fp32
+// cotangent, bf16 df1 and df2) is the TPU kernel with bf16 feature maps:
+// the coefficient c[n,i,l,d] above is one pixel's entry of its dense
+// `dm`, which the TPU kernel sums in fp32 and scales, then rounds to
+// bf16 once (`dm.astype(f1.dtype)`), before both products; each product
+// of two bf16 values is exact in fp32 and summed in fp32, and df1 and
+// df2 are rounded to bf16 once at the end (the JAX VJP's cast of the
+// fp32 results).  So the tables hold c rounded to bf16, built with
+// separately rounded products and sums (no contraction into FMAs), in
+// the dense hat's order (tap d-1's term, then tap d's).  One 16-byte load
+// a lane is 8 bf16 channels, so a block's slice is 256 channels: at C =
+// 256 one block per image row builds the row's tables once, where the
+// fp32 form builds them once per 128-channel slice.  The sums keep the
+// fp32 form's order and its non-finite rules.  At the recipe the call
+// must move half the fp32 form's fmap and gradient bytes: about 267 MB,
+// 0.080 ms at 3.35 TB/s.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -76,8 +94,6 @@ namespace {
 
 constexpr int kMaxLevels = 8;
 constexpr int kWarpsPerBlock = 32;
-constexpr int kVec = 4;                // channels per lane
-constexpr int kSlice = 32 * kVec;      // channels per block
 constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr int kFar = 0x20000000;      // window base that covers no column
 constexpr int kMaxSmem = 232448;      // bytes a block may opt in to
@@ -88,25 +104,67 @@ struct Levels {
   int width[kMaxLevels];  // real width w2_l of level l
 };
 
+// One lane's channels: a 16-byte vector of the fmaps' type, 4 fp32 or
+// 8 bf16 channels, widened to fp32 for the sums.
+template <typename T>
+struct Lane;
+template <>
+struct Lane<float> {
+  static constexpr int kVec = 4;
+  using Raw = float4;
+  __device__ static void unpack(float (&v)[kVec], const Raw& t) {
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  }
+  __device__ static Raw pack(const float (&v)[kVec]) {
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+  // The fp32 coefficient is used as summed.
+  __device__ static float coef(float v) { return v; }
+};
+template <>
+struct Lane<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  using Raw = uint4;
+  __device__ static void unpack(float (&v)[kVec], const Raw& t) {
+    const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[2 * e] = __uint_as_float(w[e] << 16);
+      v[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+    }
+  }
+  __device__ static Raw pack(const float (&v)[kVec]) {
+    unsigned w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      w[e] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  // dm.astype(bf16): the scaled fp32 coefficient rounded once.
+  __device__ static float coef(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+};
+
+template <typename T>
 struct Args {
-  const float* f1;  // (rows, W1, C)
-  const float* f2;  // (rows, W2cat, C)
-  const float* x;   // (rows, W1)
-  const float* g;   // (rows, W1, L*(2r+1))
-  float* df1;
-  float* df2;
+  const T* f1;     // (rows, W1, C)
+  const T* f2;     // (rows, W2cat, C)
+  const float* x;  // (rows, W1)
+  const float* g;  // (rows, W1, L*(2r+1))
+  T* df1;
+  T* df2;
   int w1, w2cat, c, nslice;
   float scale;
   Levels lv;
 };
 
-// The 4 floats at p (16-byte aligned).
-__device__ __forceinline__ void load4(float (&v)[kVec], const float* p) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-}
-__device__ __forceinline__ void store4(float* p, const float (&v)[kVec]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+// The lane's channels from fp32 sums to p (16-byte aligned).
+template <typename T>
+__device__ __forceinline__ void store(T* p, const float (&v)[Lane<T>::kVec]) {
+  *reinterpret_cast<typename Lane<T>::Raw*>(p) = Lane<T>::pack(v);
 }
 
 // Shared memory of one block: the coefficients [W1*L][D] and the window
@@ -118,11 +176,14 @@ long smem_bytes(int w1, int nlev) {
   return (long)w1 * nlev * (2 * R + 3) * 4;
 }
 
-template <int R>
+template <int R, typename T>
 __global__ void __launch_bounds__(kThreads)
-alt_corr_bwd_kernel(const Args a) {
+alt_corr_bwd_kernel(const Args<T> a) {
   constexpr int K = 2 * R + 1;
   constexpr int D = K + 1;  // columns a pixel's window covers per level
+  constexpr int kVec = Lane<T>::kVec;   // channels per lane
+  constexpr int kSlice = 32 * kVec;     // channels per block
+  constexpr bool kBf16 = kVec == 8;
   extern __shared__ __align__(16) float smem[];
   // Level l's columns outside [keep_lo, keep_hi] are NaN in this row: the
   // intersection of its infinite pixels' windows, empty for a NaN one.
@@ -136,8 +197,8 @@ alt_corr_bwd_kernel(const Args a) {
   float* coef = smem;                                            // [w1][L][D]
   int* base = reinterpret_cast<int*>(coef + (long)w1 * L * D);  // [L][w1]
   // This lane's channels of pixel i's fmap1 row and column j's fmap2 row.
-  const float* f1row = a.f1 + n * (long)w1 * c + c0 + lane * kVec;
-  const float* f2row = a.f2 + n * (long)w2cat * c + c0 + lane * kVec;
+  const T* f1row = a.f1 + n * (long)w1 * c + c0 + lane * kVec;
+  const T* f2row = a.f2 + n * (long)w2cat * c + c0 + lane * kVec;
 
   if (threadIdx.x < kMaxLevels) {
     keep_lo[threadIdx.x] = INT_MIN;
@@ -185,13 +246,20 @@ alt_corr_bwd_kernel(const Args a) {
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       float v = 0.f;
-      if (d < K) v = gk[d] * (1.f - fr);
-      if (d > 0) v += gk[d - 1] * fr;
+      if constexpr (kBf16) {  // the dense hat's order, each op rounded
+        if (d < K) v = __fmul_rn(gk[d], __fsub_rn(1.f, fr));
+        if (d > 0) v = __fadd_rn(__fmul_rn(gk[d - 1], fr), v);
+        v = Lane<T>::coef(__fmul_rn(v, a.scale));
+      } else {
+        if (d < K) v = gk[d] * (1.f - fr);
+        if (d > 0) v += gk[d - 1] * fr;
+        v *= a.scale;
+      }
       // Column b+d is weighted by taps d-1 and d only: an infinite tap
       // elsewhere puts inf * 0 on it.
       const unsigned reach =
           (d < K ? 1u << d : 0u) | (d > 0 ? 1u << (d - 1) : 0u);
-      cp[d] = (inf_taps & ~reach) ? NAN : v * a.scale;
+      cp[d] = (inf_taps & ~reach) ? NAN : v;
     }
   }
   __syncthreads();
@@ -225,17 +293,21 @@ alt_corr_bwd_kernel(const Args a) {
           src[h] = has[h] ? __ffs(m) - 1 : 0;
           m &= m - 1;
         }
-        float s[4], v[4][kVec];
+        float s[4];
+        typename Lane<T>::Raw raw[4];
 #pragma unroll
         for (int h = 0; h < 4; ++h) {
           s[h] = __shfl_sync(0xffffffffu, cf, src[h]);
-          load4(v[h], f1row + (i0 + src[h]) * (long)c);
+          raw[h] = *reinterpret_cast<const typename Lane<T>::Raw*>(
+              f1row + (i0 + src[h]) * (long)c);
         }
 #pragma unroll
         for (int h = 0; h < 4; ++h) {
           if (!has[h]) break;  // warp-uniform
+          float v[kVec];
+          Lane<T>::unpack(v, raw[h]);
 #pragma unroll
-          for (int e = 0; e < kVec; ++e) acc[e] = fmaf(s[h], v[h][e], acc[e]);
+          for (int e = 0; e < kVec; ++e) acc[e] = fmaf(s[h], v[e], acc[e]);
         }
       }
     }
@@ -243,7 +315,7 @@ alt_corr_bwd_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) acc[e] = NAN;
     }
-    store4(a.df2 + (n * (long)w2cat + jg) * c + c0 + lane * kVec, acc);
+    store(a.df2 + (n * (long)w2cat + jg) * c + c0 + lane * kVec, acc);
   }
 
   // df1: one warp per pixel.  Per level the window's rows are loaded
@@ -262,43 +334,71 @@ alt_corr_bwd_kernel(const Args a) {
       }
       if (b == kFar || width == 0) continue;  // warp-uniform
       const float* cp = coef + (long)(i * L + l) * D;
-      float v[D][kVec];
+      typename Lane<T>::Raw raw[D];
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         const int j = min(max(b + d, 0), width - 1);
-        load4(v[d], f2row + (lv.off[l] + j) * (long)c);
+        raw[d] = *reinterpret_cast<const typename Lane<T>::Raw*>(
+            f2row + (lv.off[l] + j) * (long)c);
       }
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         const int j = b + d;
         if (j < 0 || j >= width) continue;  // warp-uniform
         const float cf = cp[d];
+        float v[kVec];
+        Lane<T>::unpack(v, raw[d]);
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[e] = fmaf(cf, v[d][e], acc[e]);
+        for (int e = 0; e < kVec; ++e) acc[e] = fmaf(cf, v[e], acc[e]);
       }
     }
     if (bad) {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) acc[e] = NAN;
     }
-    store4(a.df1 + (n * w1 + i) * (long)c + c0 + lane * kVec, acc);
+    store(a.df1 + (n * w1 + i) * (long)c + c0 + lane * kVec, acc);
   }
 }
 
-template <int R>
-int launch(Args a, long rows, cudaStream_t stream) {
+template <int R, typename T>
+int launch(Args<T> a, long rows, cudaStream_t stream) {
   const long smem = smem_bytes<R>(a.w1, a.lv.n);
   // 64 bytes stay free for keep_lo/keep_hi
   if (smem > kMaxSmem - 64) return (int)cudaErrorInvalidValue;
-  auto kernel = alt_corr_bwd_kernel<R>;
+  auto kernel = alt_corr_bwd_kernel<R, T>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  a.nslice = a.c / kSlice;
+  a.nslice = a.c / (32 * Lane<T>::kVec);
   kernel<<<(unsigned)(rows * a.nslice), kThreads, (size_t)smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int run(const T* f1, const T* f2, const float* x, const float* g, T* df1,
+        T* df2, long rows, int w1, int w2cat, int c, int radius, float scale,
+        int nlev, const int* offsets, const int* widths, void* stream) {
+  if (nlev < 1 || nlev > kMaxLevels || c % (32 * Lane<T>::kVec) != 0 ||
+      c > 512)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || w1 == 0) return 0;
+  Args<T> a{f1, f2, x, g, df1, df2, w1, w2cat, c, 0, scale, {}};
+  a.lv.n = nlev;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    a.lv.off[l] = l < nlev ? offsets[l] : 0;
+    a.lv.width[l] = l < nlev ? widths[l] : 0;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RS_CASE(r) \
+  case r: return launch<r, T>(a, rows, s);
+  switch (radius) {
+    RS_CASE(1) RS_CASE(2) RS_CASE(3) RS_CASE(4)
+    RS_CASE(5) RS_CASE(6) RS_CASE(7) RS_CASE(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RS_CASE
 }
 
 }  // namespace
@@ -316,22 +416,20 @@ extern "C" int alt_corr_backward(const float* f1, const float* f2,
                                  int c, int radius, float scale, int nlev,
                                  const int* offsets, const int* widths,
                                  void* stream) {
-  if (nlev < 1 || nlev > kMaxLevels || c % 128 != 0 || c > 512)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0 || w1 == 0) return 0;
-  Args a{f1, f2, x, g, df1, df2, w1, w2cat, c, 0, scale, {}};
-  a.lv.n = nlev;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    a.lv.off[l] = l < nlev ? offsets[l] : 0;
-    a.lv.width[l] = l < nlev ? widths[l] : 0;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define RS_CASE(r) \
-  case r: return launch<r>(a, rows, s);
-  switch (radius) {
-    RS_CASE(1) RS_CASE(2) RS_CASE(3) RS_CASE(4)
-    RS_CASE(5) RS_CASE(6) RS_CASE(7) RS_CASE(8)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef RS_CASE
+  return run<float>(f1, f2, x, g, df1, df2, rows, w1, w2cat, c, radius,
+                    scale, nlev, offsets, widths, stream);
+}
+
+// The bf16 form: fmap1, f2cat, df1 and df2 bf16 (C a multiple of 256, at
+// most 512), x and g fp32; otherwise as alt_corr_backward.
+extern "C" int alt_corr_backward_bf16(const __nv_bfloat16* f1,
+                                      const __nv_bfloat16* f2,
+                                      const float* x, const float* g,
+                                      __nv_bfloat16* df1, __nv_bfloat16* df2,
+                                      long rows, int w1, int w2cat, int c,
+                                      int radius, float scale, int nlev,
+                                      const int* offsets, const int* widths,
+                                      void* stream) {
+  return run<__nv_bfloat16>(f1, f2, x, g, df1, df2, rows, w1, w2cat, c,
+                            radius, scale, nlev, offsets, widths, stream);
 }

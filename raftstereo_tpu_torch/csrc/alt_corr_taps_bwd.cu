@@ -1,5 +1,5 @@
 // Backward of the all-level correlation lookup at caller-given taps, for
-// Hopper (sm_90a), fp32.
+// Hopper (sm_90a), fp32 and bf16 feature maps.
 //
 // Replaces the TPU kernel raftstereo_tpu/ops/pallas_alt.py
 // `_alt_pyr_bwd_kernel` as `_make_alt_pyr.bwd` launches it (through
@@ -79,7 +79,23 @@
 // shape, PERF.md section 6), and the
 // per-run and per-entry work (a shuffle, an address, a load) spread over
 // only 4 channels a lane.
+//
+// The bf16 form (`alt_corr_taps_backward_bf16`: bf16 fmaps, fp32 taps and
+// cotangent, bf16 df1 and df2) is the TPU kernel with bf16 feature maps:
+// each pixel's dense `dm` entry (the sum in tap order of its taps' terms
+// on a column, scaled) is rounded to bf16 once, before both products;
+// each product of two bf16 values is exact in fp32 and summed in fp32,
+// and df1 and df2 are rounded to bf16 once at the end.  With arbitrary
+// taps one pixel can weight one column with several taps that are not
+// consecutive, so rounding per run (or per tap) would round partial sums.
+// So in this form df1's runs are one per (pixel, column), as df2's
+// entries already are: a pixel's first tap on a column writes the sum in
+// tap order of all its taps on it (the lists kernel's `kMerge`).  The
+// sums round the scaled coefficient to bf16 and read 8 bf16 channels a
+// lane, a 256-channel slice a block.  At the recipe's op shape the call
+// must move about 266 MB: 0.080 ms at 3.35 TB/s.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -90,8 +106,6 @@ constexpr int kMaxLevels = 8;
 constexpr int kWarps = 32;
 constexpr int kThreads = 32 * kWarps;  // the sums' block
 constexpr int kListThreads = 512;      // the lists' block
-constexpr int kVec = 4;                // channels per lane
-constexpr int kSlice = 32 * kVec;      // channels per block
 constexpr int kBatch = 3;              // fmap rows in flight per warp
 constexpr int kFar = 0x40000000;       // first column of a tap that hits none
 constexpr int kNan = kFar + 1;         // ... of a NaN tap or cotangent
@@ -125,13 +139,14 @@ struct Work {
   long r, h;  // runs per pixel (2 L K), entries per row (W1 min(2 L K, W2cat))
 };
 
+template <typename T>
 struct Args {
-  const float* f1;    // (rows, W1, C)
-  const float* f2;    // (rows, W2cat, C)
+  const T* f1;        // (rows, W1, C)
+  const T* f2;        // (rows, W2cat, C)
   const float* taps;  // (rows, W1, L*K)
   const float* g;     // (rows, W1, L*K)
-  float* df1;
-  float* df2;
+  T* df1;
+  T* df2;
   int w1, w2cat, c, kk, nslice;
   int tile, chunk;  // the lists' pixels per tile and columns per chunk
   float scale;
@@ -163,13 +178,30 @@ __device__ __forceinline__ Tap read_tap(float tv, float gv, int w) {
   return p;
 }
 
+// A pixel's coefficient on column j: cf, its first tap k's term there,
+// plus the terms of its later taps of the level (from t0) on j, in tap
+// order, each sum rounded.
+__device__ __forceinline__ float column_sum(const int* tb, const float* ta0,
+                                            const float* ta1, int t0, int k,
+                                            int kk, int j, float cf) {
+  for (int e = k + 1; e < kk; ++e) {
+    const int o = tb[t0 + e];
+    if (o == j) cf = __fadd_rn(cf, ta0[t0 + e]);
+    else if (o < kFar && o + 1 == j) cf = __fadd_rn(cf, ta1[t0 + e]);
+  }
+  return cf;
+}
+
 long list_smem(int tile, int chunk, int lk) {
   return 12L * tile * lk + 4L * chunk * ((tile + 31) / 32);
 }
 
-// The lists of one image row.
+// The lists of one image row.  kMerge (the bf16 form): df1's runs are
+// one per (pixel, column), each the sum in tap order of the pixel's taps
+// on the column, as df2's entries are.
+template <bool kMerge, typename T>
 __global__ void __launch_bounds__(kListThreads)
-alt_corr_taps_bwd_lists_kernel(const Args a) {
+alt_corr_taps_bwd_lists_kernel(const Args<T> a) {
   extern __shared__ __align__(16) int lsm[];
   __shared__ int poison, keep_lo[kMaxLevels], keep_hi[kMaxLevels];
   __shared__ int scan[kListThreads / 32];
@@ -275,6 +307,22 @@ alt_corr_taps_bwd_lists_kernel(const Args a) {
           const int reach = b == kFar ? 0 : (b >= 0) + (b + 1 < w);
           if (isinf(ta0[t]) && reach < w) bad = true;
           if (b == kFar) continue;
+          if constexpr (kMerge) {
+            const int t0 = i * lk + l * kk;  // the level's taps
+#pragma unroll
+            for (int d = 0; d < 2; ++d) {
+              const int j = b + d;
+              if (j < 0 || j >= w) continue;
+              bool first = true;
+              for (int e = 0; e < k && first; ++e) {
+                const int o = tb[t0 + e];
+                first = o >= kFar || (o != j && o + 1 != j);
+              }
+              if (first) put(off + j, column_sum(tb, ta0, ta1, t0, k, kk, j,
+                                                 d ? ta1[t] : ta0[t]));
+            }
+            continue;
+          }
 #pragma unroll
           for (int d = 0; d < 2; ++d) {
             const int j = b + d;
@@ -359,12 +407,8 @@ alt_corr_taps_bwd_lists_kernel(const Args a) {
             first = o >= kFar || (o != j && o + 1 != j);
           }
           if (!first) continue;
-          float cf = d ? ta1[t] : ta0[t];
-          for (int e = k + 1; e < kk; ++e) {
-            const int o = tb[t0 + e];
-            if (o == j) cf = __fadd_rn(cf, ta0[t0 + e]);
-            else if (o < kFar && o + 1 == j) cf = __fadd_rn(cf, ta1[t0 + e]);
-          }
+          const float cf =
+              column_sum(tb, ta0, ta1, t0, k, kk, j, d ? ta1[t] : ta0[t]);
           const unsigned* m = mask + x * words;
           int r = cursor[cb + x] + __popc(m[i >> 5] & ((1u << (i & 31)) - 1u));
           for (int e = 0; e < (i >> 5); ++e) r += __popc(m[e]);
@@ -388,50 +432,100 @@ alt_corr_taps_bwd_lists_kernel(const Args a) {
   }
 }
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
+// One lane's channels: a 16-byte vector of the fmaps' type, 4 fp32 or
+// 8 bf16 channels, summed in fp32.
+template <typename T>
+struct Lane;
+template <>
+struct Lane<float> {
+  static constexpr int kVec = 4;
+  using Raw = float4;
+  __device__ static void fma(float (&acc)[kVec], float s, const Raw& v) {
+    acc[0] = fmaf(s, v.x, acc[0]);
+    acc[1] = fmaf(s, v.y, acc[1]);
+    acc[2] = fmaf(s, v.z, acc[2]);
+    acc[3] = fmaf(s, v.w, acc[3]);
+  }
+  __device__ static Raw pack(const float (&v)[kVec]) {
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+  __device__ static float coef(float v) { return v; }
+};
+template <>
+struct Lane<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  using Raw = uint4;
+  // Each product of two bf16 values is exact in fp32.
+  __device__ static void fma(float (&acc)[kVec], float s, const Raw& t) {
+    const unsigned w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * e] = fmaf(s, __uint_as_float(w[e] << 16), acc[2 * e]);
+      acc[2 * e + 1] =
+          fmaf(s, __uint_as_float(w[e] & 0xffff0000u), acc[2 * e + 1]);
+    }
+  }
+  __device__ static Raw pack(const float (&v)[kVec]) {
+    unsigned w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      w[e] = *reinterpret_cast<const unsigned*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+  // dm.astype(bf16): the scaled fp32 coefficient rounded once.
+  __device__ static float coef(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+};
 
-__device__ __forceinline__ void fma4(float4& acc, float s, const float4& v) {
-  acc.x = fmaf(s, v.x, acc.x);
-  acc.y = fmaf(s, v.y, acc.y);
-  acc.z = fmaf(s, v.z, acc.z);
-  acc.w = fmaf(s, v.w, acc.w);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v, bool bad) {
-  if (bad) v = make_float4(NAN, NAN, NAN, NAN);
-  *reinterpret_cast<float4*>(p) = v;
+template <typename T>
+__device__ __forceinline__ void store(T* p, float (&v)[Lane<T>::kVec],
+                                      bool bad) {
+  if (bad) {
+#pragma unroll
+    for (int e = 0; e < Lane<T>::kVec; ++e) v[e] = NAN;
+  }
+  *reinterpret_cast<typename Lane<T>::Raw*>(p) = Lane<T>::pack(v);
 }
 
 // acc += sum over list[0, n) in order of scale * coef * rows[at] (this
-// lane's channels): 32 entries read at once, kBatch rows in flight.
-__device__ __forceinline__ void sum_rows(float4& acc, const Entry* list,
-                                         int n, const float* rows, int c,
-                                         float scale, int lane) {
+// lane's channels; the scaled coefficient rounded to T): 32 entries read
+// at once, kBatch rows in flight.
+template <typename T>
+__device__ __forceinline__ void sum_rows(float (&acc)[Lane<T>::kVec],
+                                         const Entry* list, int n,
+                                         const T* rows, int c, float scale,
+                                         int lane) {
+  using Raw = typename Lane<T>::Raw;
   for (int e0 = 0; e0 < n; e0 += 32) {
     const Entry mine = e0 + lane < n ? list[e0 + lane] : Entry{0, 0};
     const int m = min(32, n - e0);
     for (int h0 = 0; h0 < m; h0 += kBatch) {
       float s[kBatch];
-      float4 v[kBatch];
+      Raw v[kBatch];
 #pragma unroll
       for (int h = 0; h < kBatch; ++h) {
         const int at = __shfl_sync(0xffffffffu, mine.at, (h0 + h) & 31);
         const int cf = __shfl_sync(0xffffffffu, mine.coef, (h0 + h) & 31);
-        s[h] = __fmul_rn(__int_as_float(cf), scale);
-        if (h0 + h < m) v[h] = load4(rows + (long)at * c);  // warp-uniform
+        s[h] = Lane<T>::coef(__fmul_rn(__int_as_float(cf), scale));
+        if (h0 + h < m)  // warp-uniform
+          v[h] = *reinterpret_cast<const Raw*>(rows + (long)at * c);
       }
 #pragma unroll
       for (int h = 0; h < kBatch; ++h)
-        if (h0 + h < m) fma4(acc, s[h], v[h]);
+        if (h0 + h < m) Lane<T>::fma(acc, s[h], v[h]);
     }
   }
 }
 
 // df1 and df2 of one image row and channel slice, from its lists.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-alt_corr_taps_bwd_grads_kernel(const Args a) {
+alt_corr_taps_bwd_grads_kernel(const Args<T> a) {
+  constexpr int kVec = Lane<T>::kVec;  // channels per lane
+  constexpr int kSlice = 32 * kVec;    // channels per block
   __shared__ int flags[kFlags];
   const Levels& lv = a.lv;
   const int L = lv.n, c = a.c, w1 = a.w1, w2cat = a.w2cat;
@@ -439,8 +533,8 @@ alt_corr_taps_bwd_grads_kernel(const Args a) {
   const int c0 = (blockIdx.x % a.nslice) * kSlice;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const Work& wk = a.wk;
-  const float* f1row = a.f1 + n * (long)w1 * c + c0 + lane * kVec;
-  const float* f2row = a.f2 + n * (long)w2cat * c + c0 + lane * kVec;
+  const T* f1row = a.f1 + n * (long)w1 * c + c0 + lane * kVec;
+  const T* f2row = a.f2 + n * (long)w2cat * c + c0 + lane * kVec;
   if (threadIdx.x < kFlags)
     flags[threadIdx.x] = wk.flags[n * kFlags + threadIdx.x];
   __syncthreads();
@@ -448,11 +542,11 @@ alt_corr_taps_bwd_grads_kernel(const Args a) {
   // df1: one warp per pixel.
   for (int i = warp; i < w1; i += kWarps) {
     const unsigned nr = wk.nrun[n * w1 + i];
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    sum_rows(acc, wk.runs + (n * w1 + i) * wk.r, (int)(nr & ~kPoisoned),
-             f2row, c, a.scale, lane);
-    store4(a.df1 + (n * w1 + i) * (long)c + c0 + lane * kVec, acc,
-           nr & kPoisoned);
+    float acc[kVec] = {};
+    sum_rows<T>(acc, wk.runs + (n * w1 + i) * wk.r, (int)(nr & ~kPoisoned),
+                f2row, c, a.scale, lane);
+    store<T>(a.df1 + (n * w1 + i) * (long)c + c0 + lane * kVec, acc,
+             nr & kPoisoned);
   }
 
   // df2: one warp per column.
@@ -461,13 +555,13 @@ alt_corr_taps_bwd_grads_kernel(const Args a) {
     int l = 0;
     while (l + 1 < L && x >= lv.off[l + 1]) ++l;
     const int jl = x - lv.off[l];
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    float acc[kVec] = {};
     const int s0 = start[x];
-    sum_rows(acc, wk.hits + n * wk.h + s0, start[x + 1] - s0, f1row, c,
-             a.scale, lane);
+    sum_rows<T>(acc, wk.hits + n * wk.h + s0, start[x + 1] - s0, f1row, c,
+                a.scale, lane);
     const bool bad = ((flags[0] >> l) & 1) || jl < flags[1 + l] ||
                      jl > flags[1 + kMaxLevels + l];
-    store4(a.df2 + (n * (long)w2cat + x) * c + c0 + lane * kVec, acc, bad);
+    store<T>(a.df2 + (n * (long)w2cat + x) * c + c0 + lane * kVec, acc, bad);
   }
 }
 
@@ -521,6 +615,56 @@ long batch_rows(long rows, int w1, int w2cat, int lk) {
   return max(1L, min(rows, kWorkBytes / one));
 }
 
+template <typename T>
+int run(const T* f1, const T* f2, const float* taps, const float* g, T* df1,
+        T* df2, void* work, long rows, int w1, int w2cat, int c, int kk,
+        float scale, int nlev, const int* offsets, const int* widths,
+        void* stream) {
+  constexpr int kSlice = 32 * Lane<T>::kVec;
+  constexpr bool kMerge = Lane<T>::kVec == 8;
+  if (nlev < 1 || nlev > kMaxLevels || c % kSlice != 0 || c < kSlice ||
+      kk < 1)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  Args<T> a{f1, f2, taps, g, df1, df2, w1, w2cat, c, kk, c / kSlice,
+            0, 0, scale, {}, {}};
+  if (!plan(w1, w2cat, nlev * kk, &a.tile, &a.chunk))
+    return (int)cudaErrorInvalidValue;
+  a.lv.n = nlev;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    a.lv.off[l] = l < nlev ? offsets[l] : 0;
+    a.lv.width[l] = l < nlev ? widths[l] : 0;
+  }
+  const long lk = nlev * kk, batch = batch_rows(rows, w1, w2cat, lk);
+  layout(&a.wk, static_cast<char*>(work), batch, w1, w2cat, lk);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long smem = list_smem(a.tile, a.chunk, lk);
+  auto lists = alt_corr_taps_bwd_lists_kernel<kMerge, T>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        lists, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  for (long r0 = 0; r0 < rows; r0 += batch) {
+    const long nb = min(batch, rows - r0);
+    Args<T> b = a;
+    b.f1 += r0 * w1 * c;
+    b.f2 += r0 * w2cat * c;
+    b.taps += r0 * w1 * lk;
+    b.g += r0 * w1 * lk;
+    b.df1 += r0 * w1 * c;
+    b.df2 += r0 * w2cat * c;
+    lists<<<(unsigned)nb, kListThreads, (size_t)smem, s>>>(b);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    alt_corr_taps_bwd_grads_kernel<T>
+        <<<(unsigned)(nb * a.nslice), kThreads, 0, s>>>(b);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // Rows per batch of a call (each batch two kernel launches).
@@ -561,46 +705,17 @@ extern "C" int alt_corr_taps_backward(const float* f1, const float* f2,
                                       int kk, float scale, int nlev,
                                       const int* offsets, const int* widths,
                                       void* stream) {
-  if (nlev < 1 || nlev > kMaxLevels || c % kSlice != 0 || c < kSlice ||
-      kk < 1)
-    return (int)cudaErrorInvalidValue;
-  if (rows == 0) return 0;
-  Args a{f1, f2, taps, g, df1, df2, w1, w2cat, c, kk, c / kSlice,
-         0, 0, scale, {}, {}};
-  if (!plan(w1, w2cat, nlev * kk, &a.tile, &a.chunk))
-    return (int)cudaErrorInvalidValue;
-  a.lv.n = nlev;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    a.lv.off[l] = l < nlev ? offsets[l] : 0;
-    a.lv.width[l] = l < nlev ? widths[l] : 0;
-  }
-  const long lk = nlev * kk, batch = batch_rows(rows, w1, w2cat, lk);
-  layout(&a.wk, static_cast<char*>(work), batch, w1, w2cat, lk);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long smem = list_smem(a.tile, a.chunk, lk);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        alt_corr_taps_bwd_lists_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  for (long r0 = 0; r0 < rows; r0 += batch) {
-    const long nb = min(batch, rows - r0);
-    Args b = a;
-    b.f1 += r0 * w1 * c;
-    b.f2 += r0 * w2cat * c;
-    b.taps += r0 * w1 * lk;
-    b.g += r0 * w1 * lk;
-    b.df1 += r0 * w1 * c;
-    b.df2 += r0 * w2cat * c;
-    alt_corr_taps_bwd_lists_kernel<<<(unsigned)nb, kListThreads,
-                                     (size_t)smem, s>>>(b);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    alt_corr_taps_bwd_grads_kernel<<<(unsigned)(nb * a.nslice), kThreads, 0,
-                                     s>>>(b);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  return run<float>(f1, f2, taps, g, df1, df2, work, rows, w1, w2cat, c, kk,
+                    scale, nlev, offsets, widths, stream);
+}
+
+// The bf16 form: fmap1, f2cat, df1 and df2 bf16 (C a multiple of 256),
+// taps and g fp32; otherwise as alt_corr_taps_backward.
+extern "C" int alt_corr_taps_backward_bf16(
+    const __nv_bfloat16* f1, const __nv_bfloat16* f2, const float* taps,
+    const float* g, __nv_bfloat16* df1, __nv_bfloat16* df2, void* work,
+    long rows, int w1, int w2cat, int c, int kk, float scale, int nlev,
+    const int* offsets, const int* widths, void* stream) {
+  return run<__nv_bfloat16>(f1, f2, taps, g, df1, df2, work, rows, w1, w2cat,
+                            c, kk, scale, nlev, offsets, widths, stream);
 }

@@ -6,7 +6,9 @@ arithmetic as before.  bf16 inputs follow flax's ``dtype=bfloat16``
 modules: parameters stay fp32 and are cast at use, a convolution's output
 is rounded to bf16 before its bias is added in bf16, batch norm computes
 in fp32 and rounds once, and instance norm keeps the JAX package's
-``instance_norm_stats`` rounding points."""
+``instance_norm_stats`` rounding points.  In training the bias add and
+instance norm take the VJPs of JAX's transposes (``_BiasAddBf16``,
+``_InstanceNormBf16``), whose bf16 sums over an image are ``_sum32``."""
 
 from __future__ import annotations
 
@@ -18,13 +20,35 @@ import torch.nn.functional as F
 BF16 = torch.bfloat16
 
 
+def _sum32(x: torch.Tensor, dims) -> torch.Tensor:
+    """A bf16 sum over ``dims`` accumulated in fp32 and rounded once (the
+    bf16 sums of the JAX package's transposes, as an accelerator takes
+    them; XLA:CPU instead rounds every add)."""
+    return x.float().sum(dim=dims, keepdim=True).to(BF16)
+
+
+class _BiasAddBf16(torch.autograd.Function):
+    """``y + bias`` in bf16 for NCHW ``y`` and an fp32 ``bias`` cast at
+    use, as flax adds it: the bias's cotangent is the bf16 sum of ``dy``
+    over the batch and pixels (``_sum32``), then widened to fp32 through
+    the cast."""
+
+    @staticmethod
+    def forward(ctx, y, bias):
+        return y + bias.to(BF16)[:, None, None]
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, _sum32(dy, (0, 2, 3)).reshape(-1).float()
+
+
 def conv_bf16(x: torch.Tensor, weight: torch.Tensor, bias, stride=1,
               padding=0) -> torch.Tensor:
     """flax ``nn.Conv(dtype=bfloat16)``: input and kernel in bf16, the
     product rounded to bf16 (fp32 accumulation inside), then the bias
     added in bf16 -- one rounding more than ``F.conv2d(x, w, b)``."""
     y = F.conv2d(x.to(BF16), weight.to(BF16), None, stride, padding)
-    return y if bias is None else y + bias.to(BF16)[:, None, None]
+    return y if bias is None else _BiasAddBf16.apply(y, bias)
 
 
 class Conv2d(nn.Conv2d):
@@ -63,23 +87,73 @@ def _bf16_mean(x: torch.Tensor, dims) -> torch.Tensor:
     return (x.float().sum(dim=dims, keepdim=True) / n).to(BF16)
 
 
+class _InstanceNormBf16(torch.autograd.Function):
+    """The JAX package's ``instance_norm_stats`` + ``instance_norm_apply``
+    on bf16 NCHW ``x``, with the VJP that JAX's transposes of those ops
+    give, rounding point for rounding point: the normalised tensor's
+    cotangent through the bf16 products, the statistics' cotangents
+    through the fp32 group arithmetic (rsqrt, max, the k-group means) and
+    back through the bf16 casts, the centred squares and the group means.
+    Its bf16 sums over the image (three of them) accumulate in fp32 and
+    round once, as on an accelerator (XLA:CPU rounds every add of such a
+    sum in bf16)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        b, c, h, w = x.shape
+        k = instance_norm_group_width(c, w)
+        xr = x.reshape(b, c, h, w // k, k)
+        m = _bf16_mean(xr, (2, 3))                      # (b, c, 1, 1, k)
+        ctr = xr - m
+        v = _bf16_mean(ctr * ctr, (2, 3)).float()
+        m32 = m.float()
+        mbar = m32.mean(dim=4, keepdim=True)
+        var = v.mean(dim=4, keepdim=True) + ((m32 - mbar) ** 2).mean(
+            dim=4, keepdim=True)
+        varc = var.clamp_min(0.0)
+        eps = varc + 1e-5
+        scale = torch.rsqrt(eps)
+        mw, sw = mbar.to(BF16), scale.to(BF16)
+        bz = xr - mw
+        ctx.save_for_backward(bz, ctr * 2, m32 - mbar, var, varc, eps, scale,
+                              sw)
+        ctx.k, ctx.n = k, h * (w // k)
+        return (bz * sw).reshape(b, c, h, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        bz, ctr2, dm32, var, varc, eps, scale, sw = ctx.saved_tensors
+        k = ctx.k
+        kf = torch.full((), float(k), device=dy.device)
+        nf = torch.full((), float(ctx.n), device=dy.device)
+        dyr = dy.reshape(bz.shape)
+        cf = dyr * sw                                     # the sweep's
+        d_scale = _sum32(bz * dyr, (2, 3)).float().sum(dim=4, keepdim=True)
+        d_mbar = _sum32(-cf, (2, 3)).float().sum(dim=4, keepdim=True)
+        # rsqrt, then max(var, 0): slope 1 above 0, 1/2 at 0, 0 below
+        d_var = d_scale * (-0.5 * (scale / eps))
+        d_var = d_var * (torch.where(var == varc, 1.0, 0.0)
+                         / torch.where(varc == 0, 2.0, 1.0))
+        cy = (d_var / kf) * (2 * dm32)                    # via (m_g - mbar)^2
+        d_mbar = d_mbar + (-cy).sum(dim=4, keepdim=True)
+        d_m32 = cy + d_mbar / kf                          # (b, c, 1, 1, k)
+        d_v = (d_var / kf).to(BF16).float() / nf          # via v's mean
+        ds = d_v.to(BF16) * ctr2                          # via ctr * ctr
+        d_m = d_m32.to(BF16) + _sum32(-ds, (2, 3))
+        ec = (d_m.float() / nf).to(BF16)                  # via m's mean
+        # JAX adds the three in the order its transposes reach x: the
+        # group view is a separate array for k > 1, x itself for k = 1.
+        dx = cf + (ds + ec) if k > 1 else (cf + ds) + ec
+        return dx.reshape(dy.shape)
+
+
 def instance_norm_bf16(x: torch.Tensor) -> torch.Tensor:
     """The JAX package's ``instance_norm_stats`` + ``instance_norm_apply``
     on bf16 NCHW ``x``: per lane group (every k-th column) the mean and the
     mean of centred squares in bf16, combined across the k groups in fp32,
-    then the mean and scale rounded to bf16 and applied in bf16."""
-    b, c, h, w = x.shape
-    k = instance_norm_group_width(c, w)
-    xr = x.reshape(b, c, h, w // k, k)
-    m = _bf16_mean(xr, (2, 3))                          # (b, c, 1, 1, k)
-    ctr = xr - m
-    v = _bf16_mean(ctr * ctr, (2, 3)).float()
-    m32 = m.float()
-    mbar = m32.mean(dim=4, keepdim=True)
-    var = v.mean(dim=4, keepdim=True) + ((m32 - mbar) ** 2).mean(
-        dim=4, keepdim=True)
-    scale = torch.rsqrt(var.clamp_min(0.0) + 1e-5)
-    return ((xr - mbar.to(BF16)) * scale.to(BF16)).reshape(b, c, h, w)
+    then the mean and scale rounded to bf16 and applied in bf16;
+    differentiated as JAX differentiates it (``_InstanceNormBf16``)."""
+    return _InstanceNormBf16.apply(x)
 
 
 class InstanceNorm(nn.Module):

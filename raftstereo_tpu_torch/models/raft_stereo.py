@@ -33,14 +33,17 @@ lookup (``ops.corr.corr_lookup``) and one update of the GRU levels.
   with that iteration's mask, and with ``remat`` recomputes each
   iteration in the backward pass (``torch.utils.checkpoint``).
 
-* ``compute_dtype="bfloat16"`` (test mode only): the images are
-  normalised in fp32 and cast, the encoders and GRUs run in bf16 (fp32
-  parameters cast at use, as flax does), the disparity stays fp32 and
-  each delta is cast to fp32, and the mask is cast to fp32 before the
-  convex upsampling.  The fused step takes the bf16 forms of the lookup
-  and update kernels; the module step of ``pallas_alt`` takes the lookup
-  with convc1 fused in (``ops.cuda_alt.alt_corr_epi``), the JAX
-  package's ``use_epi`` gate.
+* ``compute_dtype="bfloat16"`` (the JAX package's ``--mixed_precision``,
+  test and train mode): the images are normalised in fp32 and cast, the
+  encoders and GRUs run in bf16 (fp32 parameters cast at use, as flax
+  does), the disparity stays fp32 and each delta is cast to fp32, and the
+  mask is cast to fp32 before the convex upsampling.  In test mode the
+  fused step takes the bf16 forms of the lookup and update kernels; the
+  module step of ``pallas_alt`` takes the lookup with convc1 fused in
+  (``ops.cuda_alt.alt_corr_epi``), the JAX package's ``use_epi`` gate.
+  In train mode the module step runs with the differentiable lookup (its
+  backward's bf16 form for bf16 feature maps), and gradients reach the
+  fp32 parameters through the casts, as in the JAX package.
 
 Images and disparities are NHWC at this interface, as in the JAX package;
 the encoders and GRUs run NCHW.
@@ -58,7 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import RAFTStereoConfig, check_supported
 from ..device import fp32_numerics, resolve_device
 from ..ops.corr import build_corr_state, corr_lookup, corr_lookup_epi
-from ..ops.cuda_gru import gru_update, pack_update_params
+from ..ops.cuda_gru import gru_update, pack_update_params, tanh_bf16
 from ..ops.image import coords_grid_x, resize_nchw
 from ..ops.upsample import convex_upsample
 from .encoders import BasicEncoder, MultiBasicEncoder
@@ -131,13 +134,7 @@ class RAFTStereo(nn.Module):
         ``test_mode=False`` (training): returns every iteration's
         full-resolution prediction, (iters, B, H, W, 1), differentiable.
         ``flow_init`` is an optional (B, H/f, W/f, 1) warm start added to
-        the zero initialisation.  A bf16 model runs test mode only."""
-        if not test_mode and self.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "train mode with compute_dtype='bfloat16' (bf16 training: "
-                "bf16 forms of the lookup's backward and of the module "
-                "step's backward) is not ported yet; see ROADMAP.md Queue 1 "
-                "item 3")
+        the zero initialisation."""
         if test_mode:
             with torch.inference_mode():
                 return self._forward(image1, image2, iters, flow_init, True)
@@ -155,7 +152,8 @@ class RAFTStereo(nn.Module):
         img1, img2 = norm(image1), norm(image2)
         outputs = self.cnet(img1.contiguous())
         fmaps = self.fnet(torch.cat([img1, img2], dim=0).contiguous())
-        net = [torch.tanh(o[0]) for o in outputs]
+        tanh = tanh_bf16 if self.dtype == torch.bfloat16 else torch.tanh
+        net = [tanh(o[0]) for o in outputs]
         zqr = [torch.split(c(F.relu(o[1])), hd[i], dim=1)
                for i, (o, c) in enumerate(zip(outputs,
                                               self.context_zqr_convs))]

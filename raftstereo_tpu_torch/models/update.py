@@ -16,7 +16,10 @@ computes in its input's dtype; bf16 inputs take the JAX package's bf16
 forms, rounding where it rounds (``layers.conv_bf16``): the GRU gates as
 two convs (h and x), each rounded, summed in bf16, the bias on the x
 part, the sigmoid as XLA computes it in bf16 (``sigmoid_bf16``); the
-motion encoder's convf1 on the x-flow channel alone."""
+motion encoder's convf1 on the x-flow channel alone.  In training the
+bf16 sigmoid and tanh take JAX's differentiation rules
+(``ops.cuda_gru``); the convolutions' and the resize's autograd already
+follow JAX's transposes."""
 
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..config import RAFTStereoConfig
-from ..ops.cuda_gru import sigmoid_bf16
+from ..ops.cuda_gru import sigmoid_bf16, tanh_bf16
 from ..ops.image import avg_pool2x, resize_nchw
 from .layers import BF16, conv, conv_bf16
 
@@ -54,7 +57,7 @@ class ConvGRU(nn.Module):
             zr = self._sliced(self.convzr, h, x)
             z = sigmoid_bf16(zr[:, :hd] + cz)
             r = sigmoid_bf16(zr[:, hd:] + cr)
-            q = torch.tanh(self._sliced(self.convq, r * h, x) + cq)
+            q = tanh_bf16(self._sliced(self.convq, r * h, x) + cq)
             return (1 - z) * h + z * q
         zr = self.convzr(torch.cat([h, x], dim=1))
         z = torch.sigmoid(zr[:, :hd] + cz)

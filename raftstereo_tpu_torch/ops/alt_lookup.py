@@ -16,9 +16,12 @@ with local coordinate t and level width w_l:
     M_l[j] = <fmap1[b, y, x1], fmap2_l[b, y, j]> / sqrt(C),
 
 so taps outside (-1, w_l) give 0 and NaN taps give NaN.  The gradient
-reaches both feature maps; the taps get a zero gradient, as the JAX VJP
-returns.  The bounds on an H100 and what each design does about them
-are in the sources' notes (both bound by bytes).
+reaches both feature maps, in their dtype; the taps get a zero gradient,
+as the JAX VJP returns.  With bf16 feature maps each pixel's scaled
+coefficient on a column (its taps' terms summed in tap order) is rounded
+to bf16 once before the products, as the TPU kernel rounds ``dm``; the
+cotangent is widened to fp32.  The bounds on an H100 and what each
+design does about them are in the sources' notes (both bound by bytes).
 
 The TPU padding is gone: ``preflatten_fmap1``/``preflatten_fmap2`` are
 reshapes, and a level takes its real width.  Zero columns that a caller
@@ -208,9 +211,12 @@ def alt_corr_taps_backward_plain(f1flat: torch.Tensor, f2cat: torch.Tensor,
     """Plain PyTorch VJP in the TPU kernel's form: per level the dense hat
     matrix dm[i, j] = s * sum_k g[i, k] * max(0, 1 - |j - t_k|) over the
     level's columns, then two matmuls.  A NaN tap or a non-finite
-    cotangent makes that level's hat row NaN, as on the TPU.  Returns
-    ``(df1, df2cat)``, fp32, shaped like f1flat and f2cat."""
+    cotangent makes that level's hat row NaN, as on the TPU.  With bf16
+    feature maps dm is rounded to bf16 before the products (fp32 sums of
+    exact products) and the gradients once at the end.  Returns
+    ``(df1, df2cat)`` shaped like f1flat and f2cat, in their dtype."""
     widths, kk = _levels(widths, taps.shape[-1])
+    bf16 = f1flat.dtype == torch.bfloat16
     f1, f2 = f1flat.float(), f2cat.float()
     scale = 1.0 / float(f1.shape[-1]) ** 0.5
     taps, g = taps.float(), g.float()
@@ -227,34 +233,38 @@ def alt_corr_taps_backward_plain(f1flat: torch.Tensor, f2cat: torch.Tensor,
             term = g[..., k, None] * hat  # NaN stays NaN
             dm = term if dm is None else dm + term
         dm = dm * scale                                    # (N, W1, w)
+        if bf16:
+            dm = dm.to(torch.bfloat16).float()
         df1 = df1 + torch.matmul(dm, f2[:, off:off + w])
         parts.append(torch.matmul(dm.transpose(-1, -2), f1))
         off += w
-    return df1, torch.cat(parts, dim=1) if parts else torch.zeros_like(f2)
+    df2 = torch.cat(parts, dim=1) if parts else torch.zeros_like(f2)
+    return df1.to(f1flat.dtype), df2.to(f2cat.dtype)
 
 
 def alt_corr_taps_backward(f1flat: torch.Tensor, f2cat: torch.Tensor,
                            taps: torch.Tensor, g: torch.Tensor,
                            widths: Sequence[int]
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """VJP of ``alt_corr_taps`` for the cotangent ``g`` (fp32): the plain
-    version for CPU tensors, the CUDA kernels for CUDA tensors (one count
-    in ``alt_corr_taps_backward.launches`` a call, which launches two
-    kernels, ``alt_corr_taps_bwd_lists_kernel`` then
-    ``alt_corr_taps_bwd_grads_kernel``, per batch of rows).  Returns
-    ``(df1, df2cat)``; two calls on the same CUDA inputs give equal bits.
+    """VJP of ``alt_corr_taps`` for the cotangent ``g`` (fp32 or bf16,
+    widened to fp32): the plain version for CPU tensors, the CUDA kernels
+    for CUDA tensors (one count in ``alt_corr_taps_backward.launches`` a
+    call, which launches two kernels, ``alt_corr_taps_bwd_lists_kernel``
+    then ``alt_corr_taps_bwd_grads_kernel``, per batch of rows), their
+    bf16 form for bf16 feature maps.  Returns ``(df1, df2cat)`` in the
+    maps' dtype; two calls on the same CUDA inputs give equal bits.
     The lists take a workspace of up to 32 bytes a tap: a batch of rows
     takes at most 256 MiB, or one row's lists where a row needs more
     (``alt_corr_taps_backward_batch``)."""
     if all(t.device.type == "cpu" for t in (f1flat, f2cat, taps, g)):
         return alt_corr_taps_backward_plain(f1flat, f2cat, taps, g, widths)
     n, w1, c, widths, kk = _check_cuda(
-        "alt_corr_taps_backward", f1flat, f2cat, taps, widths, extra=(g,),
-        fmap_dtypes=(torch.float32,))
-    if g.dtype != torch.float32 or g.shape != taps.shape:
-        raise ValueError(f"alt_corr_taps_backward takes a float32 cotangent "
-                         f"shaped like the taps; got {g.dtype} "
-                         f"{tuple(g.shape)}")
+        "alt_corr_taps_backward", f1flat, f2cat, taps, widths, extra=(g,))
+    if g.dtype not in _DTYPES or g.shape != taps.shape:
+        raise ValueError(f"alt_corr_taps_backward takes a float32 or "
+                         f"bfloat16 cotangent shaped like the taps; got "
+                         f"{g.dtype} {tuple(g.shape)}")
+    g = g.float().contiguous()  # exact: the kernels read fp32
     nlev, w2cat = len(widths), f2cat.shape[1]
     lib = _build.load("alt_corr_taps_bwd")
     tile = lib.alt_corr_taps_backward_tile
@@ -270,7 +280,9 @@ def alt_corr_taps_backward(f1flat: torch.Tensor, f2cat: torch.Tensor,
     space = lib.alt_corr_taps_backward_workspace
     space.restype = ctypes.c_long
     space.argtypes = [ctypes.c_long] + [ctypes.c_int] * 4
-    f1flat, f2cat = (_kernel_layout(t, 128) for t in (f1flat, f2cat))
+    bf16 = f1flat.dtype == torch.bfloat16
+    f1flat, f2cat = (_kernel_layout(t, 256 if bf16 else 128)
+                     for t in (f1flat, f2cat))
     df1 = torch.empty_like(f1flat)
     df2 = torch.empty_like(f2cat)
     # the kernels' lists of runs and entries (the caching allocator's
@@ -278,7 +290,8 @@ def alt_corr_taps_backward(f1flat: torch.Tensor, f2cat: torch.Tensor,
     work = torch.empty(space(n, w1, w2cat, nlev, kk), dtype=torch.uint8,
                        device=f1flat.device)
     offs = [sum(widths[:i]) for i in range(nlev)]
-    fn = lib.alt_corr_taps_backward
+    fn = (lib.alt_corr_taps_backward_bf16 if bf16
+          else lib.alt_corr_taps_backward)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_long]
                    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
@@ -306,8 +319,9 @@ alt_corr_taps_backward.launches = 0
 
 
 class _AltTapsFunction(torch.autograd.Function):
-    """``alt_corr_taps`` with ``alt_corr_taps_backward`` as its VJP; the
-    taps get a zero gradient, as ``_make_alt_pyr.bwd`` returns."""
+    """``alt_corr_taps`` with ``alt_corr_taps_backward`` as its VJP, the
+    gradients in the maps' dtype; the taps get a zero gradient, as
+    ``_make_alt_pyr.bwd`` returns."""
 
     @staticmethod
     def forward(ctx, f1flat, f2cat, taps, widths, out_dtype):
@@ -318,14 +332,8 @@ class _AltTapsFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         f1flat, f2cat, taps = ctx.saved_tensors
-        if f1flat.dtype != torch.float32 or f2cat.dtype != torch.float32:
-            raise NotImplementedError(
-                "the lookup's gradient with bf16 feature maps (bf16 "
-                "training) is not ported yet; see ROADMAP.md Queue 1 item 3 "
-                "(bf16 training)")
         df1, df2 = alt_corr_taps_backward(f1flat, f2cat, taps,
-                                          g.float().contiguous(),
-                                          ctx.widths)
+                                          g.contiguous(), ctx.widths)
         return df1, df2, torch.zeros_like(taps), None, None
 
 

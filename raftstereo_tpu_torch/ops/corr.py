@@ -24,9 +24,11 @@ kernels' VJPs are the backward kernels, and gradients reach fmap1 and
 fmap2 through the pooling, the volume product and the concat by ordinary
 autograd.
 
-bf16 (inference): the ``pallas_alt`` state stores fmap1 and the fmap2
-pyramid in ``corr_dtype``, pooled in fp32 first and rounded after, and
-the lookup emits the compute dtype (``out_dtype``).  The other backends
+bf16: the ``pallas_alt`` state stores fmap1 and the fmap2 pyramid in
+``corr_dtype``, pooled in fp32 first and rounded after, and the lookup
+emits the compute dtype (``out_dtype``); with grad enabled it is the
+differentiable lookup in every dtype (bf16 training), under inference
+the kernel alone.  The other backends
 build and look up in fp32 and cast the features, as the JAX package's
 ``make_corr_fn`` does.  ``corr_lookup_epi`` is the lookup with the motion
 encoder's convc1 fused in (``ops.cuda_alt.alt_corr_epi``), for
@@ -189,15 +191,14 @@ def corr_lookup(state: CorrState, x: torch.Tensor, radius: int,
                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Correlation features at level-0 x-coordinates ``x`` (B, H, W1) by
     the state's backend: (B, H, W1, L*(2r+1)) in ``out_dtype``, channels
-    level-major, taps -r..r.  The fp32 on-demand lookup of fp32 feature
-    maps is differentiable through its backward kernel."""
+    level-major, taps -r..r.  With grad enabled the on-demand lookup is
+    differentiable through its backward kernel, in any dtype; the lookups
+    of the other backends are differentiable through autograd."""
     x = x.float().contiguous()
     if state.backend == "pallas_alt":
-        if out_dtype == torch.float32 and state.fmap1.dtype == torch.float32:
-            return alt_corr_autograd(state.fmap1, state.f2cat, state.widths,
-                                     x, radius)
-        return alt_corr(state.fmap1, state.f2cat, state.widths, x, radius,
-                        out_dtype)
+        lookup = alt_corr_autograd if torch.is_grad_enabled() else alt_corr
+        return lookup(state.fmap1, state.f2cat, state.widths, x, radius,
+                      out_dtype)
     if state.backend == "pallas":
         out = vol_lookup_autograd(state.vcat, state.widths, x, radius)
     elif state.backend == "reg":

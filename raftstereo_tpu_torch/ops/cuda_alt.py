@@ -24,6 +24,12 @@ per call at the training shapes, about 0.16 ms); one block of 32 warps
 per image row and 128-channel slice, which re-reads its slice of the
 row's fmaps through L1; deterministic, with no floating-point atomics;
 NaN and +-inf where the dense hat gives them (see the source's note).
+With bf16 feature maps (bf16 training) the backward's bf16 form rounds
+each pixel's scaled coefficient to bf16 once before both products, sums
+exact products in fp32 and writes bf16 gradients (about 267 MB per call
+at the training shapes, about 0.080 ms); a bf16 cotangent of fp32 maps
+is widened to fp32 (exact) and takes the fp32 form, as the TPU kernel
+widens it.
 
 The forward takes fp32 or bf16 feature maps and emits fp32 or bf16
 features (``out_dtype``), accumulating in fp32 and rounding once; the
@@ -246,14 +252,19 @@ def alt_corr_backward_plain(fmap1: torch.Tensor, f2cat: torch.Tensor,
     matmuls.  A NaN coordinate or cotangent makes that level's hat row
     NaN; an infinite cotangent makes it +-inf on the (at most two) columns
     its tap weights and NaN (inf * 0) on the others, as on the TPU.
-    g (B, H, W1, L*(2r+1)) ->
-    ``(df1, df2cat)`` shaped like fmap1 and f2cat."""
+    g (B, H, W1, L*(2r+1)), fp32 or bf16, is widened to fp32.  With bf16
+    feature maps, dm is rounded to bf16 before the products (fp32 sums of
+    exact products) and the gradients are rounded to bf16 once.  Returns
+    ``(df1, df2cat)`` shaped like fmap1 and f2cat, in their dtype."""
     c = fmap1.shape[-1]
     scale = 1.0 / float(c) ** 0.5
     k = 2 * radius + 1
     x = x.float()
     g = g.float()
-    df1 = torch.zeros_like(fmap1, dtype=torch.float32)
+    out_dtype = fmap1.dtype
+    bf16 = out_dtype == torch.bfloat16
+    fmap1, f2cat = fmap1.float(), f2cat.float()
+    df1 = torch.zeros_like(fmap1)
     parts = []
     off = 0
     for lvl, w2 in enumerate(widths):
@@ -269,28 +280,33 @@ def alt_corr_backward_plain(fmap1: torch.Tensor, f2cat: torch.Tensor,
             term = g[..., lvl * k + t, None] * w
             dm = term if dm is None else dm + term
         dm = dm * scale                                    # (B, H, W1, w2)
+        if bf16:
+            dm = dm.to(torch.bfloat16).float()
         f2 = f2cat[:, :, off:off + w2]
         df1 = df1 + torch.matmul(dm, f2)
         parts.append(torch.matmul(dm.transpose(-1, -2), fmap1))
         off += w2
-    return df1, torch.cat(parts, dim=2)
+    return df1.to(out_dtype), torch.cat(parts, dim=2).to(out_dtype)
 
 
 def alt_corr_backward(fmap1: torch.Tensor, f2cat: torch.Tensor,
                       widths: Sequence[int], x: torch.Tensor,
                       g: torch.Tensor, radius: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """VJP of ``alt_corr`` for the cotangent ``g``: the plain version for
-    CPU tensors, the CUDA kernel for CUDA tensors (counted in
-    ``alt_corr_backward.launches``).  Returns ``(df1, df2cat)``; two calls
-    on the same CUDA inputs are bitwise equal."""
+    """VJP of ``alt_corr`` for the cotangent ``g`` (fp32 or bf16, widened
+    to fp32): the plain version for CPU tensors, the CUDA kernel for CUDA
+    tensors (counted in ``alt_corr_backward.launches``), its bf16 form for
+    bf16 feature maps.  Returns ``(df1, df2cat)`` in the maps' dtype; two
+    calls on the same CUDA inputs are bitwise equal."""
     if all(t.device.type == "cpu" for t in (fmap1, f2cat, x, g)):
         return alt_corr_backward_plain(fmap1, f2cat, widths, x, g, radius)
     b, h, w1, c, widths = _check_cuda("alt_corr_backward", fmap1, f2cat,
-                                      widths, x, radius, extra=(g,))
-    if g.dtype != torch.float32:
-        raise ValueError(f"alt_corr_backward takes a float32 cotangent, not "
-                         f"{g.dtype}")
+                                      widths, x, radius, extra=(g,),
+                                      fmap_dtypes=_DTYPES)
+    if g.dtype not in _DTYPES:
+        raise ValueError(f"alt_corr_backward takes a float32 or bfloat16 "
+                         f"cotangent, not {g.dtype}")
+    g = g.float()  # exact; the kernel reads fp32, as the TPU kernel does
     nlev = len(widths)
     if g.shape != (b, h, w1, nlev * (2 * radius + 1)):
         raise ValueError(f"g {tuple(g.shape)} != "
@@ -303,7 +319,8 @@ def alt_corr_backward(fmap1: torch.Tensor, f2cat: torch.Tensor,
     df2 = torch.empty_like(f2cat)
     offs = [sum(widths[:i]) for i in range(nlev)]
     lib = _build.load("alt_corr_bwd")
-    fn = lib.alt_corr_backward
+    fn = (lib.alt_corr_backward_bf16 if fmap1.dtype == torch.bfloat16
+          else lib.alt_corr_backward)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_long]
                    + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
@@ -330,25 +347,28 @@ alt_corr_backward.launches = 0
 class _AltCorrFunction(torch.autograd.Function):
     """``alt_corr`` with ``alt_corr_backward`` as its VJP.  Saves fmap1,
     f2cat and x; x gets no gradient (the model detaches the disparity
-    before every lookup, and the JAX VJP returns zeros for it)."""
+    before every lookup, and the JAX VJP returns zeros for it).  The
+    output takes ``out_dtype``; the gradients take the maps' dtype."""
 
     @staticmethod
-    def forward(ctx, fmap1, f2cat, x, widths, radius):
+    def forward(ctx, fmap1, f2cat, x, widths, radius, out_dtype):
         ctx.save_for_backward(fmap1, f2cat, x)
         ctx.widths, ctx.radius = tuple(widths), radius
-        return alt_corr(fmap1, f2cat, widths, x, radius)
+        return alt_corr(fmap1, f2cat, widths, x, radius, out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         fmap1, f2cat, x = ctx.saved_tensors
         df1, df2 = alt_corr_backward(fmap1, f2cat, ctx.widths, x,
                                      g.contiguous(), ctx.radius)
-        return df1, df2, None, None, None
+        return df1, df2, None, None, None, None
 
 
 def alt_corr_autograd(fmap1: torch.Tensor, f2cat: torch.Tensor,
-                      widths: Sequence[int], x: torch.Tensor,
-                      radius: int) -> torch.Tensor:
-    """Differentiable ``alt_corr``: gradients reach fmap1 and f2cat
-    through ``alt_corr_backward``."""
-    return _AltCorrFunction.apply(fmap1, f2cat, x, tuple(widths), radius)
+                      widths: Sequence[int], x: torch.Tensor, radius: int,
+                      out_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """Differentiable ``alt_corr`` (fp32 or bf16 maps, fp32 or bf16 out):
+    gradients reach fmap1 and f2cat through ``alt_corr_backward``."""
+    return _AltCorrFunction.apply(fmap1, f2cat, x, tuple(widths), radius,
+                                  out_dtype)

@@ -5,6 +5,13 @@ The counterpart of the JAX package's ``train/step.py`` on one device.
 Adam count) when the loss or the gradient norm is not finite, and still
 advances the step and so the schedule; "abort" applies the update as
 computed and leaves the raise to the loop, as the JAX package does.
+
+Mixed precision (``compute_dtype="bfloat16"``) follows the JAX package's
+policy: the parameters and the AdamW moments stay fp32 and each module
+casts its parameters to bf16 at use, so their gradients come back fp32
+through the casts; the predictions are fp32 and ``sequence_loss`` is
+computed in fp32; there is no loss scaling, since bf16 has fp32's
+exponent range (``raftstereo_tpu/train/optim.py``'s note).
 """
 
 from __future__ import annotations

@@ -19,7 +19,8 @@ grows bf16's own rounding, so an unpinned model comparison lands as far
 from JAX as JAX in fp32 does.  So the encoders are held block by block,
 and the model test pins their outputs to JAX's and compares the rest of
 the forward after 2 iterations, with a stated tolerance that lies below
-the JAX package's own bf16-vs-fp32 gap on the same inputs.
+the JAX package's own bf16-vs-fp32 gap on the same inputs.  bf16
+training is held in ``test_torch_port_bf16_train.py``.
 """
 
 import jax
@@ -507,12 +508,6 @@ def test_cli_serve_mixed_precision(monkeypatch, capsys):
 def test_unported_bf16_combination_raises(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         RAFTStereo(RAFTStereoConfig(**TINY, **kw), device="cpu")
-
-
-def test_bf16_train_mode_raises_at_forward(bf16_port):
-    img = torch.zeros((1, 32, 48, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 3"):
-        bf16_port(img, img, iters=1, test_mode=False)
 
 
 @pytest.mark.parametrize("kw", [

@@ -1588,10 +1588,10 @@ def test_lookup_and_norm_ops_on_card_never_run_plain(dev, monkeypatch):
         alt_lookup.alt_corr_taps(f1.to(dev), f2[:, :9].contiguous().to(dev),
                                  taps[..., :9].contiguous().to(dev),
                                  (1,) * 9)
-    with pytest.raises(ValueError):  # a bf16 cotangent
+    with pytest.raises(ValueError):  # an fp16 cotangent
         alt_lookup.alt_corr_taps_backward(f1.to(dev), f2.to(dev),
                                           taps.to(dev),
-                                          taps.to(dev, torch.bfloat16),
+                                          taps.to(dev, torch.float16),
                                           (16, 8))
     with pytest.raises(ValueError):  # a non-contiguous tensor
         norm.in_stats(x.to(dev).transpose(2, 3))
@@ -1601,3 +1601,134 @@ def test_lookup_and_norm_ops_on_card_never_run_plain(dev, monkeypatch):
         norm.in_norm_cluster(x.to(dev).double())
     with pytest.raises(ValueError, match="beyond"):  # a 4 MB plane
         norm.in_norm_cluster(torch.zeros((1, 1, 1024, 1024), device=dev))
+
+
+# ------------------------------------------------- bf16 training, row 4
+
+def _bf16_bwd_check(k1, k2, want):
+    """Row 4's bf16 forms against their bf16 plain versions: bf16
+    gradients, two calls bitwise equal, NaN and +-inf where plain has
+    them, within one bf16 ulp of max(1, |plain|) and at least 99% of the
+    finite elements equal (fp32 sums in another order)."""
+    for a, b, w in zip(k1, k2, want):
+        assert a.dtype == w.dtype == torch.bfloat16
+        assert torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0))
+        assert torch.equal(a.isnan(), w.isnan())
+        assert torch.equal(a.isinf(), w.isinf())
+        ok = torch.isfinite(w)
+        assert _bf16_ulps(a[ok], w[ok]) <= 1.0
+        assert float((a[ok] == w[ok]).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("shape,levels,radius", [
+    ((2, 11, 20), 4, 4), ((6, 80, 180), 4, 4), ((1, 2, 4), 4, 2)],
+    ids=["hostile", "training", "zero_width_level"])
+def test_alt_corr_backward_bf16_kernel_matches_plain(dev, shape, levels,
+                                                     radius):
+    """Row 4 radial's bf16 form (bf16 maps, a bf16 cotangent, bf16
+    gradients) at a hostile shape (taps past both edges, a NaN coordinate,
+    an infinite cotangent), the training path's shape and a width-0 top
+    level."""
+    rng = np.random.default_rng(50)
+    st, x, g = _bwd_inputs(dev, rng, *shape, levels, radius,
+                           nan=shape[2] > 4)
+    st = build_corr_state(st.fmap1, st.f2cat[:, :, :shape[2]], levels,
+                          corr_dtype=torch.bfloat16)
+    g = g.to(torch.bfloat16)
+    if shape[2] > 4:
+        g[0, 1, 5, 3] = float("inf")
+    before = cuda_alt.alt_corr_backward.launches
+    k1, k2 = (cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x,
+                                         g, radius) for _ in range(2))
+    assert cuda_alt.alt_corr_backward.launches == before + 2
+    want = cuda_alt.alt_corr_backward_plain(st.fmap1, st.f2cat, st.widths, x,
+                                            g, radius)
+    torch.cuda.synchronize()
+    _bf16_bwd_check(k1, k2, want)
+
+
+def test_alt_corr_backward_bf16_cotangent_of_fp32_maps(dev):
+    """fp32 maps with a bf16 cotangent (``corr_dtype="float32"`` in a bf16
+    model): the cotangent is widened to fp32, exactly, and the fp32 form
+    runs: bitwise equal to it on the widened cotangent."""
+    rng = np.random.default_rng(51)
+    st, x, g = _bwd_inputs(dev, rng, 6, 80, 180, 4, 4, nan=True)
+    gb = g.to(torch.bfloat16)
+    got = cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x, gb, 4)
+    want = cuda_alt.alt_corr_backward(st.fmap1, st.f2cat, st.widths, x,
+                                      gb.float(), 4)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32
+        assert torch.equal(a.nan_to_num(7.0), w.nan_to_num(7.0))
+
+
+@pytest.mark.parametrize("n,w1,widths,c,repeat", [
+    (11, 20, (20, 10, 5, 2), 256, False), (11, 20, (20, 10, 5, 2), 256, True),
+    (480, 180, (180, 90, 45, 22), 256, False),
+    (11, 20, (20, 10, 5, 2), 200, True)],
+    ids=["hostile", "repeat", "training", "c200"])
+def test_alt_corr_taps_backward_bf16_kernel_matches_plain(dev, n, w1, widths,
+                                                          c, repeat):
+    """Row 4 general's bf16 form: bf16 maps and cotangent, bf16 gradients.
+    ``repeat``: taps 4-6 of each level repeat taps 1-3 (non-consecutive
+    taps on the same columns), so a pixel's coefficient on a column is a
+    sum over taps that must be complete before it is rounded.  C=200 is
+    zero-padded to the kernel's 256."""
+    from raftstereo_tpu_torch.ops import alt_lookup
+
+    rng = np.random.default_rng(52)
+    f1, f2, taps = _taps_inputs(dev, rng, n, w1, widths, 9, torch.bfloat16,
+                                c)
+    if repeat:
+        for lvl in range(len(widths)):
+            taps[..., lvl * 9 + 4:lvl * 9 + 7] = taps[..., lvl * 9 + 1:
+                                                      lvl * 9 + 4]
+    g = _randn(rng, *taps.shape).to(dev, torch.bfloat16)
+    g[1, 3, 20] = float("inf")
+    before = alt_lookup.alt_corr_taps_backward.launches
+    k1, k2 = (alt_lookup.alt_corr_taps_backward(f1, f2, taps, g, widths)
+              for _ in range(2))
+    assert alt_lookup.alt_corr_taps_backward.launches == before + 2
+    want = alt_lookup.alt_corr_taps_backward_plain(f1, f2, taps, g, widths)
+    torch.cuda.synchronize()
+    _bf16_bwd_check(k1, k2, want)
+
+
+@pytest.mark.parametrize("corr_dtype", ["bfloat16", "float32"])
+def test_bf16_training_on_card_never_runs_plain(dev, corr_dtype,
+                                                monkeypatch):
+    """A bf16 train-mode step on the card with the lookup's and its
+    backward's plain versions patched to raise: one lookup and one
+    backward kernel per iteration, finite bf16 predictions' loss and fp32
+    gradients."""
+    from raftstereo_tpu_torch.train.loss import sequence_loss
+
+    cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                           corr_levels=2, corr_radius=2,
+                           compute_dtype="bfloat16", corr_dtype=corr_dtype)
+    m = RAFTStereo(cfg, device=dev, seed=4)
+    rng = np.random.default_rng(53)
+    imgs = [torch.from_numpy(rng.uniform(0, 255, (1, 32, 48, 3))
+                             .astype(np.float32)).to(dev) for _ in range(2)]
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    for name in ("alt_corr_plain", "alt_corr_backward_plain"):
+        monkeypatch.setattr(cuda_alt, name, boom)
+    fns = (cuda_alt.alt_corr, cuda_alt.alt_corr_backward,
+           cuda_alt.alt_corr_epi)
+    for f in fns:
+        f.launches = 0
+    preds = m(*imgs, iters=3, test_mode=False)
+    loss, _ = sequence_loss(preds, -10 * torch.ones((1, 32, 48, 1),
+                                                    device=dev),
+                            torch.ones((1, 32, 48), device=dev))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [3, 3, 0]
+    assert torch.isfinite(loss)
+    for k, p in m.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, k
+        assert bool(torch.isfinite(p.grad).all()), k

@@ -186,7 +186,8 @@ def test_lookup_backward_kernel_contract_on_cpu():
     """The wrappers take the plain versions for CPU tensors; an infinite
     cotangent makes its pixel's df1 NaN and its row's level of df2
     non-finite (the dense hat's inf * 0), an infinite tap weights nothing;
-    bf16 feature maps have no gradient yet."""
+    bf16 feature maps take their gradient in bf16 (the backward's bf16
+    form, ``tests/test_torch_port_bf16_train.py``)."""
     rng = np.random.default_rng(3)
     f1, f2 = (torch.from_numpy(a).reshape(4, -1, 16)
               for a in _pyramid(rng, 2, 2, 8, 16, (8, 4), 0))
@@ -201,12 +202,12 @@ def test_lookup_backward_kernel_contract_on_cpu():
     assert torch.isfinite(df2[3, :8]).all() and torch.isfinite(df2[:3]).all()
     out = talt.alt_corr_taps(f1, f2, taps, (8, 4))
     assert out[0, 1, 0] == 0.0
+    b1 = f1.bfloat16().requires_grad_(True)
     bf = talt.pallas_alt_pyramid_flat(
-        f1.bfloat16().requires_grad_(True), f2.bfloat16(),
-        taps.reshape(2, 2, 8, 10), (8, 4))
-    with pytest.raises(NotImplementedError,
-                       match="Queue 1 item 3 \\(bf16 training"):
-        bf.float().sum().backward()
+        b1, f2.bfloat16(), taps.reshape(2, 2, 8, 10), (8, 4))
+    bf.float().sum().backward()
+    assert b1.grad.dtype == torch.bfloat16 and b1.grad.shape == b1.shape
+    assert torch.isfinite(b1.grad).all()
 
 
 # ------------------------------------------------------------ instance norm

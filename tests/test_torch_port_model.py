@@ -187,15 +187,16 @@ def test_forward_variant_matches_jax(variant, hw):
 @pytest.mark.parametrize("field,value", [
     ("corr_dtype", "bfloat16"), ("corr_precision", "high"),
     ("corr_precision", "default"),
-    ("compute_dtype", "bfloat16"), ("shared_backbone", True),
+    ("compute_dtype", "float16"), ("shared_backbone", True),
     ("input_mode", "sl"), ("spatial_shards", 2), ("context_norm", "group"),
     ("context_norm", "none"), ("slow_fast_gru", True)])
 def test_unported_config_raises(field, value):
     """Every listed value is refused, naming its ROADMAP item, by the
-    constructor or at the latest by a train-mode forward.  The two dtype
-    cases are refusals of the bf16 slice: bf16 correlation at fp32
-    compute (the constructor) and bf16 training (the train-mode forward);
-    the other bf16 refusals are in ``test_torch_port_bf16.py``."""
+    constructor or at the latest by a train-mode forward.  The dtype
+    cases: bf16 correlation at fp32 compute (a refusal of the bf16 paths)
+    and fp16 compute (no path; bf16 trains since the bf16 training slice);
+    the other bf16 refusals are in ``test_torch_port_bf16.py`` and
+    ``test_torch_port_bf16_train.py``."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         model = RAFTStereo(RAFTStereoConfig(**{field: value}), device="cpu")
         img = torch.zeros((1, 32, 48, 3))
