@@ -126,7 +126,30 @@ random and smooth taps; the bf16 op path's backward also launches it);
 losses, step walls and peak memory beside the fp32 training path's; (25)
 one 64x96 bf16 step card vs CPU for each correlation dtype, the card's
 encoder outputs pinned in both, within a share of the CPU's
-bf16-vs-fp32 distance.  Prints
+bf16-vs-fp32 distance.  Then the accuracy tiers
+(``compute_dtype``/``corr_dtype`` bf16 with the ``pallas`` volume, and
+``corr_quant``, the int8 tier): (26) hold rows 5 and 7's bf16 forms
+against their plain versions, bitwise, timed: row 7 with a bf16 volume at
+the serving shape (``serve_turbo``), row 5 over the bf16 volume pyramid
+at the serving shape on the random and smooth fields
+(``serve_bf16_pallas``, ``serve_bf16_pallas_smooth``; the jump field
+held), over the int8 tier's pyramid (``serve_turbo``) and at the
+training op shape (``op_vol_bf16``, one counted launch a lookup), both
+also on hostile inputs (bf16 rows at every 2-byte shift, ragged int8
+tiles); (27) serve three requests on each of ``serve_bf16_pallas`` (32
+bf16 volume lookups and 32 updates a request) and ``serve_turbo`` (one
+bf16 int8 volume, 32 lookups, 32 updates), bitwise equal to direct engine
+calls, and hold each card forward against the CPU's with the encoder
+outputs (and the int8 codes) pinned; (28) certify the ``fast`` and
+``turbo`` tiers of the fp32 flagship with ``cli.certify`` on the card
+(explicit bounds, ``TIER_BOUNDS``; the measured deltas printed), then
+serve them with ``--tiers certified fast turbo --cert_manifest``: three
+requests each with no ``accuracy`` and with each tier, every reply
+bitwise equal to a direct engine call in its mode (no ``accuracy`` and
+``certified`` to the base model's), each tier's launches exact
+(``TIER_PER_REQUEST``), each tier's ``meta.latency_ms`` printed; an
+unknown tier and a tier held over its bound by a second manifest are
+400s.  Prints
 a ``{"kernels": [...]}`` line, one row per kernel and path (the path's
 launches beside the times and bound at its shapes), and, last,
 ``{"ok": true, "device": ...}``.
@@ -150,6 +173,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -245,6 +269,20 @@ TRAIN_BF16_STEPS = 3
 # 1.1e-4-1.6e-3 and sat at 0.13-0.43 of that distance, over three seeds
 # and both correlation dtypes.
 BF16_STEP_LOSS_TOL, BF16_STEP_SHARE = 5e-3, 0.7
+# The accuracy tiers: certification on the synthetic set at the JAX
+# package's defaults (256x320, 4 pairs, 16 iterations), with explicit
+# bounds: the smoke's random-weight flagship diverges (PERF.md section 5),
+# so its deltas may exceed the JAX package's DEFAULT_BOUNDS (fast 0.5 px,
+# turbo 1.0 px), which are for trained weights.  What the gate does is
+# shown by a second manifest that holds turbo over its bound.  Per-request
+# launches of each tier on the fp32 pallas_alt + fused-update base.
+TIER_CERT = ((256, 320), 4, 16)
+TIER_BOUNDS = {"fast": 1000.0, "turbo": 1000.0}
+TIER_PER_REQUEST = {
+    "default": dict(alt_corr=ITERS, gru_update=ITERS),
+    "certified": dict(alt_corr=ITERS, gru_update=ITERS),
+    "fast": dict(alt_corr=ITERS, gru_update=ITERS),
+    "turbo": dict(int8_corr_volume=1, vol_lookup=ITERS, gru_update=ITERS)}
 # The evaluation path: a synthetic KITTI tree at KITTI's resolution, the
 # flagship model at 32 iterations; a tiled demo pair in 2x3 tiles.
 KITTI_HW, KITTI_PAIRS = (375, 1242), 10
@@ -345,6 +383,27 @@ def post_predict(port: int, left: np.ndarray, right: np.ndarray) -> dict:
     with urllib.request.urlopen(req, timeout=600) as r:
         check(r.status == 200, f"/predict answered {r.status}")
         return json.loads(r.read())
+
+
+def post_tier(port: int, left: np.ndarray, right: np.ndarray,
+              accuracy=None):
+    """``/predict`` with an optional ``accuracy`` tier: (status, reply)."""
+    def arr(a):
+        return {"shape": list(a.shape), "dtype": "float32",
+                "data_b64": base64.b64encode(a.tobytes()).decode("ascii")}
+
+    obj = {"left": arr(left), "right": arr(right), "iters": ITERS}
+    if accuracy is not None:
+        obj["accuracy"] = accuracy
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                 data=json.dumps(obj).encode(),
+                                 method="POST",
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
 
 
 def lookup_row(state, x, r, path, torch):
@@ -1097,6 +1156,40 @@ def same_bits(a, b, torch) -> bool:
             and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))
 
 
+def grid_samplers(vcat, widths, x, r, torch, grad=False):
+    """One PyTorch call per level for the volume lookup: the upstream
+    RAFT-Stereo ``bilinear_sampler``, ``F.grid_sample`` of the level's 1-D
+    volume rows (B*H*W1, 1, 1, w) at the 2r+1 taps, align_corners, zero
+    padding, in the volume's dtype (the grid too).  Returns per level
+    (volume, grid), the volume a leaf that requires grad with ``grad``,
+    and the calls."""
+    import torch.nn.functional as F
+
+    out, off = [], 0
+    for lvl, w in enumerate(widths):
+        v = vcat[..., off:off + w].reshape(-1, 1, 1, w).clone()
+        taps = (x.reshape(-1, 1) / 2 ** lvl
+                + torch.arange(-r, r + 1, device=x.device))
+        gx = 2.0 * taps / max(w - 1, 1) - 1.0
+        grid = torch.stack([gx, torch.zeros_like(gx)], -1)[:, None]
+        out.append((v.requires_grad_(grad), grid.to(v.dtype)))
+        off += w
+    return out, [lambda v=v, gr=gr: F.grid_sample(v, gr, align_corners=True)
+                 for v, gr in out]
+
+
+def needed_columns(x, widths, r, torch) -> int:
+    """(pixel, level, column) entries inside the level that the taps
+    weight: columns floor(x_l) - r .. floor(x_l) + r + 1."""
+    n = 0
+    for lvl, w in enumerate(widths):
+        b0 = torch.floor(x / 2 ** lvl) - r
+        for d in range(2 * r + 2):
+            j = b0 + d
+            n += int(((j >= 0) & (j <= w - 1)).sum())
+    return n
+
+
 def volume_kernel_phase(cfg, lo_hw, torch):
     """The precomputed-volume kernels against their plain versions at the
     serving and training shapes, bitwise; one timed row per kernel and
@@ -1133,36 +1226,7 @@ def volume_kernel_phase(cfg, lo_hw, torch):
                     library_ms=lib_ms)
 
     def sampler(vcat, widths, x, grad=False):
-        """One PyTorch call per level for the same lookup: the upstream
-        RAFT-Stereo ``bilinear_sampler``, ``F.grid_sample`` of the level's
-        1-D volume rows (B*H*W1, 1, 1, w) at the 2r+1 taps, align_corners,
-        zero padding.  Returns per level (volume, grid), the volume a leaf
-        that requires grad with ``grad``."""
-        import torch.nn.functional as F
-
-        out, off = [], 0
-        for lvl, w in enumerate(widths):
-            v = vcat[..., off:off + w].reshape(-1, 1, 1, w).clone()
-            taps = (x.reshape(-1, 1) / 2 ** lvl
-                    + torch.arange(-r, r + 1, device=dev))
-            gx = 2.0 * taps / max(w - 1, 1) - 1.0
-            grid = torch.stack([gx, torch.zeros_like(gx)], -1)[:, None]
-            out.append((v.requires_grad_(grad), grid))
-            off += w
-        return out, [lambda v=v, gr=gr: F.grid_sample(v, gr,
-                                                      align_corners=True)
-                     for v, gr in out]
-
-    def needed_columns(x, widths):
-        """(pixel, level, column) entries inside the level that the taps
-        weight: columns floor(x_l) - r .. floor(x_l) + r + 1."""
-        n = 0
-        for lvl, w in enumerate(widths):
-            b0 = torch.floor(x / 2 ** lvl) - r
-            for d in range(k + 1):
-                j = b0 + d
-                n += int(((j >= 0) & (j <= w - 1)).sum())
-        return n
+        return grid_samplers(vcat, widths, x, r, torch, grad)
 
     rows = []
     for path, (b, h, w) in (("serve_pallas", (1,) + tuple(lo_hw)),
@@ -1194,7 +1258,7 @@ def volume_kernel_phase(cfg, lo_hw, torch):
         nout = got.numel()
         rows.append(timed(
             "vol_lookup", path, kern, plain,
-            4 * (needed_columns(x, st.widths) + x.numel() + nout),
+            4 * (needed_columns(x, st.widths, r, torch) + x.numel() + nout),
             8 * nout, lib=lambda: [f() for f in calls]))
         if path != "train_pallas":
             continue
@@ -1369,6 +1433,174 @@ def vol_bwd_nonfinite_hold(x, gout, widths, r, torch) -> None:
     check(same and bool(want.isinf().any()),
           "vol_lookup_bwd differs from its plain version on non-finite "
           "inputs")
+
+
+def vol_bf16_kernel_phase(cfg, lo_hw, torch):
+    """Rows 5 and 7's bf16 forms against their plain versions, bitwise,
+    timed, one row per kernel and path: row 7 with a bf16 volume at the
+    serving shape (path ``serve_turbo``), row 5 over the bf16 volume
+    pyramid at the serving shape on the random and the smooth field
+    (``serve_bf16_pallas``, ``serve_bf16_pallas_smooth``; the jump field
+    held), over the int8 tier's bf16 pyramid (``serve_turbo``) and at the
+    training op shape (``op_vol_bf16``); both also on hostile inputs.
+    Returns the rows and the op path's launches."""
+    from raftstereo_tpu_torch.ops import cuda_vol, quant
+    from raftstereo_tpu_torch.ops.corr import build_corr_state, corr_lookup
+
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(12)
+    c, r, levels = 256, cfg.corr_radius, cfg.corr_levels
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    def coords(b, h, w):
+        return (torch.arange(w, device=dev, dtype=torch.float32)
+                - 60.0 * torch.rand((b, h, w), generator=g).to(dev)
+                ).contiguous()
+
+    def row(name, path, kern, plain, nbytes, flops, lib, int8_ops=0.0,
+            reps=20):
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        ok = int_bits(got.float(), want.float(), torch) and int_bits(
+            got.float(), again.float(), torch)
+        print(f"{name} ({path}, {dims(got)} {got.dtype}): bitwise equal to "
+              f"its plain version and repeatable: {ok}")
+        check(ok, f"{name} ({path}) differs from its plain version")
+        ms, plain_ms, lib_ms = (time_ms(kern, reps), time_ms(plain, 5),
+                                time_ms(lib, 5))
+        bound_ms, bound_by = bound(nbytes, flops, int8_ops)
+        print(f"{name} ({path}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}, "
+              f"{nbytes / 1e6:.2f} MB) [{CARD}]")
+        src, replaces = VOLUME_SITES[name]
+        return dict(name=name, path=path, route="cuda",
+                    source=f"raftstereo_tpu_torch/csrc/{src}.cu",
+                    replaces=replaces, dtype="bfloat16", max_abs_err=0.0,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=lib_ms)
+
+    rows = []
+    # -- row 7 with a bf16 volume at the serving shape
+    h, w = lo_hw
+    q1, s1 = quant.quantize_rows(randn(1, h, w, c))
+    q2, s2 = quant.quantize_rows(randn(1, h, w, c))
+    fp32 = quant.int8_corr_volume(q1, s1, q2, s2)
+    vol = quant.int8_corr_volume(q1, s1, q2, s2, out_dtype=bf)
+    torch.cuda.synchronize()
+    check(torch.equal(vol.view(torch.int16), fp32.to(bf).view(torch.int16)),
+          "int8_volume's bf16 form is not its fp32 form rounded once")
+    print(f"int8_volume bf16 sha256 {digest(vol.view(torch.int16))}, fp32 "
+          f"sha256 {digest(fp32)}")
+    rows.append(row(
+        "int8_volume", "serve_turbo",
+        lambda: quant.int8_corr_volume(q1, s1, q2, s2, out_dtype=bf),
+        lambda: quant.int8_volume_plain(q1, s1, q2, s2, out_dtype=bf),
+        q1.numel() + q2.numel() + 4 * (s1.numel() + s2.numel())
+        + 2 * vol.numel(), 3 * vol.numel(),
+        lambda: [torch._int_mm(q1[0, y], q2[0, y].t()) for y in range(h)],
+        int8_ops=2 * vol.numel() * c))
+    del fp32, vol
+
+    # -- row 5 over bf16 pyramids
+    def lookup_row(path, vcat, widths, x):
+        _, calls = grid_samplers(vcat, widths, x, r, torch)
+        nout = x.numel() * len(widths) * (2 * r + 1)
+        return row("vol_lookup", path,
+                   lambda: cuda_vol.vol_lookup(vcat, widths, x, r),
+                   lambda: cuda_vol.vol_lookup_plain(vcat, widths, x, r),
+                   2 * needed_columns(x, widths, r, torch)
+                   + 4 * (x.numel() + nout), 8 * nout,
+                   lambda: [f() for f in calls])
+
+    st = build_corr_state(randn(1, h, w, c), randn(1, h, w, c), levels,
+                          "pallas", corr_dtype=bf)
+    check(st.vcat.dtype == bf, "the bf16 pallas state is not bf16")
+    rows.append(lookup_row("serve_bf16_pallas", st.vcat, st.widths,
+                           coords(1, h, w)))
+    rows.append(lookup_row("serve_bf16_pallas_smooth", st.vcat, st.widths,
+                           smooth_field(1, h, w, torch)))
+    xj = jump_field(1, h, w, torch)
+    ok = int_bits(cuda_vol.vol_lookup(st.vcat, st.widths, xj, r),
+                  cuda_vol.vol_lookup_plain(st.vcat, st.widths, xj, r), torch)
+    print(f"vol_lookup (jump field, bf16 volume): bitwise equal to plain: "
+          f"{ok}")
+    check(ok, "vol_lookup's bf16 form differs from plain on the jump field")
+    qst = build_corr_state(randn(1, h, w, c), randn(1, h, w, c), levels,
+                           "pallas", quant=True, corr_dtype=bf)
+    rows.append(lookup_row("serve_turbo", qst.vcat, qst.widths,
+                           coords(1, h, w)))
+    del st, qst
+    b, th, tw = (TRAIN_BATCH, TRAIN_HW[0] // cfg.factor,
+                 TRAIN_HW[1] // cfg.factor)
+    ost = build_corr_state(randn(b, th, tw, c), randn(b, th, tw, c), levels,
+                           "pallas", corr_dtype=bf)
+    xo = coords(b, th, tw)
+    rows.append(lookup_row("op_vol_bf16", ost.vcat, ost.widths, xo))
+    # the op path: one corr_lookup over the bf16 state, counted
+    cuda_vol.vol_lookup.launches = 0
+    feats = corr_lookup(ost, xo, r, bf)
+    torch.cuda.synchronize()
+    op_launches = {"vol_lookup": cuda_vol.vol_lookup.launches}
+    check(op_launches == {"vol_lookup": 1} and feats.dtype == bf,
+          f"corr_lookup over the bf16 state launched {op_launches}")
+    del ost, feats
+    torch.cuda.empty_cache()
+    vol_bf16_hostile_hold(torch)
+    return rows, {"op_vol_bf16": op_launches}
+
+
+def vol_bf16_hostile_hold(torch) -> None:
+    """Row 5 over bf16 volumes whose rows start at every 2-byte shift of
+    a 16-byte chunk (the barrel shifter's every stage), on the hostile
+    coordinates of ``vol_fwd_hostile_hold``; row 7's bf16 form at ragged
+    W2 (9, 130: scalar stores) and W1 (241) with the full int8 range:
+    bitwise equal to plain and to a second call."""
+    from raftstereo_tpu_torch.ops import cuda_vol, quant
+
+    g = torch.Generator().manual_seed(15)
+    bf = torch.bfloat16
+    b, h, w1 = 2, 5, 64
+    for widths, r in (((64, 32, 16, 8), 4), ((64, 32, 0, 8), 2),
+                      ((64, 32, 16, 8, 4, 2, 1, 0), 8)):
+        w2 = sum(widths)
+        x = torch.arange(w1) - 40.0 * torch.rand((b, h, w1), generator=g)
+        x[0, 0, :14] = torch.tensor(
+            [float("nan"), float("inf"), -float("inf"), 1e30, -1e30,
+             127.99999, 0.99999994, 63.99999, 2.0 ** 24 + 2, -200.5,
+             w1 + 300.25, r + 0.5, -r - 1.0000001, 31.999998])
+        x[0, 1] = torch.arange(w1) * 0.5 - 8.0
+        x = x.cuda().contiguous()
+        base = torch.randn(b * h * w1 * w2 + 8, generator=g).cuda().to(bf)
+        for shift in range(8):
+            vcat = base[shift:shift + b * h * w1 * w2].view(b, h, w1, w2)
+            k1, k2 = (cuda_vol.vol_lookup(vcat, widths, x, r) for _ in "ab")
+            want = cuda_vol.vol_lookup_plain(vcat, widths, x, r)
+            torch.cuda.synchronize()
+            check(int_bits(k1, want, torch) and int_bits(k1, k2, torch),
+                  f"vol_lookup's bf16 form differs from plain on hostile "
+                  f"inputs (widths {widths}, radius {r}, shift {shift})")
+    print("vol_lookup (hostile, bf16 volume at shifts 0..7): bitwise equal "
+          "to plain and repeatable: True")
+    for w1, w2, c in ((9, 9, 16), (130, 130, 48), (241, 130, 16),
+                      (48, 240, 272)):
+        q1, q2 = (torch.randint(-128, 128, (1, 3, w, c), generator=g,
+                                dtype=torch.int8) for w in (w1, w2))
+        s1, s2 = (0.001 + 0.1 * torch.rand((1, 3, w), generator=g)
+                  for w in (w1, w2))
+        q1, q2, s1, s2 = (t.cuda() for t in (q1, q2, s1, s2))
+        k1, k2 = (quant.int8_corr_volume(q1, s1, q2, s2, out_dtype=bf)
+                  for _ in "ab")
+        want = quant.int8_volume_plain(q1, s1, q2, s2, out_dtype=bf)
+        torch.cuda.synchronize()
+        check(torch.equal(k1.view(torch.int16), want.view(torch.int16))
+              and torch.equal(k1.view(torch.int16), k2.view(torch.int16)),
+              f"int8_volume's bf16 form differs from plain (W1 {w1}, W2 "
+              f"{w2}, C {c})")
+    print("int8_volume (hostile, bf16 volume, ragged W1/W2, C 16..272): "
+          "bitwise equal to plain and repeatable: True")
 
 
 def ulps(got, want) -> float:
@@ -1604,10 +1836,12 @@ def bf16_forward_card_vs_cpu(model, rng, torch):
     over its channel, and the random-weight GRU grows that noise as fast
     as bf16's own rounding.  Pinned, what is compared is the rest of the
     forward: the context convs, the bf16 correlation state, every
-    iteration's kernels and the upsampling.  The gap of the CPU's bf16
-    forward to its fp32 one (unpinned) is printed beside the tolerance,
-    which must lie below it."""
+    iteration's kernels and the upsampling.  With ``corr_quant`` the
+    card's int8 codes and scales are pinned too (``quant_forwards``'s
+    reason).  The gap of the CPU's bf16 forward to its fp32 one (unpinned)
+    is printed beside the tolerance, which must lie below it."""
     from raftstereo_tpu_torch import RAFTStereo
+    from raftstereo_tpu_torch.ops import quant
 
     cfg = model.config
     cpu_model = copy.deepcopy(model).to("cpu")
@@ -1616,20 +1850,29 @@ def bf16_forward_card_vs_cpu(model, rng, torch):
     f32_model.load_state_dict(cpu_model.state_dict())
     i1, i2 = (torch.from_numpy(rng.uniform(0, 255, (1, 64, 96, 3))
                                .astype(np.float32)) for _ in range(2))
-    seen = {}
+    seen, codes, real = {}, [], quant.quantize_rows
     cnet, fnet = model.cnet.forward, model.fnet.forward
     model.cnet.forward = lambda x: seen.setdefault("cnet", cnet(x))
     model.fnet.forward = lambda x: seen.setdefault("fnet", fnet(x))
+    quant.quantize_rows = lambda x: codes.append(real(x)) or codes[-1]
     try:
         lo_g, up_g = model(i1.cuda(), i2.cuda(), iters=BF16_ITERS)
     finally:
         del model.cnet.forward, model.fnet.forward
+        quant.quantize_rows = real
     cpu_model.cnet.forward = lambda x: [[t.cpu() for t in lvl]
                                         for lvl in seen["cnet"]]
     cpu_model.fnet.forward = lambda x: seen["fnet"].cpu()
-    lo_c, up_c = cpu_model(i1, i2, iters=BF16_ITERS)
+    pinned = iter([tuple(t.cpu() for t in c) for c in codes])
+    quant.quantize_rows = lambda x: next(pinned)
+    try:
+        lo_c, up_c = cpu_model(i1, i2, iters=BF16_ITERS)
+    finally:
+        quant.quantize_rows = real
+    check(len(codes) == 2 * cfg.corr_quant, f"{len(codes)} quantized maps")
     lo_f, up_f = f32_model(i1, i2, iters=BF16_ITERS)
-    tag = f"bf16 {cfg.corr_dtype} corr, {cfg.gru_backend} GRU "
+    tag = (f"bf16 {cfg.corr_dtype} {cfg.corr_implementation} corr"
+           f"{' corr_quant' * cfg.corr_quant}, {cfg.gru_backend} GRU ")
     for name, a, b, f, tol in (
             ("low-res", lo_g.cpu(), lo_c, lo_f, BF16_FORWARD_TOL[0]),
             ("full-res", up_g.cpu(), up_c, up_f, BF16_FORWARD_TOL[1])):
@@ -1684,6 +1927,119 @@ def serve_phase(model, scfg, pairs, torch):
         check(np.array_equal(disp, direct),
               "reply differs from a direct engine call")
     print("replies finite and bitwise equal to direct engine calls")
+    return launches
+
+
+def serve_tiers_phase(model, scfg, pairs, torch):
+    """The accuracy tiers through the port's entry points on the card:
+    ``cli.certify`` measures the ``fast`` and ``turbo`` EPE deltas of the
+    flagship (random weights, so with the explicit ``TIER_BOUNDS``), then
+    a server built with ``--tiers certified fast turbo`` and that manifest
+    serves each request with no ``accuracy`` and with each tier.  Each
+    reply is bitwise a direct engine call in its mode; no ``accuracy`` and
+    ``certified`` give the fp32 base's bits; each request launches its
+    tier's kernels (``TIER_PER_REQUEST``).  An unknown tier is a 400, and
+    so is ``turbo`` under a second manifest that holds it over its bound.
+    Returns the launches per tier over its requests."""
+    from raftstereo_tpu_torch.cli import certify as cli_certify
+    from raftstereo_tpu_torch.serve.server import build_server, decode_array
+
+    cfg = model.config
+    flags = ["--device", "cuda", "--corr_implementation",
+             cfg.corr_implementation, "--gru_backend", cfg.gru_backend,
+             "--cert_height", str(TIER_CERT[0][0]), "--cert_width",
+             str(TIER_CERT[0][1]), "--cert_pairs", str(TIER_CERT[1]),
+             "--cert_iters", str(TIER_CERT[2])]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path, over = os.path.join(tmp, "cert.json"), os.path.join(
+            tmp, "over.json")
+        t0 = time.perf_counter()
+        rc = cli_certify.main(flags + ["--out", path, "--tiers", "fast",
+                                       "turbo", "--bound"] + [
+            f"{t}={b}" for t, b in TIER_BOUNDS.items()])
+        with open(path) as f:
+            manifest = json.load(f)
+        deltas = {t: e["epe_delta"] for t, e in manifest["tiers"].items()}
+        print(f"certify: rc {rc} in {time.perf_counter() - t0:.1f}s, "
+              f"platform {manifest['platform']}, epe_ref "
+              f"{manifest['eval']['epe_ref']}, epe deltas {deltas} (bounds "
+              f"{TIER_BOUNDS}) [{CARD}]")
+        check(rc == 0 and all(e["certified"]
+                              for e in manifest["tiers"].values()),
+              f"certify refused a tier: {manifest['tiers']}")
+        check(manifest["platform"]["device"] == "cuda",
+              f"manifest platform {manifest['platform']}")
+        rc = cli_certify.main(flags + ["--out", over, "--tiers", "turbo",
+                                       "--bound",
+                                       f"turbo={deltas['turbo'] - 1.0}"])
+        check(rc == 1, f"certify over its bound exited {rc}")
+        tiers = ("certified", "fast", "turbo")
+        t0 = time.perf_counter()
+        server = build_server(model, dataclasses.replace(
+            scfg, tiers=tiers, cert_manifest=path), device="cuda")
+        print(f"tier server warm in {time.perf_counter() - t0:.1f}s: "
+              f"advertised {server.tiers}, refused {server.tier_reasons}")
+        check(server.tiers == {"certified": "fp32", "fast": "bf16",
+                               "turbo": "int8"}, f"tiers {server.tiers}")
+        refusing = build_server(model, dataclasses.replace(
+            scfg, tiers=("certified", "turbo"), cert_manifest=over),
+            device="cuda", warmup=False)
+        server.start()
+        refusing.start()
+        counted = serving_wrappers()
+        try:
+            for accuracy in (None,) + tiers:
+                lat, got = [], {}
+                for left, right in pairs:
+                    for fn in counted:
+                        fn.launches = 0
+                    status, rep = post_tier(server.port, left, right,
+                                            accuracy)
+                    for fn in counted:
+                        if fn.launches:
+                            got[fn.__name__] = (got.get(fn.__name__, 0)
+                                                + fn.launches)
+                    check(status == 200, f"{accuracy}: {status} {rep}")
+                    check(rep["meta"].get("accuracy") == accuracy,
+                          f"meta {rep['meta']}")
+                    lat.append(rep["meta"]["latency_ms"])
+                    disp = decode_array(rep["disparity"])
+                    (direct,) = server.engine.infer_batch(
+                        [(left, right)], ITERS,
+                        mode=server.mode_of(accuracy))
+                    check(disp.shape == IMAGE_HW
+                          and bool(np.isfinite(disp).all()),
+                          f"{accuracy}: reply {disp.shape}")
+                    check(np.array_equal(disp, direct),
+                          f"{accuracy}: reply differs from a direct engine "
+                          f"call in its mode")
+                    if accuracy in (None, "certified"):
+                        (base,) = server.engine.infer_batch(
+                            [(left, right)], ITERS)
+                        check(np.array_equal(disp, base),
+                              f"{accuracy}: not the base model's bits")
+                launches[accuracy or "default"] = got
+                print(f"tier {accuracy or '(none)'}: meta.latency_ms "
+                      f"{[round(v, 3) for v in lat]} launches "
+                      f"{launches[accuracy or 'default']} [{CARD}]")
+            left, right = pairs[0]
+            status, rep = post_tier(server.port, left, right, "ultra")
+            check(status == 400 and "unknown accuracy tier" in rep["error"],
+                  f"unknown tier: {status} {rep}")
+            status, rep = post_tier(refusing.port, left, right, "turbo")
+            print(f"turbo under the over-bound manifest: {status} "
+                  f"{rep['error']}")
+            check(status == 400 and "over bound" in rep["error"],
+                  f"over-bound tier: {status} {rep}")
+        finally:
+            for srv in (server, refusing):
+                srv.shutdown()
+                srv.server_close()
+    for tier, per_request in TIER_PER_REQUEST.items():
+        want = {k: v * len(pairs) for k, v in per_request.items()}
+        check(launches[tier] == want, f"tier {tier}: launches "
+                                      f"{launches[tier]}, want {want}")
     return launches
 
 
@@ -2688,6 +3044,8 @@ def main() -> int:
     rows += volume_kernel_phase(cfg, lo_hw, torch)
     rows += bf16_kernel_phase(model, lo_hw, torch)
     rows += bf16_backward_phase(model, torch)
+    vol_rows, op_vol_launches = vol_bf16_kernel_phase(cfg, lo_hw, torch)
+    rows += vol_rows
 
     def want(**per_request):
         return {fn.__name__: REQUESTS * per_request.get(fn.__name__, 0)
@@ -2718,7 +3076,7 @@ def main() -> int:
     # the bf16 paths' card-vs-CPU pairs come from their own generators:
     # the earlier phases' inputs stay as they were.
     vol_rng, bf16_rng = np.random.default_rng(1), np.random.default_rng(2)
-    ds3_rng = np.random.default_rng(3)
+    ds3_rng, tier_rng = np.random.default_rng(3), np.random.default_rng(4)
     bf16 = dict(compute_dtype="bfloat16", corr_dtype="bfloat16")
     for path, kw, per_request, r in (
             ("serve_fused", dict(fused_encoder=True),
@@ -2735,11 +3093,24 @@ def main() -> int:
             ("serve_bf16", bf16, dict(alt_corr=ITERS, gru_update=ITERS),
              bf16_rng),
             ("serve_bf16_xla", dict(bf16, gru_backend="xla"),
-             dict(alt_corr_epi=ITERS), bf16_rng)):
+             dict(alt_corr_epi=ITERS), bf16_rng),
+            ("serve_bf16_pallas", dict(bf16, corr_implementation="pallas"),
+             dict(vol_lookup=ITERS, gru_update=ITERS), tier_rng),
+            ("serve_turbo", dict(bf16, corr_quant=True),
+             dict(int8_corr_volume=1, vol_lookup=ITERS, gru_update=ITERS),
+             tier_rng)):
         m = RAFTStereo(dataclasses.replace(cfg, **kw), device="cuda", seed=0)
         by_path[path] = serve_and_check(m, per_request, r)
         del m
         torch.cuda.empty_cache()
+    by_path["serve_bf16_pallas_smooth"] = by_path["serve_bf16_pallas"]
+    by_path.update(op_vol_launches)
+    # The accuracy tiers of the fp32 flagship, through cli.certify and the
+    # server's accuracy field.
+    m = RAFTStereo(cfg, device="cuda", seed=0)
+    serve_tiers_phase(m, scfg, pairs, torch)
+    del m
+    torch.cuda.empty_cache()
     for impl in ("reg", "alt"):  # the XLA lookups: plain PyTorch on the card
         forward_card_vs_cpu(RAFTStereo(dataclasses.replace(
             cfg, corr_implementation=impl), device="cuda", seed=0),

@@ -3,11 +3,19 @@
     python -m raftstereo_tpu_torch.cli.serve --port 8080 --buckets 540x960 \
         --serve_iters 32 [--corr_implementation pallas] [--corr_quant] \
         [--gru_backend fused] [--mixed_precision [--corr_dtype bfloat16]] \
+        [--tiers certified fast turbo --cert_manifest certification.json] \
         [--device cuda] [--restore_ckpt PATH | --weights_npz PATH]
 
 ``--mixed_precision`` serves in bf16 (``compute_dtype="bfloat16"``, the
 JAX package's flag); ``--corr_dtype bfloat16`` also stores the on-demand
 lookup's feature maps in bf16.  Replies are fp32 either way.
+
+``--tiers`` offers accuracy tiers on ``/predict``'s ``accuracy`` field
+("certified": fp32, "fast": bf16, "turbo": bf16 with the int8 volume);
+"fast" and "turbo" are advertised only where ``--cert_manifest`` (written
+by ``python -m raftstereo_tpu_torch.cli.certify`` on the same platform
+and architecture) certifies them, and each advertised tier is warmed at
+startup.
 
 Without ``--restore_ckpt`` or ``--weights_npz`` the model has seeded
 random weights.  ``--restore_ckpt`` takes an upstream ``.pth``, the
@@ -56,6 +64,14 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--bucket_multiple", type=int, default=d.bucket_multiple)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default; fails without a GPU) or 'cpu'")
+    p.add_argument("--tiers", nargs="+", default=list(d.tiers),
+                   choices=["certified", "fast", "turbo"], metavar="TIER",
+                   help="accuracy tiers offered on /predict's 'accuracy' "
+                        "field; fast/turbo also need a --cert_manifest "
+                        "certifying their EPE delta")
+    p.add_argument("--cert_manifest", default=d.cert_manifest,
+                   help="certification manifest written by 'python -m "
+                        "raftstereo_tpu_torch.cli.certify'")
     w = p.add_mutually_exclusive_group()
     w.add_argument("--restore_ckpt", default=None,
                    help=".pth, save_weights file or flattened JAX .npz")
@@ -104,7 +120,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                        divis_by=args.divis_by,
                        bucket_multiple=args.bucket_multiple,
                        buckets=tuple(args.buckets),
-                       serve_iters=args.serve_iters)
+                       serve_iters=args.serve_iters, tiers=tuple(args.tiers),
+                       cert_manifest=args.cert_manifest)
     model = RAFTStereo(cfg, device=args.device)
     if args.restore_ckpt:
         load_weights_any(args.restore_ckpt, model)
@@ -112,10 +129,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         load_weights_npz(model, args.weights_npz)
     server = build_server(model, scfg, device=args.device)
     previous = signal.signal(signal.SIGTERM, _interrupt)
-    print(json.dumps({"serving": f"http://{args.host}:{server.port}",
-                      "device": str(server.engine.device),
-                      "buckets": [list(server.engine.bucket_of(b))
-                                  for b in scfg.buckets]}), flush=True)
+    line = {"serving": f"http://{args.host}:{server.port}",
+            "device": str(server.engine.device),
+            "buckets": [list(server.engine.bucket_of(b))
+                        for b in scfg.buckets]}
+    if scfg.tiers:
+        line["tiers"] = {"advertised": server.tiers,
+                         "refused": server.tier_reasons}
+    print(json.dumps(line), flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -18,9 +18,12 @@ hand-written backward in training).
 ``compute_dtype="bfloat16"`` (the JAX package's ``--mixed_precision``)
 runs inference and training in bf16 with the plain encoders and any
 backend; ``corr_dtype="bfloat16"`` then stores the on-demand lookup's
-feature maps in bf16 (``pallas_alt``; ``reg`` and ``alt`` build in fp32
-whatever it says, as the JAX package does).  ``check_dtypes`` refuses the
-bf16 combinations outside those paths.  Every other field value that
+feature maps in bf16 (``pallas_alt``), or the ``pallas`` volume pyramid
+in bf16 (inference; training on it raises at ``forward``); ``reg`` and
+``alt`` build in fp32 whatever it says, as the JAX package does.  With
+``corr_quant`` the int8 volume comes out in ``corr_dtype`` (the int8
+tier: bf16).  ``check_dtypes`` refuses the bf16 combinations outside
+those paths.  Every other field value that
 selects another path raises ``NotImplementedError`` naming the ROADMAP
 item that will add it.
 """
@@ -118,31 +121,29 @@ def check_supported(config: RAFTStereoConfig) -> None:
     check_dtypes(config)
 
 
-def check_dtypes(config: RAFTStereoConfig) -> None:
-    """The bf16 paths, in inference and training: bf16 compute with the
-    plain encoders, the on-demand lookup with bf16 or fp32 feature maps
-    (its backward's bf16 or fp32 form), ``reg``/``alt`` (fp32 lookups cast
-    to bf16) and ``pallas`` with its fp32 volume.  Refused: bf16
-    correlation at fp32 compute, the int8 tier in bf16 (``corr_quant``,
-    which training would not use either: it builds the fp32 volume), the
-    bf16 ``pallas`` volume, and the fused encoder in bf16."""
-    from .ops.corr import resolve_implementation
+# Raised by a train-mode forward over the bf16 ``pallas`` volume.
+BF16_VOLUME_TRAINING = (
+    "training on the bf16 pallas volume (corr_implementation='pallas' with "
+    "corr_dtype='bfloat16') is not ported yet; see ROADMAP.md Queue 1 "
+    "item 7")
 
+
+def check_dtypes(config: RAFTStereoConfig) -> None:
+    """The bf16 paths: bf16 compute with the plain encoders, the on-demand
+    lookup with bf16 or fp32 feature maps (its backward's bf16 or fp32
+    form), ``reg``/``alt`` (fp32 lookups cast to bf16), ``pallas`` with
+    its fp32 volume, and in inference the bf16 ``pallas`` volume and the
+    int8 tier (``corr_quant``; training builds the unquantized volume of
+    the configured backend).  Refused: bf16 correlation at fp32 compute
+    and the fused encoder in bf16; a train-mode forward over the bf16
+    ``pallas`` volume raises ``BF16_VOLUME_TRAINING``."""
     bf16 = config.compute_dtype == "bfloat16"
     corr_bf16 = config.corr_dtype == "bfloat16"
-    backend = resolve_implementation(config.corr_implementation,
-                                     config.corr_quant)
     refusals = (
         (corr_bf16 and not bf16,
          "corr_dtype='bfloat16' with compute_dtype='float32' (bf16 "
          "correlation at fp32 compute) is not ported yet; see ROADMAP.md "
          "Queue 1 item 7"),
-        (bf16 and config.corr_quant,
-         "corr_quant=True with compute_dtype='bfloat16' (the int8 tier) is "
-         "not ported yet; see ROADMAP.md Queue 1 item 7"),
-        (bf16 and corr_bf16 and backend == "pallas",
-         "corr_implementation='pallas' with corr_dtype='bfloat16' (the bf16 "
-         "volume) is not ported yet; see ROADMAP.md Queue 1 item 7"),
         (bf16 and config.fused_encoder is True,
          "fused_encoder=True with compute_dtype='bfloat16' (bf16 forms of "
          "the encoder kernels) is not ported yet; see ROADMAP.md Queue 2"))
@@ -221,7 +222,15 @@ class ServeConfig:
     Shape policy: images are aligned to ``divis_by`` and rounded up to
     ``bucket_multiple`` (``ops.image.BucketPadder``); ``buckets`` are the
     image shapes warmed at startup; every request runs ``serve_iters`` GRU
-    iterations."""
+    iterations.
+
+    Accuracy tiers (``ops.quant``): ``tiers`` names the tiers offered on
+    ``/predict``'s ``accuracy`` field ("certified" fp32, "fast" bf16,
+    "turbo" the int8 volume in bf16).  "fast" and "turbo" are advertised
+    only where ``cert_manifest`` (written by ``cli.certify``) certifies
+    their EPE delta for this model on this platform
+    (``eval.certify.resolve_tiers``); a refused tier is a 400 carrying its
+    reason.  Empty: any ``accuracy`` field is a 400."""
 
     host: str = "127.0.0.1"
     port: int = 8080  # 0 binds an ephemeral port
@@ -229,11 +238,20 @@ class ServeConfig:
     bucket_multiple: int = 64
     buckets: Tuple[Tuple[int, int], ...] = ((540, 960),)
     serve_iters: int = 32
+    tiers: Tuple[str, ...] = ()
+    cert_manifest: Optional[str] = None
 
     def __post_init__(self):
         object.__setattr__(self, "buckets",
                            tuple(tuple(int(v) for v in b)
                                  for b in self.buckets))
+        from .ops.quant import TIERS
+
+        object.__setattr__(self, "tiers", tuple(self.tiers))
+        bad = [t for t in self.tiers if t not in TIERS]
+        if bad:
+            raise ValueError(f"unknown accuracy tiers {bad}; choose from "
+                             f"{list(TIERS)}")
         if self.divis_by < 1 or self.bucket_multiple < 1:
             raise ValueError("divis_by and bucket_multiple must be >= 1")
         if self.serve_iters < 1:

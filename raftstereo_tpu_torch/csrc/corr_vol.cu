@@ -1,4 +1,5 @@
-// Precomputed-volume correlation lookup for Hopper (sm_90a), fp32.
+// Precomputed-volume correlation lookup for Hopper (sm_90a), over an fp32
+// or a bf16 volume pyramid, fp32 out.
 //
 // Replaces the TPU kernel raftstereo_tpu/ops/pallas_corr.py
 // `_lookup_kernel`, launched from `_lookup_fwd_impl` (the `pallas`
@@ -14,7 +15,10 @@
 // weight NaN, so it gives NaN (a level of width 0 gives 0, an empty sum).
 // Each product and the sum are rounded once (__fmul_rn, __fadd_rn, no
 // FMA contraction): the kernel computes the plain version's arithmetic
-// bit for bit.
+// bit for bit.  A bf16 volume (the `pallas` backend at corr_dtype bf16,
+// and the int8 tier's volume) is read as bf16 and widened to fp32, which
+// is exact; the sum is fp32 and so is the output, as the TPU kernel's
+// (`vol_ref[...].astype(jnp.float32)`, an fp32 `out_shape`).
 //
 // Design.  The TPU kernel reduces each tap over the whole (lane-padded)
 // W2 row with the dense hat weight, because its vector unit has no
@@ -24,7 +28,12 @@
 // registers: 16-byte loads from the 16-byte-aligned address at or below
 // the window (the rows are not aligned: W2cat is 450 at serving), scalar
 // loads for a chunk that reaches past the level, and only the chunks the
-// window touches, all issued before the first is used.  Each tap then
+// window touches, all issued before the first is used.  A chunk holds 4
+// fp32 columns or 8 bf16 ones, so a window of K+2 = 11 columns (44 bytes
+// in fp32, 22 in bf16) touches 3 or 4 chunks in fp32 and 2 or 3 in bf16;
+// the window's shift within its first chunk (0..3 or 0..7) is undone in
+// registers, by a select chain in fp32 and in bf16 by a barrel shifter of
+// 3 stages (shift by 4, 2, 1), both at compile-time indices.  Each tap then
 // takes its two columns from the window by its own floor: floor(t_k) -
 // floor(t_0) is k, or k +- 1 where the rounded taps cross an integer (x =
 // 127.99999 at level 0 rounds t_5 to 129.0; rounding never lowers a floor
@@ -43,8 +52,9 @@
 // Bound on an H100 SXM (3.35 TB/s): at the serving shape (144x240
 // pixels, 4 levels of radius 4, level widths 240/120/60/30) the function
 // needs the taps' columns of the volume (at most K+1 = 10 per pixel and
-// level, about 5.5 MB), x and the output (5 MB): about 11 MB, 3 us; at
-// the training shape (6x80x180) about 27 MB, 8 us.  Its arithmetic is a
+// level, about 5.5 MB in fp32, 2.8 MB in bf16), x and the output (5 MB):
+// about 11 MB, 3 us, or 8 MB, 2.3 us, over a bf16 volume; at the training
+// shape (6x80x180) about 27 MB, 8 us.  Its arithmetic is a
 // few operations per output, so it is bound by bytes.  The volume (62 MB
 // at serving, 116 MB at training) does not stay in the 50 MB L2, and a
 // window's 40 bytes come in 32-byte sectors: the design reads no sector
@@ -52,6 +62,7 @@
 // flight together, where the first form issued two dependent 4-byte loads
 // per output.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -69,6 +80,47 @@ struct Levels {
   int width[kMaxLevels];  // real width w_l of level l
 };
 
+// Volume columns per 16-byte chunk.
+template <typename T>
+constexpr int kPerChunk = 16 / (int)sizeof(T);
+
+// One volume value, widened to fp32 (exact for bf16: its bits, shifted).
+__device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// The 16-byte chunk at p into win[at .. at + kPerChunk - 1], widened.
+template <int N>
+__device__ __forceinline__ void load_chunk(float (&win)[N], int at,
+                                           const float* p) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  win[at] = v.x;
+  win[at + 1] = v.y;
+  win[at + 2] = v.z;
+  win[at + 3] = v.w;
+}
+template <int N>
+__device__ __forceinline__ void load_chunk(float (&win)[N], int at,
+                                           const __nv_bfloat16* p) {
+  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+  const unsigned u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    win[at + 2 * j] = __uint_as_float(u[j] << 16);
+    win[at + 2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+  }
+}
+
+// win[j] = win[j + B] for every j where `on`: one stage of the barrel
+// shifter, at compile-time indices so the window stays in registers.
+template <int B, int N>
+__device__ __forceinline__ void shift_down(float (&win)[N], bool on) {
+#pragma unroll
+  for (int j = 0; j + B < N; ++j) win[j] = on ? win[j + B] : win[j];
+}
+
 // One tap's value from its two columns va (at fa = floor(t)) and vb (at
 // fa + 1), each weighted only where it lies in [0, last].
 __device__ __forceinline__ float tap_value(float t, float fa, float va,
@@ -82,26 +134,29 @@ __device__ __forceinline__ float tap_value(float t, float fa, float va,
 
 // The per-tap form: the tap's two columns read from global memory (false
 // tests, NaN and +-inf included, read nothing).
-__device__ __forceinline__ float tap_global(const float* vol, long rowe,
-                                           float t, float last) {
+template <typename T>
+__device__ __forceinline__ float tap_global(const T* vol, long rowe, float t,
+                                           float last) {
   const float fa = floorf(t), fb = fa + 1.f;
   float va = 0.f, vb = 0.f;
-  if (fa >= 0.f && fa <= last) va = __ldg(vol + rowe + (long)fa);
-  if (fb >= 0.f && fb <= last) vb = __ldg(vol + rowe + (long)fb);
+  if (fa >= 0.f && fa <= last) va = load1(vol + rowe + (long)fa);
+  if (fb >= 0.f && fb <= last) vb = load1(vol + rowe + (long)fb);
   return tap_value(t, fa, va, vb, last);
 }
 
-// KC = K = 2r+1 for the windowed instances, 0 for the per-tap form at any
-// radius.
-template <int KC>
+// T: the volume's element (float or __nv_bfloat16).  KC = K = 2r+1 for the
+// windowed instances, 0 for the per-tap form at any radius.
+template <typename T, int KC>
 __global__ void __launch_bounds__(kThreads)
-corr_vol_kernel(const float* __restrict__ vol, const float* __restrict__ x,
+corr_vol_kernel(const T* __restrict__ vol, const float* __restrict__ x,
                 float* __restrict__ out, long npix, int w2cat, int radius,
                 int pix_per_block, Levels lv) {
   extern __shared__ __align__(16) float stage[];  // [np][L*K]
   __shared__ int s_off[kMaxLevels], s_width[kMaxLevels];
   constexpr int KW = KC + 2;                // window columns
-  constexpr int NQ = (KW + 3 + 3) / 4;      // float4s covering it, any shift
+  constexpr int P = kPerChunk<T>;
+  // chunks covering the window at any shift
+  constexpr int NQ = (KW + P - 1 + P - 1) / P;
   const int L = lv.n;
   const int K = KC > 0 ? KC : 2 * radius + 1;
   const int LK = L * K;
@@ -139,40 +194,44 @@ corr_vol_kernel(const float* __restrict__ vol, const float* __restrict__ x,
           f0 >= (float)(1 - KW) && f0 <= last && fe < 16777216.f;
       // win[j] = column f0 + j - shift where it lies in the level, read
       // in the 16-byte chunks the window touches.
-      float win[4 * NQ];
+      float win[P * NQ];
 #pragma unroll
-      for (int j = 0; j < 4 * NQ; ++j) win[j] = 0.f;
+      for (int j = 0; j < P * NQ; ++j) win[j] = 0.f;
       int shift = 0;
       if (have) {
         const int c0 = (int)f0, span = (int)(fe - f0), cw = width - 1;
         const long e0 = rowe + c0;
-        shift = (int)(((uintptr_t)vol / sizeof(float) + e0) & 3);
+        shift = (int)(((uintptr_t)vol / sizeof(T) + e0) & (P - 1));
 #pragma unroll
         for (int q = 0; q < NQ; ++q) {
-          if (4 * q > shift + span) break;   // past the window
-          const int ca = c0 - shift + 4 * q;   // the chunk's first column
-          if (ca >= 0 && ca + 3 <= cw) {
-            const float4 v = __ldg(
-                reinterpret_cast<const float4*>(vol + e0 - shift + 4 * q));
-            win[4 * q] = v.x;
-            win[4 * q + 1] = v.y;
-            win[4 * q + 2] = v.z;
-            win[4 * q + 3] = v.w;
+          if (P * q > shift + span) break;   // past the window
+          const int ca = c0 - shift + P * q;   // the chunk's first column
+          if (ca >= 0 && ca + P - 1 <= cw) {
+            load_chunk(win, P * q, vol + e0 - shift + P * q);
           } else {
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
+            for (int j = 0; j < P; ++j)
               if (ca + j >= 0 && ca + j <= cw)
-                win[4 * q + j] = __ldg(vol + e0 - shift + 4 * q + j);
+                win[P * q + j] = load1(vol + e0 - shift + P * q + j);
           }
         }
       }
       // w[j] = column f0 + j
       float w[KW];
+      if constexpr (P == 4) {
 #pragma unroll
-      for (int j = 0; j < KW; ++j)
-        w[j] = shift == 0 ? win[j]
-             : shift == 1 ? win[j + 1]
-             : shift == 2 ? win[j + 2] : win[j + 3];
+        for (int j = 0; j < KW; ++j)
+          w[j] = shift == 0 ? win[j]
+               : shift == 1 ? win[j + 1]
+               : shift == 2 ? win[j + 2] : win[j + 3];
+      } else {
+        // shift 0..7 undone in three stages: by 4, by 2, by 1
+        shift_down<4>(win, (shift & 4) != 0);
+        shift_down<2>(win, (shift & 2) != 0);
+        shift_down<1>(win, (shift & 1) != 0);
+#pragma unroll
+        for (int j = 0; j < KW; ++j) w[j] = win[j];
+      }
 #pragma unroll
       for (int k = 0; k < KC; ++k) {
         const float t = __fadd_rn(xl, (float)(k - radius));
@@ -216,9 +275,9 @@ corr_vol_kernel(const float* __restrict__ vol, const float* __restrict__ x,
   }
 }
 
-template <int KC>
-int launch(const float* vol, const float* x, float* out, long npix,
-           int w2cat, int radius, const Levels& lv, cudaStream_t stream) {
+template <typename T, int KC>
+int launch(const T* vol, const float* x, float* out, long npix, int w2cat,
+           int radius, const Levels& lv, cudaStream_t stream) {
   const int lk = lv.n * (2 * radius + 1);
   // Pixels per block: a multiple of 4, one item a thread, their outputs
   // within the stage budget.
@@ -227,10 +286,35 @@ int launch(const float* vol, const float* x, float* out, long npix,
     pix -= 4;
   const long blocks = (npix + pix - 1) / pix;
   if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  corr_vol_kernel<KC><<<(unsigned)blocks, kThreads,
-                        (size_t)pix * lk * sizeof(float), stream>>>(
+  corr_vol_kernel<T, KC><<<(unsigned)blocks, kThreads,
+                           (size_t)pix * lk * sizeof(float), stream>>>(
       vol, x, out, npix, w2cat, radius, pix, lv);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int forward(const T* vol, const float* x, float* out, long npix, int w2cat,
+            int radius, int nlev, const int* offsets, const int* widths,
+            void* stream) {
+  if (nlev < 1 || nlev > kMaxLevels || radius < 0 || radius > 64)
+    return (int)cudaErrorInvalidValue;
+  Levels lv;
+  lv.n = nlev;
+  for (int l = 0; l < kMaxLevels; ++l) {
+    lv.off[l] = l < nlev ? offsets[l] : 0;
+    lv.width[l] = l < nlev ? widths[l] : 0;
+  }
+  if (npix == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static_assert(kMaxWindowRadius == 4, "one instance per windowed radius");
+  switch (radius) {
+    case 0: return launch<T, 1>(vol, x, out, npix, w2cat, radius, lv, s);
+    case 1: return launch<T, 3>(vol, x, out, npix, w2cat, radius, lv, s);
+    case 2: return launch<T, 5>(vol, x, out, npix, w2cat, radius, lv, s);
+    case 3: return launch<T, 7>(vol, x, out, npix, w2cat, radius, lv, s);
+    case 4: return launch<T, 9>(vol, x, out, npix, w2cat, radius, lv, s);
+    default: return launch<T, 0>(vol, x, out, npix, w2cat, radius, lv, s);
+  }
 }
 
 }  // namespace
@@ -244,23 +328,15 @@ extern "C" int corr_vol_forward(const float* vol, const float* x, float* out,
                                 long npix, int w2cat, int radius, int nlev,
                                 const int* offsets, const int* widths,
                                 void* stream) {
-  if (nlev < 1 || nlev > kMaxLevels || radius < 0 || radius > 64)
-    return (int)cudaErrorInvalidValue;
-  Levels lv;
-  lv.n = nlev;
-  for (int l = 0; l < kMaxLevels; ++l) {
-    lv.off[l] = l < nlev ? offsets[l] : 0;
-    lv.width[l] = l < nlev ? widths[l] : 0;
-  }
-  if (npix == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static_assert(kMaxWindowRadius == 4, "one instance per windowed radius");
-  switch (radius) {
-    case 0: return launch<1>(vol, x, out, npix, w2cat, radius, lv, s);
-    case 1: return launch<3>(vol, x, out, npix, w2cat, radius, lv, s);
-    case 2: return launch<5>(vol, x, out, npix, w2cat, radius, lv, s);
-    case 3: return launch<7>(vol, x, out, npix, w2cat, radius, lv, s);
-    case 4: return launch<9>(vol, x, out, npix, w2cat, radius, lv, s);
-    default: return launch<0>(vol, x, out, npix, w2cat, radius, lv, s);
-  }
+  return forward(vol, x, out, npix, w2cat, radius, nlev, offsets, widths,
+                 stream);
+}
+
+// The same over a bf16 volume pyramid (2-byte aligned); x and out fp32.
+extern "C" int corr_vol_forward_bf16(const void* vol, const float* x,
+                                     float* out, long npix, int w2cat,
+                                     int radius, int nlev, const int* offsets,
+                                     const int* widths, void* stream) {
+  return forward(static_cast<const __nv_bfloat16*>(vol), x, out, npix, w2cat,
+                 radius, nlev, offsets, widths, stream);
 }

@@ -1,5 +1,5 @@
 // Int8 all-pairs correlation volume with its dequant epilogue for Hopper
-// (sm_90a).
+// (sm_90a), fp32 or bf16 out.
 //
 // Replaces the TPU kernel raftstereo_tpu/ops/quant.py
 // `_int8_volume_kernel`, launched from `pallas_int8_corr_volume` (the
@@ -11,7 +11,9 @@
 // is exact, so its order does not matter; the epilogue rounds each of its
 // three products once (__fmul_rn, association as in JAX), so the kernel
 // is bitwise equal to the plain version and to the JAX package's
-// `_int8_volume_xla`.
+// `_int8_volume_xla`.  The bf16 form (the int8 tier's volume, `out_dtype`
+// bf16 in JAX) rounds that fp32 value to bf16 once, at the store
+// (`.astype(out_ref.dtype)`), round to nearest even.
 //
 // Design.  The TPU kernel runs the int8 product on its matrix unit, eight
 // image rows per grid step.  Here the product runs on the int8 tensor
@@ -28,9 +30,12 @@
 // tiles of the chunk against all kMT m-tiles.  The epilogue scales the
 // accumulators in their fragments, stages the fp32 tile in shared memory
 // (over the operand slabs) and writes each output row, a contiguous run
-// of the chunk's columns, as 16-byte coalesced stores where W2 % 4 == 0
+// of the chunk's columns, as 16-byte coalesced stores of 4 fp32 values
+// where W2 % 4 == 0, a warp a row, or in bf16 of 8 values rounded from
+// the stage where W2 % 8 == 0, dealt over all the block's threads (a
+// warp a row left half of each warp idle at 128 columns: 9% slower)
 // (scalar coalesced stores for ragged widths), marked evict-first so the
-// 33 MB of output do not push the operands out of L2.  Four blocks fit an
+// 33 MB (bf16: 16.6 MB) of output do not push the operands out of L2.  Four blocks fit an
 // SM (48 KB of shared memory, 64 registers a thread), so one's epilogue
 // overlaps the others' copies and products.  Slower forms (PERF.md,
 // forms tried): persistent blocks that keep a row's q2 slab and
@@ -42,17 +47,20 @@
 // Bound on an H100 SXM (3.35 TB/s; 1,979 TOP/s int8 on the tensor
 // cores): at the serving shape (144 rows, W1 = W2 = 240, C = 256) the
 // call reads q1 and q2 (17.7 MB) and the scales (0.3 MB) and writes the
-// fp32 volume (33.2 MB): about 51 MB, 15 us; its 4.2 GOP are 2 us on the
-// tensor cores, so the function is bound by bytes, and by the 33 MB of
-// stores most.  The first form ran on the dp4a integer pipes (134 TOP/s,
+// fp32 volume (33.2 MB): about 51 MB, 15 us (the bf16 volume, 16.6 MB:
+// about 35 MB, 10 us); its 4.2 GOP are 2 us on the tensor cores, so the
+// function is bound by bytes, and by the stores most.  The first form ran on the dp4a integer pipes (134 TOP/s,
 // about 32 us for the product alone).  What this design leaves: each
 // block re-reads its image row's q2 slab from L2 (5 blocks a row at
 // serving, ~44 MB of L2 reads in all) and its q1 slab once a pass, and a
 // block's copies, products and stores follow each other, overlapped only
 // by the SM's other blocks.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -145,11 +153,19 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// Two fp32 values rounded to bf16, packed low first (little-endian order).
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  return (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+// OutT: float or __nv_bfloat16, the volume's element.
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads, 4)
 int8_volume_kernel(const int8_t* __restrict__ q1,
                    const int8_t* __restrict__ q2,
                    const float* __restrict__ s1, const float* __restrict__ s2,
-                   float* __restrict__ out, int w1, int w2, int c, int slabs,
+                   OutT* __restrict__ out, int w1, int w2, int c, int slabs,
                    float inv) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* sa = smem;                        // [kARows][kRowBytes]
@@ -251,19 +267,63 @@ int8_volume_kernel(const int8_t* __restrict__ q1,
     __syncthreads();
 
     // The store stream: each output row's `cols` values are contiguous.
-    for (int r = warp; r < rows; r += kWarps) {
-      float* o = out + (n * w1 + r0 + r) * (long)w2 + n0;
-      const float* st = stage + r * kOutStride;
-      if ((cols & 3) == 0 && (((uintptr_t)o) & 15) == 0) {
-        for (int q = lane; q < (cols >> 2); q += 32)
-          __stcs(reinterpret_cast<float4*>(o) + q,
-                 reinterpret_cast<const float4*>(st)[q]);
-      } else {
-        for (int e = lane; e < cols; e += 32) __stcs(o + e, st[e]);
+    if constexpr (std::is_same<OutT, float>::value) {
+      for (int r = warp; r < rows; r += kWarps) {
+        float* o = out + (n * w1 + r0 + r) * (long)w2 + n0;
+        const float* st = stage + r * kOutStride;
+        if ((cols & 3) == 0 && (((uintptr_t)o) & 15) == 0) {
+          for (int q = lane; q < (cols >> 2); q += 32)
+            __stcs(reinterpret_cast<float4*>(o) + q,
+                   reinterpret_cast<const float4*>(st)[q]);
+        } else {
+          for (int e = lane; e < cols; e += 32) __stcs(o + e, st[e]);
+        }
+      }
+    } else if ((cols & 7) == 0 && (w2 & 7) == 0 &&
+               (((uintptr_t)out) & 15) == 0) {
+      // bf16, every row 16-byte aligned: 8 staged values rounded into one
+      // 16-byte store, the block's stores dealt over all its threads (a
+      // row of 128 columns is only 16 of them)
+      const int nq = cols >> 3;
+      for (int i = threadIdx.x; i < rows * nq; i += kThreads) {
+        const int r = i / nq, q = i - r * nq;
+        const float4* st =
+            reinterpret_cast<const float4*>(stage + r * kOutStride);
+        const float4 a = st[2 * q], b = st[2 * q + 1];
+        __stcs(reinterpret_cast<uint4*>(out + (n * w1 + r0 + r) * (long)w2 +
+                                        n0) + q,
+               make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                          pack_bf16(b.x, b.y), pack_bf16(b.z, b.w)));
+      }
+    } else {
+      for (int r = warp; r < rows; r += kWarps) {
+        OutT* o = out + (n * w1 + r0 + r) * (long)w2 + n0;
+        const float* st = stage + r * kOutStride;
+        for (int e = lane; e < cols; e += 32)
+          __stcs(reinterpret_cast<unsigned short*>(o) + e,
+                 __bfloat16_as_ushort(__float2bfloat16_rn(st[e])));
       }
     }
     __syncthreads();   // the stage is refilled by the next chunk's slabs
   }
+}
+
+template <typename OutT>
+int forward(const int8_t* q1, const int8_t* q2, const float* s1,
+            const float* s2, OutT* out, long rows, int w1, int w2, int c,
+            float inv, void* stream) {
+  if (c <= 0 || c % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (rows == 0 || w1 == 0 || w2 == 0) return 0;
+  const int slabs = (w1 + kARows - 1) / kARows;
+  if (rows * slabs > 0x7fffffffL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_volume_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  int8_volume_kernel<OutT><<<(unsigned)(rows * slabs), kThreads, kSmemBytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      q1, q2, s1, s2, out, w1, w2, c, slabs, inv);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -276,16 +336,15 @@ extern "C" int int8_volume_forward(const int8_t* q1, const int8_t* q2,
                                    const float* s1, const float* s2,
                                    float* out, long rows, int w1, int w2,
                                    int c, float inv, void* stream) {
-  if (c <= 0 || c % 16 != 0) return (int)cudaErrorInvalidValue;
-  if (rows == 0 || w1 == 0 || w2 == 0) return 0;
-  const int slabs = (w1 + kARows - 1) / kARows;
-  if (rows * slabs > 0x7fffffffL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_volume_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  int8_volume_kernel<<<(unsigned)(rows * slabs), kThreads, kSmemBytes,
-                       static_cast<cudaStream_t>(stream)>>>(
-      q1, q2, s1, s2, out, w1, w2, c, slabs, inv);
-  return (int)cudaGetLastError();
+  return forward(q1, q2, s1, s2, out, rows, w1, w2, c, inv, stream);
+}
+
+// The same with a bf16 out (2-byte aligned): the fp32 epilogue's value
+// rounded once.
+extern "C" int int8_volume_forward_bf16(const int8_t* q1, const int8_t* q2,
+                                        const float* s1, const float* s2,
+                                        void* out, long rows, int w1, int w2,
+                                        int c, float inv, void* stream) {
+  return forward(q1, q2, s1, s2, static_cast<__nv_bfloat16*>(out), rows, w1,
+                 w2, c, inv, stream);
 }

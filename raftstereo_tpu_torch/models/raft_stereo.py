@@ -11,8 +11,11 @@ lookup (``ops.corr.corr_lookup``) and one update of the GRU levels.
   lookup (``csrc/corr_vol.cu``, ``csrc/corr_vol_bwd.cu``).  "reg", "alt":
   the JAX package's XLA lookups in plain PyTorch.  ``corr_quant`` in test
   mode: the int8 volume (``csrc/int8_volume.cu``) and the "pallas"
-  lookup; train mode builds the fp32 volume of the configured backend
-  whatever the flag says, as the JAX package does.
+  lookup; train mode builds the unquantized state of the configured
+  backend whatever the flag says, as the JAX package does.  With
+  ``corr_dtype="bfloat16"`` the "pallas" volume pyramid (and the int8
+  volume) is stored in bf16 and looked up by the kernel's bf16 form, in
+  test mode only.
 
 * ``fused_encoder`` None or False: plain-convolution encoders (the JAX
   package's ``fused_encoder=False`` path).  True: both encoders run their
@@ -51,6 +54,7 @@ the encoders and GRUs run NCHW.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -58,9 +62,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import RAFTStereoConfig, check_supported
+from ..config import (BF16_VOLUME_TRAINING, RAFTStereoConfig,
+                      check_supported)
 from ..device import fp32_numerics, resolve_device
-from ..ops.corr import build_corr_state, corr_lookup, corr_lookup_epi
+from ..ops.corr import (build_corr_state, corr_lookup, corr_lookup_epi,
+                        resolve_implementation)
 from ..ops.cuda_gru import gru_update, pack_update_params, tanh_bf16
 from ..ops.image import coords_grid_x, resize_nchw
 from ..ops.upsample import convex_upsample
@@ -92,7 +98,6 @@ class RAFTStereo(nn.Module):
         super().__init__()
         check_supported(config)
         dev = resolve_device(device)
-        self.config = config
         cfg = config
         n = cfg.n_gru_layers
         self.cnet = MultiBasicEncoder((cfg.hidden_dims, cfg.hidden_dims),
@@ -107,18 +112,44 @@ class RAFTStereo(nn.Module):
             conv(cfg.hidden_dims[i], cfg.hidden_dims[i] * 3, 3)
             for i in range(n))
         self.update_block = BasicMultiUpdateBlock(cfg)
-        # Parameters stay fp32 whatever the compute dtype: the bf16 forms
-        # cast them at use, as flax's dtype=bfloat16 modules do.
-        self.dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
-                      else torch.float32)
-        self.corr_dtype = (torch.bfloat16 if cfg.corr_dtype == "bfloat16"
-                           else torch.float32)
-        self._wpack = (None, None)  # (key, pack): see _update_pack
+        self._set_numerics(cfg)
         init_weights(self, torch.Generator().manual_seed(seed))
         self.eval()
         self.to(dev)
         if dev.type == "cuda":
             fp32_numerics()
+
+    def with_numerics(self, config: RAFTStereoConfig) -> "RAFTStereo":
+        """A model of ``config``, which may differ from this model's config
+        only in ``compute_dtype``, ``corr_dtype`` and ``corr_quant`` (an
+        accuracy tier's), sharing this model's submodules and parameter
+        tensors: nothing is copied, and a weight loaded into one is the
+        other's.  Raises ``NotImplementedError`` for numerics the port does
+        not run."""
+        numerics = dict(compute_dtype=self.config.compute_dtype,
+                        corr_dtype=self.config.corr_dtype,
+                        corr_quant=self.config.corr_quant)
+        if dataclasses.replace(config, **numerics) != self.config:
+            raise ValueError(f"{config} differs from {self.config} beyond "
+                             f"its numerics")
+        check_supported(config)
+        twin = RAFTStereo.__new__(RAFTStereo)
+        nn.Module.__init__(twin)
+        for name, module in self.named_children():
+            setattr(twin, name, module)
+        twin._set_numerics(config)
+        twin.training = self.training
+        return twin
+
+    def _set_numerics(self, config: RAFTStereoConfig) -> None:
+        self.config = config
+        # Parameters stay fp32 whatever the compute dtype: the bf16 forms
+        # cast them at use, as flax's dtype=bfloat16 modules do.
+        self.dtype = (torch.bfloat16 if config.compute_dtype == "bfloat16"
+                      else torch.float32)
+        self.corr_dtype = (torch.bfloat16 if config.corr_dtype == "bfloat16"
+                           else torch.float32)
+        self._wpack = (None, None)  # (key, pack): see _update_pack
 
     @property
     def device(self) -> torch.device:
@@ -160,6 +191,10 @@ class RAFTStereo(nn.Module):
         # The int8 volume is inference-only: its rounding defines no useful
         # gradient, so train mode builds the unquantized state.
         quant = cfg.corr_quant and test_mode
+        if (not test_mode and self.corr_dtype == torch.bfloat16
+                and resolve_implementation(cfg.corr_implementation)
+                == "pallas"):
+            raise NotImplementedError(BF16_VOLUME_TRAINING)
         state = build_corr_state(_nhwc(fmaps[:b]), _nhwc(fmaps[b:]),
                                  cfg.corr_levels, cfg.corr_implementation,
                                  quant, self.corr_dtype)

@@ -9,10 +9,10 @@ The counterpart of the JAX package's ``ops/corr.py`` (``build_corr_state``
   ``csrc/alt_corr_bwd.cu``, ``ops.cuda_alt``).
 * ``alt`` — the same state, looked up in plain PyTorch: fmap2 sampled at
   the taps, then dotted with fmap1 (the JAX package's ``_alt_lookup``).
-* ``pallas`` — the fp32 volume (or, with ``corr_quant``, the int8 volume
-  of ``ops.quant``) built once per pair, its W2 pyramid, and one lookup
-  over all levels per iteration (CUDA kernels ``csrc/corr_vol.cu`` and
-  ``csrc/corr_vol_bwd.cu``, ``ops.cuda_vol``).
+* ``pallas`` — the volume (or, with ``corr_quant``, the int8 volume of
+  ``ops.quant``) built once per pair in ``corr_dtype``, its W2 pyramid,
+  and one lookup over all levels per iteration (CUDA kernels
+  ``csrc/corr_vol.cu`` and ``csrc/corr_vol_bwd.cu``, ``ops.cuda_vol``).
 * ``reg`` — the same state, looked up in plain PyTorch with
   ``ops.sampler.linear_sample_1d`` (the JAX package's ``_reg_lookup``).
 
@@ -28,10 +28,14 @@ bf16: the ``pallas_alt`` state stores fmap1 and the fmap2 pyramid in
 ``corr_dtype``, pooled in fp32 first and rounded after, and the lookup
 emits the compute dtype (``out_dtype``); with grad enabled it is the
 differentiable lookup in every dtype (bf16 training), under inference
-the kernel alone.  The other backends
-build and look up in fp32 and cast the features, as the JAX package's
-``make_corr_fn`` does.  ``corr_lookup_epi`` is the lookup with the motion
-encoder's convc1 fused in (``ops.cuda_alt.alt_corr_epi``), for
+the kernel alone.  The ``pallas`` state stores its volume in
+``corr_dtype``: rounded once from the fp32 product (or the int8
+epilogue), then each level pooled from the previous bf16 one with an fp32
+sum, as the JAX package's ``build_corr_pyramid`` does on a bf16 volume;
+its lookup reads bf16 and emits fp32 features, cast to ``out_dtype``.
+``reg`` and ``alt`` build and look up in fp32 and cast the features, as
+the JAX package's ``make_corr_fn`` does.  ``corr_lookup_epi`` is the
+lookup with the motion encoder's convc1 fused in (``ops.cuda_alt.alt_corr_epi``), for
 ``pallas_alt`` states: the JAX package's ``corr_epilogue_active`` rule.
 """
 
@@ -64,26 +68,35 @@ def resolve_implementation(implementation: str, quant: bool = False) -> str:
     return implementation
 
 
-def build_corr_volume(fmap1: torch.Tensor,
-                      fmap2: torch.Tensor) -> torch.Tensor:
+def build_corr_volume(fmap1: torch.Tensor, fmap2: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(B, H, W1, C) x (B, H, W2, C) -> (B, H, W1, W2), scaled by
-    1/sqrt(C): one batched fp32 matmul over B*H rows, as the JAX package
-    leaves it to XLA outside any kernel.  On the card it runs in full fp32
-    (TF32 off: ``device.fp32_numerics``, set by the model)."""
+    1/sqrt(C), in ``dtype`` (rounded once from fp32): one batched fp32
+    matmul over B*H rows, as the JAX package leaves it to XLA outside any
+    kernel.  On the card it runs in full fp32 (TF32 off:
+    ``device.fp32_numerics``, set by the model)."""
     c = fmap1.shape[-1]
     corr = torch.matmul(fmap1.float(), fmap2.float().transpose(-1, -2))
-    return corr / torch.full((), float(c), device=corr.device).sqrt()
+    return (corr / torch.full((), float(c), device=corr.device).sqrt()
+            ).to(dtype)
 
 
 def build_corr_pyramid(corr: torch.Tensor,
                        num_levels: int) -> List[torch.Tensor]:
-    """Average-pool the W2 axis by 2 per level, floor-halving odd widths."""
+    """Average-pool the W2 axis by 2 per level, floor-halving odd widths.
+    A bf16 level is pooled from the previous bf16 level: the pair widened,
+    summed and halved in fp32, rounded once (``jnp.mean`` on bf16)."""
     pyramid = [corr]
     for _ in range(num_levels - 1):
         c = pyramid[-1]
         w2 = c.shape[-1] // 2
-        pyramid.append(c[..., :2 * w2].reshape(*c.shape[:-1], w2, 2)
-                       .mean(dim=-1))
+        pairs = c[..., :2 * w2].reshape(*c.shape[:-1], w2, 2)
+        if c.dtype == torch.bfloat16:
+            pairs = pairs.float()
+            pooled = ((pairs[..., 0] + pairs[..., 1]) * 0.5).to(c.dtype)
+        else:
+            pooled = pairs.mean(dim=-1)
+        pyramid.append(pooled)
     return pyramid
 
 
@@ -123,12 +136,14 @@ def build_corr_state(fmap1: torch.Tensor, fmap2: torch.Tensor,
     """Build the lookup state once per pair (contiguous) for the backend
     ``resolve_implementation(implementation, quant)``.  ``quant`` builds
     the int8 volume; the caller passes it in test mode only.  The
-    ``pallas_alt`` state is stored in ``corr_dtype`` (pooled in fp32
-    first); every other state is fp32."""
+    ``pallas_alt`` state (pooled in fp32 first) and the ``pallas`` volume
+    pyramid (pooled level by level) are stored in ``corr_dtype``; the
+    ``reg`` and ``alt`` states are fp32."""
     backend = resolve_implementation(implementation, quant)
     if backend in ("reg", "pallas"):
-        volume = (quant_corr_volume(fmap1, fmap2) if quant
-                  else build_corr_volume(fmap1, fmap2))
+        dt = corr_dtype if backend == "pallas" else torch.float32
+        volume = (quant_corr_volume(fmap1, fmap2, dt) if quant
+                  else build_corr_volume(fmap1, fmap2, dt))
         pyr = build_corr_pyramid(volume, num_levels)
         return CorrState(None, None, tuple(p.shape[-1] for p in pyr),
                          backend, torch.cat(pyr, dim=-1).contiguous())

@@ -5,9 +5,11 @@ respect to the volume), their plain PyTorch versions, and the
 
 Replaces the TPU kernels ``raftstereo_tpu/ops/pallas_corr.py``
 ``_lookup_kernel`` and ``_lookup_bwd_kernel`` (the ``pallas`` backend).
-The function, for each pixel, level l and tap k with level-0 coordinate
-x and t = x * 2^-l + (k - r): the hat-weighted sum over the level's real
-columns j of vol_l[j] * max(0, 1 - |j - t|), which is a two-tap lerp,
+The forward reads an fp32 or a bf16 volume pyramid (the ``pallas``
+backend at ``corr_dtype`` bf16 and the int8 tier), widened to fp32, and
+writes fp32, as the TPU kernel does.  The function, for each pixel,
+level l and tap k with level-0 coordinate x and t = x * 2^-l + (k - r):
+the hat-weighted sum over the level's real columns j of vol_l[j] * max(0, 1 - |j - t|), which is a two-tap lerp,
 zero outside [0, w_l - 1]; NaN coordinates give NaN.  The backward writes
 the dense gradient volume, dvol_l[j] = sum_k g_k * max(0, 1 - |j - t_k|)
 in ascending k, so a NaN coordinate or a non-finite cotangent poisons the
@@ -15,8 +17,8 @@ pixel's whole level segment, as the TPU's dense form does.
 
 The bounds on an H100 and what the kernels' designs do about them are in
 the sources' notes: both bound by bytes (the forward about 11 MB per call
-at the serving shape, the backward about 129 MB at the training shape);
-the forward reads each (pixel, level) window of taps once, in 16-byte
+at the serving shape, 8 MB over a bf16 volume; the backward about 129 MB
+at the training shape); the forward reads each (pixel, level) window of taps once, in 16-byte
 loads, and takes every tap's two columns from it; the backward streams
 each pixel run's outputs once with no atomics: +0 outside each clean
 level's window of taps, which needs no arithmetic, and the K-term sum
@@ -49,8 +51,10 @@ def vol_lookup_plain(vcat: torch.Tensor, widths: Sequence[int],
                      x: torch.Tensor, radius: int) -> torch.Tensor:
     """Plain PyTorch version: per level and tap, the two columns
     floor(t) and floor(t)+1 weighted by their hat values 1 - |j - t| —
-    the kernel's arithmetic, each product and the sum rounded once.
-    vcat (B, H, W1, sum(widths)), x (B, H, W1) -> (B, H, W1, L*(2r+1))."""
+    the kernel's arithmetic, each product and the sum rounded once, in
+    fp32 (a bf16 volume's values widened exactly).  vcat (B, H, W1,
+    sum(widths)) fp32 or bf16, x (B, H, W1) -> (B, H, W1, L*(2r+1))
+    fp32."""
     zero = torch.zeros((), device=x.device)
     cols, off = [], 0
     for lvl, w in enumerate(widths):
@@ -63,7 +67,8 @@ def vol_lookup_plain(vcat: torch.Tensor, widths: Sequence[int],
         out = None
         for j in (f0, f0 + 1.0):
             valid = (j >= 0) & (j <= w - 1)  # False for NaN
-            v = torch.gather(vl, -1, torch.where(valid, j, zero).long())
+            v = torch.gather(vl, -1,
+                             torch.where(valid, j, zero).long()).float()
             term = torch.where(valid, v * (1.0 - (j - t).abs()), zero)
             out = term if out is None else out + term
         cols.append(torch.where(torch.isnan(t), t, out))
@@ -77,15 +82,19 @@ def _offsets(widths: Sequence[int]):
             ints(*widths))
 
 
-def _check_cuda(name, tensors, x, widths, radius):
-    """Validate the kernels' operands; returns the widths as ints."""
+def _check_cuda(name, tensors, x, widths, radius,
+                first_dtypes=(torch.float32,)):
+    """Validate the kernels' operands: contiguous, fp32 but the first, of
+    ``first_dtypes``; returns the widths as ints."""
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: tensors on {[t.device for t in tensors]}"
                          f"; all must be on one CUDA device")
-    for t in tensors:
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous float32 tensors")
+    for i, t in enumerate(tensors):
+        ok = first_dtypes if i == 0 else (torch.float32,)
+        if t.dtype not in ok or not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors of "
+                             f"{[str(d) for d in ok]}; got {t.dtype}")
     widths = [int(w) for w in widths]
     if (not 1 <= len(widths) <= 8 or min(widths) < 0
             or not 0 <= radius <= 64):
@@ -97,18 +106,22 @@ def _check_cuda(name, tensors, x, widths, radius):
 
 def vol_lookup(vcat: torch.Tensor, widths: Sequence[int], x: torch.Tensor,
                radius: int) -> torch.Tensor:
-    """Volume lookup: the plain version for CPU tensors, the CUDA kernel
-    for CUDA tensors (counted in ``vol_lookup.launches``)."""
+    """Volume lookup over an fp32 or bf16 ``vcat``, fp32 out: the plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors (counted in
+    ``vol_lookup.launches``)."""
     if vcat.device.type == "cpu" and x.device.type == "cpu":
         return vol_lookup_plain(vcat, widths, x, radius)
-    widths = _check_cuda("vol_lookup", (vcat, x), x, widths, radius)
+    widths = _check_cuda("vol_lookup", (vcat, x), x, widths, radius,
+                         (torch.float32, torch.bfloat16))
     b, h, w1 = x.shape
     if vcat.shape != (b, h, w1, sum(widths)):
         raise ValueError(f"vcat {tuple(vcat.shape)} != "
                          f"{(b, h, w1, sum(widths))}")
     out = torch.empty((b, h, w1, len(widths) * (2 * radius + 1)),
                       dtype=torch.float32, device=x.device)
-    fn = _build.load("corr_vol").corr_vol_forward
+    lib = _build.load("corr_vol")
+    fn = (lib.corr_vol_forward if vcat.dtype == torch.float32
+          else lib.corr_vol_forward_bf16)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_long]
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
@@ -186,19 +199,22 @@ vol_lookup_backward.launches = 0
 class _VolLookupFunction(torch.autograd.Function):
     """``vol_lookup`` with ``vol_lookup_backward`` as its VJP.  Saves only
     x; x gets no gradient (the model detaches the disparity before every
-    lookup, and the JAX VJP returns zeros for the taps)."""
+    lookup, and the JAX VJP returns zeros for the taps).  The fp32
+    gradient is cast to the volume's dtype, as the JAX VJP casts its
+    kernel's fp32 output."""
 
     @staticmethod
     def forward(ctx, vcat, x, widths, radius):
         ctx.save_for_backward(x)
-        ctx.widths, ctx.radius = tuple(widths), radius
+        ctx.widths, ctx.radius, ctx.dtype = tuple(widths), radius, vcat.dtype
         return vol_lookup(vcat, widths, x, radius)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        dvol = vol_lookup_backward(x, g.contiguous(), ctx.widths, ctx.radius)
-        return dvol, None, None, None
+        dvol = vol_lookup_backward(x, g.float().contiguous(), ctx.widths,
+                                   ctx.radius)
+        return dvol.to(ctx.dtype), None, None, None
 
 
 def vol_lookup_autograd(vcat: torch.Tensor, widths: Sequence[int],

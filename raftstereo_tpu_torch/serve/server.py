@@ -3,13 +3,24 @@
 Endpoints, in the JAX server's JSON dialect
 (``raftstereo_tpu/serve/server.py``):
 
-* ``POST /predict`` — body ``{"left": A, "right": A, "iters": n?}`` where
-  ``A`` is ``{"shape", "dtype", "data_b64"}`` (raw bytes, base64) or a
-  nested list.  Replies 200 ``{"disparity": A, "meta": {...}}``, 400
-  ``{"error": ...}`` on a malformed body.
-* ``GET /healthz`` — liveness, device, buckets and per-bucket stats.
+* ``POST /predict`` — body ``{"left": A, "right": A, "iters": n?,
+  "accuracy": tier?}`` where ``A`` is ``{"shape", "dtype", "data_b64"}``
+  (raw bytes, base64) or a nested list.  Replies 200 ``{"disparity": A,
+  "meta": {...}}`` (``meta["accuracy"]`` echoes a tier), 400 ``{"error":
+  ...}`` on a malformed body, an unknown tier or one the server does not
+  advertise (with the reason recorded at startup).
+* ``GET /healthz`` — liveness, device, buckets, per-bucket stats and,
+  with ``ServeConfig.tiers``, the advertised and refused tiers.
 
-The micro-batcher, scheduler, sessions, tiers, binary wire frames and
+Accuracy tiers (``ops.quant``): ``build_server`` resolves
+``ServeConfig.tiers`` against the certification manifest
+(``eval.certify.resolve_tiers``), builds each advertised tier's model
+(a tier whose numerics the port does not run on this architecture is
+refused with the ``NotImplementedError``'s text) and warms the base
+mode, then each advertised mode.  A tier whose mode is the base model's
+own runs the base model; a request without ``accuracy`` always does.
+
+The micro-batcher, scheduler, sessions, cascades, binary wire frames and
 metrics of the JAX server are later slices; each request here runs as
 its own batch.
 """
@@ -22,11 +33,12 @@ import logging
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 
 from ..config import ServeConfig
+from ..ops.quant import mode_for_accuracy
 from .engine import BatchEngine
 
 logger = logging.getLogger(__name__)
@@ -55,8 +67,8 @@ def decode_array(obj: Union[Dict, list]) -> np.ndarray:
 
 
 def parse_predict(body: bytes, serve_iters: int):
-    """(left, right, iters) from a /predict body; ``ValueError`` on
-    anything malformed."""
+    """(left, right, iters, accuracy) from a /predict body (``accuracy``
+    None when absent); ``ValueError`` on anything malformed."""
     try:
         obj = json.loads(body)
     except (UnicodeDecodeError, json.JSONDecodeError) as e:
@@ -76,7 +88,11 @@ def parse_predict(body: bytes, serve_iters: int):
     if iters != serve_iters:
         raise ValueError(f"iters {iters!r} not served; this server runs "
                          f"{serve_iters}")
-    return left, right, iters
+    accuracy = obj.get("accuracy")
+    if accuracy is not None:
+        accuracy = str(accuracy)
+        mode_for_accuracy(accuracy)  # an unknown tier is a ValueError
+    return left, right, iters, accuracy
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -98,13 +114,16 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path.split("?")[0] != "/healthz":
             self._json(404, {"error": f"no such path {self.path!r}"})
             return
-        eng = self.server.engine
-        self._json(200, {"live": True, "ready": True,
-                         "device": str(eng.device),
-                         "buckets": [list(eng.bucket_of(b))
-                                     for b in eng.cfg.buckets],
-                         "serve_iters": eng.cfg.serve_iters,
-                         "stats": eng.stats()})
+        srv = self.server
+        eng = srv.engine
+        health = {"live": True, "ready": True, "device": str(eng.device),
+                  "buckets": [list(eng.bucket_of(b))
+                              for b in eng.cfg.buckets],
+                  "serve_iters": eng.cfg.serve_iters, "stats": eng.stats()}
+        if eng.cfg.tiers:
+            health["tiers"] = {"advertised": dict(sorted(srv.tiers.items())),
+                               "refused": dict(srv.tier_reasons)}
+        self._json(200, health)
 
     def do_POST(self):
         if self.path.split("?")[0] != "/predict":
@@ -120,36 +139,59 @@ class _Handler(BaseHTTPRequestHandler):
                        {"error": f"body of {n} bytes not accepted"})
             return
         body = self.rfile.read(n)
-        eng = self.server.engine
+        srv = self.server
+        eng = srv.engine
         try:
-            left, right, iters = parse_predict(body, eng.cfg.serve_iters)
+            left, right, iters, accuracy = parse_predict(
+                body, eng.cfg.serve_iters)
+            mode = srv.mode_of(accuracy)
         except ValueError as e:
             self._json(400, {"error": f"bad request: {e}"})
             return
         t0 = time.perf_counter()
         try:
-            (disp,) = eng.infer_batch([(left, right)], iters)
+            (disp,) = eng.infer_batch([(left, right)], iters, mode=mode)
         except Exception as e:  # boundary: the server keeps serving
             logger.exception("inference failed")
             self._json(500, {"error": f"inference failed: {e}"})
             return
-        self._json(200, {
-            "disparity": encode_array(disp),
-            "meta": {"iters": iters,
-                     "bucket": list(eng.bucket_of(left.shape)),
-                     "device": str(eng.device),
-                     "latency_ms": (time.perf_counter() - t0) * 1e3}})
+        meta = {"iters": iters, "bucket": list(eng.bucket_of(left.shape)),
+                "device": str(eng.device),
+                "latency_ms": (time.perf_counter() - t0) * 1e3}
+        if accuracy is not None:
+            meta["accuracy"] = accuracy
+        self._json(200, {"disparity": encode_array(disp), "meta": meta})
 
 
 class StereoServer(ThreadingHTTPServer):
     """``ThreadingHTTPServer`` bound to ``config.host:config.port`` that
-    serves ``engine``; ``port`` is the bound port (0 binds a free one)."""
+    serves ``engine``; ``port`` is the bound port (0 binds a free one).
+    ``tiers`` maps each advertised tier to its precision mode,
+    ``tier_reasons`` each refused one to its reason."""
 
     daemon_threads = True
 
-    def __init__(self, engine: BatchEngine, config: ServeConfig):
+    def __init__(self, engine: BatchEngine, config: ServeConfig,
+                 tiers: Optional[Dict[str, str]] = None,
+                 tier_reasons: Optional[Dict[str, str]] = None):
         super().__init__((config.host, config.port), _Handler)
         self.engine = engine
+        self.tiers = dict(tiers or {})
+        self.tier_reasons = dict(tier_reasons or {})
+
+    def mode_of(self, accuracy: Optional[str]) -> Optional[str]:
+        """The engine mode of a request's ``accuracy`` tier: None (the base
+        model) without one or where the tier's mode is the base model's
+        own; ``ValueError`` for a tier this server does not advertise."""
+        if accuracy is None:
+            return None
+        if accuracy not in self.tiers:
+            reason = self.tier_reasons.get(
+                accuracy, "tier not offered by this server (--tiers)")
+            raise ValueError(f"accuracy tier {accuracy!r} not advertised: "
+                             f"{reason}")
+        mode = self.tiers[accuracy]
+        return None if mode == self.engine.default_mode else mode
 
     @property
     def port(self) -> int:
@@ -166,9 +208,23 @@ class StereoServer(ThreadingHTTPServer):
 
 def build_server(model, config: ServeConfig = ServeConfig(),
                  device="cuda", warmup: bool = True) -> StereoServer:
-    """Engine + server for ``model`` (already on ``device``); warms the
-    configured buckets first unless ``warmup`` is False."""
+    """Engine + server for ``model`` (already on ``device``).  Resolves
+    the accuracy tiers (a tier the manifest does not certify, or whose
+    model the port cannot build, is refused with its reason), then warms
+    the configured buckets in the base mode and each advertised mode
+    unless ``warmup`` is False."""
+    from ..eval.certify import resolve_tiers
+
     engine = BatchEngine(model, config, device=device)
+    tiers, reasons = resolve_tiers(config, model.config, engine.device)
+    for tier, mode in list(tiers.items()):
+        try:
+            engine.model_for(mode)
+        except NotImplementedError as e:
+            logger.warning("accuracy tier %r NOT advertised: %s", tier, e)
+            reasons[tier] = str(e)
+            del tiers[tier]
     if warmup:
-        engine.warmup()
-    return StereoServer(engine, config)
+        base = engine.default_mode
+        engine.warmup([None] + sorted(set(tiers.values()) - {base}))
+    return StereoServer(engine, config, tiers, reasons)

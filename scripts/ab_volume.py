@@ -18,7 +18,10 @@ CUDA-event time (``chip_smoke.time_ms``, ROOT's where ROOT has a
   and the whole ``corr_quant`` state as a request builds it
   (``build_corr_state``: quantization, the volume, its pyramid pooled
   from it and concatenated), which reads the volume back after the
-  kernel writes it.
+  kernel writes it;
+- where the tree has them, the bf16 forms: row 5 over the bf16 volume
+  pyramid (``build_corr_state(..., corr_dtype=bfloat16)``) at both shapes
+  on both fields, and row 7 writing a bf16 volume at the serving shape.
 
 Each with whether it is bitwise equal to its plain version and to a
 second call, and a SHA-256 digest of its output: equal digests from two
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import math
 import os
 import sys
@@ -100,10 +104,16 @@ def main() -> int:
     g = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
     out = []
-    for label, b, h, w in SHAPES if "corr_vol" in libs else ():
+    # the bf16 forms, where the tree has them (its wrapper takes out_dtype)
+    bf16 = "out_dtype" in inspect.signature(quant.int8_corr_volume).parameters
+    dtypes = (torch.float32, torch.bfloat16) if bf16 else (torch.float32,)
+    for label, b, h, w, dt in ((*sh, dt) for dt in dtypes for sh in SHAPES
+                               if "corr_vol" in libs):
         st = build_corr_state(torch.randn((b, h, w, C), generator=g).to(dev),
                               torch.randn((b, h, w, C), generator=g).to(dev),
-                              LEVELS, "pallas")
+                              LEVELS, "pallas", corr_dtype=dt)
+        if dt == torch.bfloat16:
+            label += " bf16"
         for kind in ("random", "smooth"):
             x = field(kind, b, h, w, g, torch).to(dev).contiguous()
 
@@ -143,6 +153,21 @@ def main() -> int:
     out.append(f"int8_volume serve {b}x{h}x{w}x{w} C{C} ms {ms:.4f} "
                f"bitwise {ok} sha {digest(k1)}")
     del k1, k2, want
+    if bf16:
+        bf = torch.bfloat16
+
+        def vol16():
+            return quant.int8_corr_volume(q1, s1, q2, s2, out_dtype=bf)
+
+        k1, k2 = vol16(), vol16()
+        want = quant.int8_volume_plain(q1, s1, q2, s2, out_dtype=bf)
+        torch.cuda.synchronize()
+        ok = (torch.equal(k1.view(torch.int16), want.view(torch.int16))
+              and torch.equal(k1.view(torch.int16), k2.view(torch.int16)))
+        ms = chip_smoke.time_ms(vol16, 50)
+        out.append(f"int8_volume bf16 serve ms {ms:.4f} bitwise {ok} sha "
+                   f"{digest(k1)}")
+        del k1, k2, want
 
     def quant_state():  # the volume as a request builds it: then pooled
         return build_corr_state(f1, f2, LEVELS, "pallas", quant=True)

@@ -502,10 +502,15 @@ def test_cli_serve_mixed_precision(monkeypatch, capsys):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(corr_dtype="bfloat16"), "Queue 1 item 7"),
-    (dict(compute_dtype="bfloat16", corr_quant=True), "Queue 1 item 7"),
-    (dict(corr_implementation="pallas", **BF16), "Queue 1 item 7"),
+    (dict(corr_dtype="bfloat16", corr_quant=True), "Queue 1 item 7"),
+    (dict(corr_implementation="pallas", corr_dtype="bfloat16"),
+     "Queue 1 item 7"),
     (dict(fused_encoder=True, compute_dtype="bfloat16"), "Queue 2")])
 def test_unported_bf16_combination_raises(kw, item):
+    """bf16 correlation at fp32 compute (with the int8 volume or the
+    ``pallas`` volume too) and the fused encoder in bf16 are refused at
+    construction; the bf16 ``pallas`` volume and the int8 tier at bf16
+    compute serve (``test_accepted_bf16_combinations_build``)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         RAFTStereo(RAFTStereoConfig(**TINY, **kw), device="cpu")
 
@@ -515,6 +520,9 @@ def test_unported_bf16_combination_raises(kw, item):
     dict(compute_dtype="bfloat16", corr_implementation="alt"),
     dict(compute_dtype="bfloat16", corr_implementation="pallas"),
     dict(compute_dtype="bfloat16", corr_dtype="bfloat16",
-         corr_implementation="reg")])
+         corr_implementation="reg"),
+    dict(corr_implementation="pallas", **BF16),
+    dict(corr_quant=True, **BF16),
+    dict(compute_dtype="bfloat16", corr_quant=True)])
 def test_accepted_bf16_combinations_build(kw):
     RAFTStereo(RAFTStereoConfig(**TINY, **kw), device="cpu")

@@ -898,13 +898,17 @@ def test_cli_profile_train_takes_mixed_precision(monkeypatch):
     (dict(corr_implementation="pallas", corr_dtype="bfloat16"),
      "Queue 1 item 7"),
     (dict(fused_encoder=True), "Queue 2"),
-    (dict(corr_quant=True), "Queue 1 item 7")],
+    (dict(corr_implementation="pallas", corr_dtype="bfloat16",
+          corr_quant=True), "Queue 1 item 7")],
     ids=["bf16_pallas_volume", "fused_encoder", "corr_quant"])
 def test_bf16_training_refusals_stay(kw, item):
-    """What bf16 training still refuses, at construction, naming its
-    ROADMAP item: the bf16 ``pallas`` volume, the fused encoder in bf16,
-    and ``corr_quant`` (the int8 tier; training would build the fp32
-    volume anyway)."""
+    """What bf16 training still refuses, naming its ROADMAP item: the
+    fused encoder in bf16 at construction; training over the bf16
+    ``pallas`` volume at a train-mode forward (the model serves it in
+    test mode), also with ``corr_quant``, which trains on the
+    unquantized volume of the configured backend."""
+    img = torch.zeros((1, 32, 48, 3))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        RAFTStereo(RAFTStereoConfig(**TINY, compute_dtype="bfloat16", **kw),
-                   device="cpu")
+        model = RAFTStereo(RAFTStereoConfig(
+            **TINY, compute_dtype="bfloat16", **kw), device="cpu")
+        model(img, img, iters=1, test_mode=False)

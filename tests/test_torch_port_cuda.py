@@ -982,6 +982,159 @@ def test_vol_wrappers_raise_instead_of_falling_back(dev):
         quant.int8_corr_volume(q, s.cpu(), q, s)
 
 
+# ---------------------------------------- rows 5 and 7, bf16 forms
+
+@pytest.mark.parametrize("shape,levels,radius", [
+    ((2, 11, 20), 4, 4), ((1, 36, 240), 4, 4), ((1, 2, 4), 4, 2)],
+    ids=["hostile", "serving_rows", "zero_width_level"])
+def test_vol_lookup_bf16_kernel_matches_plain(dev, shape, levels, radius):
+    """Row 5 over a bf16 volume pyramid: fp32 out, bitwise equal to the
+    plain version and to a second call, NaN where the coordinate is
+    NaN."""
+    rng = np.random.default_rng(70)
+    b, h, w = shape
+    st = build_corr_state(_randn(rng, b, h, w, 256).to(dev),
+                          _randn(rng, b, h, w, 256).to(dev), levels,
+                          "pallas", corr_dtype=torch.bfloat16)
+    assert st.vcat.dtype == torch.bfloat16
+    x = np.arange(w, dtype=np.float32) + rng.uniform(-w / 2, 6, (b, h, w))
+    x[0, 0, :3] = [-200.5, w + 200.25, 1e6]
+    if w > 4:
+        x[-1, -1, -1] = np.nan
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    before = cuda_vol.vol_lookup.launches
+    got = cuda_vol.vol_lookup(st.vcat, st.widths, x, radius)
+    again = cuda_vol.vol_lookup(st.vcat, st.widths, x, radius)
+    assert cuda_vol.vol_lookup.launches == before + 2
+    want = cuda_vol.vol_lookup_plain(st.vcat, st.widths, x, radius)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert _int_bits(got, want) and _int_bits(got, again)
+
+
+@pytest.mark.parametrize("widths,radius,misaligned", VOL_FWD_HOSTILE)
+def test_vol_lookup_bf16_hostile_bitwise(dev, widths, radius, misaligned):
+    """Row 5's hostile coordinates over a bf16 volume whose rows start at
+    every 2-byte alignment of a 16-byte chunk (shifts 0..7, the barrel
+    shifter's every stage): bitwise equal to plain and repeatable."""
+    rng = np.random.default_rng(80 + radius)
+    b, h, w1 = 2, 5, 64
+    w2 = sum(widths)
+    x = (np.arange(w1) - rng.uniform(0, 40, (b, h, w1))).astype(np.float32)
+    x[0, 0, :14] = [np.nan, np.inf, -np.inf, 1e30, -1e30, 127.99999,
+                    0.99999994, 63.99999, 2.0 ** 24 + 2, -200.5, w1 + 300.25,
+                    radius + 0.5, -radius - 1.0000001, 31.999998]
+    x[0, 1] = np.arange(w1) * 0.5 - 8.0
+    x[1, 2] = np.arange(w1) - 0.0000019
+    x = torch.from_numpy(x).to(dev)
+    base = _randn(rng, b * h * w1 * w2 + 8).to(dev).to(torch.bfloat16)
+    for shift in (range(8) if misaligned else (0,)):
+        vcat = base[shift:][:b * h * w1 * w2].view(b, h, w1, w2)
+        k1 = cuda_vol.vol_lookup(vcat, widths, x, radius)
+        k2 = cuda_vol.vol_lookup(vcat, widths, x, radius)
+        want = cuda_vol.vol_lookup_plain(vcat, widths, x, radius)
+        torch.cuda.synchronize()
+        assert _int_bits(k1, want) and _int_bits(k1, k2), shift
+        assert bool(want.isnan().any()) and bool((want != 0).any())
+
+
+def _bf16_bits(a, b):
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("b,h,w1,w2,c", [
+    (2, 3, 7, 9, 16), (1, 5, 70, 130, 256), (1, 3, 241, 130, 48),
+    (1, 144, 240, 240, 256)],
+    ids=["tiny", "ragged_tiles", "ragged_w1_c48", "serving"])
+def test_int8_volume_bf16_kernel_matches_plain(dev, b, h, w1, w2, c):
+    """Row 7 with a bf16 volume: bitwise equal to the plain version (the
+    fp32 epilogue rounded once) and to a second call, in 16-byte rows of
+    8 values where W2 % 8 == 0 and scalar stores otherwise; the fp32 form
+    on the same inputs rounds to the same bits."""
+    rng = np.random.default_rng(w1 + 7)
+    q1, s1 = quant.quantize_rows(_randn(rng, b, h, w1, c).to(dev))
+    q2, s2 = quant.quantize_rows(3 * _randn(rng, b, h, w2, c).to(dev))
+    bf = torch.bfloat16
+    before = quant.int8_corr_volume.launches
+    got = quant.int8_corr_volume(q1, s1, q2, s2, out_dtype=bf)
+    again = quant.int8_corr_volume(q1, s1, q2, s2, out_dtype=bf)
+    assert quant.int8_corr_volume.launches == before + 2
+    want = quant.int8_volume_plain(q1, s1, q2, s2, out_dtype=bf)
+    fp32 = quant.int8_corr_volume(q1, s1, q2, s2)
+    torch.cuda.synchronize()
+    assert got.dtype == bf and got.shape == (b, h, w1, w2)
+    assert _bf16_bits(got, want) and _bf16_bits(got, again)
+    assert _bf16_bits(got, fp32.to(bf))
+
+
+@pytest.mark.parametrize("kw,want", [
+    (dict(corr_implementation="pallas"),
+     dict(vol_lookup=3, int8_corr_volume=0, gru_update=3, alt_corr=0)),
+    (dict(corr_quant=True),
+     dict(vol_lookup=3, int8_corr_volume=1, gru_update=3, alt_corr=0)),
+    (dict(corr_quant=True, gru_backend="xla"),
+     dict(vol_lookup=3, int8_corr_volume=1, gru_update=0, alt_corr=0))],
+    ids=["fast_pallas", "turbo", "turbo_xla"])
+def test_bf16_volume_serving_on_card_never_runs_plain(dev, kw, want,
+                                                      monkeypatch):
+    """The bf16 ``pallas`` volume and the int8 tier on the card with the
+    volume kernels' and the update's plain versions patched to raise:
+    each iteration launches its path's kernels, the int8 volume once a
+    forward, and the disparities are finite fp32 and nearer the CPU's
+    forward fed the card's encoder outputs and int8 codes than 0.7 of the
+    CPU's bf16-vs-fp32 distance (2-norms, the share ``chip_smoke.py``'s
+    bf16 step holds)."""
+    cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                           corr_levels=2, corr_radius=2,
+                           compute_dtype="bfloat16", corr_dtype="bfloat16",
+                           **kw)
+    model = RAFTStereo(cfg, device=dev, seed=4)
+    cpu = RAFTStereo(cfg, device="cpu", seed=4)
+    rng = np.random.default_rng(23)
+    imgs = [torch.from_numpy(rng.uniform(0, 255, (1, 32, 48, 3))
+                             .astype(np.float32)) for _ in range(2)]
+    seen, codes, real = {}, [], quant.quantize_rows
+    cnet, fnet = model.cnet.forward, model.fnet.forward
+    monkeypatch.setattr(model.cnet, "forward",
+                        lambda x: seen.setdefault("cnet", cnet(x)))
+    monkeypatch.setattr(model.fnet, "forward",
+                        lambda x: seen.setdefault("fnet", fnet(x)))
+    monkeypatch.setattr(quant, "quantize_rows",
+                        lambda x: codes.append(real(x)) or codes[-1])
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    for mod, name in ((cuda_vol, "vol_lookup_plain"),
+                      (quant, "int8_volume_plain"),
+                      (cuda_gru, "gru_update_plain")):
+        monkeypatch.setattr(mod, name, boom)
+    fns = dict(vol_lookup=cuda_vol.vol_lookup,
+               int8_corr_volume=quant.int8_corr_volume,
+               gru_update=cuda_gru.gru_update, alt_corr=cuda_alt.alt_corr)
+    for f in fns.values():
+        f.launches = 0
+    lo, up = model(*(i.to(dev) for i in imgs), iters=3)
+    torch.cuda.synchronize()
+    assert {k: f.launches for k, f in fns.items()} == want
+    assert lo.dtype == up.dtype == torch.float32
+    assert bool(torch.isfinite(up).all())
+    monkeypatch.undo()
+    pinned = iter([tuple(t.cpu() for t in c) for c in codes])
+    monkeypatch.setattr(quant, "quantize_rows", lambda x: next(pinned))
+    cpu.cnet.forward = lambda x: [[t.cpu() for t in lvl]
+                                  for lvl in seen["cnet"]]
+    cpu.fnet.forward = lambda x: seen["fnet"].cpu()
+    lo_c, _ = cpu(*imgs, iters=3)
+    f32 = RAFTStereo(RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                                      corr_levels=2, corr_radius=2,
+                                      **dict(kw, corr_quant=False)),
+                     device="cpu", seed=4)
+    lo_f, _ = f32(*imgs, iters=3)
+    assert (float((lo.cpu() - lo_c).norm())
+            <= 0.7 * float((lo_c - lo_f).norm()))
+
+
 @pytest.mark.parametrize("kw", [dict(corr_implementation="pallas"),
                                 dict(corr_quant=True),
                                 dict(corr_implementation="reg"),
