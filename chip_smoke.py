@@ -149,7 +149,28 @@ bitwise equal to a direct engine call in its mode (no ``accuracy`` and
 ``certified`` to the base model's), each tier's launches exact
 (``TIER_PER_REQUEST``), each tier's ``meta.latency_ms`` printed; an
 unknown tier and a tier held over its bound by a second manifest are
-400s.  Prints
+400s.  Then the fused encoder in bf16 (``fused_encoder=True`` with bf16
+compute and feature maps: the fast and turbo tiers on a fused base):
+(29) hold the bf16 forms of rows 13, 9, 11, 15, 16 and 17 at the fused
+serving shapes (fnet's 2 images with sums, cnet's 1 without; row 9 in
+its prep and residual forms, row 16 in its prep and residual-projection
+forms), row 12 at the ``n_downsample=3`` shapes and row 10 at a batch-3
+fnet against their bf16 plain versions (within 1 bf16 ulp with 99% of
+the elements equal, the sums within ENC_TOL, the finishes bitwise; two
+calls bitwise equal), timed beside the plain versions, ``F.conv2d`` on
+bf16 tensors and ``torch.var_mean``; (30) serve three requests on each of
+``serve_fused_bf16`` and ``serve_fused_ds3_bf16``: launches exact (the
+encoder kernels' ``FUSED_PER_REQUEST`` or ``_DS3`` plus 32 lookups and 32
+updates), replies bitwise equal to direct engine calls, the card's
+fused trunks (stem + layer1 + layer2) within FUSED_TRUNK_TOL of the
+CPU's (fnet's limits closer than the CPU's plain bf16 encoders' trunks
+in the same run), the encoder outputs (fmap, net, inp) within
+FUSED_ENC_CARD_ULPS of the CPU's and the disparity with the encoders
+pinned within 1.0 / 1.5 px; (31)
+phase 28 again on a ``fused_encoder=True`` base (``cli.certify
+--fused_encoder``): ``fast`` and ``turbo`` advertised, their models fused
+and bf16, every reply bitwise a direct engine call, each tier's launches
+its ``TIER_PER_REQUEST`` plus the encoder kernels'.  Prints
 a ``{"kernels": [...]}`` line, one row per kernel and path (the path's
 launches beside the times and bound at its shapes), and, last,
 ``{"ok": true, "device": ...}``.
@@ -246,6 +267,28 @@ BF16_ITERS = 2   # card-vs-CPU bf16 forwards: iterations
 # O(45) px disparities by 0.13-0.38 / 0.17-0.64 px after 2 iterations,
 # against a bf16-vs-fp32 gap of 2.2-2.4 / 3.3-3.6 px.
 BF16_FORWARD_TOL = (1.0, 1.5)
+# The bf16 fused trunks (stem + layer1 + layer2: what the encoder kernels
+# compute), card vs CPU on the 64x96 pair (fused_trunks_card_vs_cpu), per
+# encoder: (max bf16 ulps of max(1, |cpu|), least share of elements
+# equal, whether both must lie closer than the CPU's plain bf16 encoders'
+# trunks in the same run).  Measured (NVIDIA H100 80GB HBM3, 700.00 W; 3
+# seeds at n_downsample 2 and 3; scripts/fused_enc_readings.py): fnet card
+# 5.0-7.0 ulps, 58-72% equal, against plain-vs-fused 15.5-18.0 ulps, 29%
+# equal: its limits tell the fused stages from the plain encoders in
+# every run.  cnet (frozen batch norm: no sums spread a flip over a
+# channel) card 1.0-1.9 ulps, 88-95% equal, against plain 1.0-1.8 ulps,
+# 92-99%: its plain encoder rounds as closely to the fused one, so there
+# only the launch counts tell them apart; held to twice the largest, 0.8.
+FUSED_TRUNK_TOL = {"fnet": (10.0, 0.45, True), "cnet": (4.0, 0.8, False)}
+# The whole encoders' outputs, card vs CPU (fused_encoders_card_vs_cpu):
+# fnet's fmap 8.5-10.0 ulps (the same script and run; 13.0 on the
+# smoke's own pair), against the CPU plain encoder's 19.5-25.7; cnet's
+# net and inp heads 5.0-20.5 ulps against plain 3.9-15.0.  The plain
+# bf16 modules after the trunk (layer3, layer4, the heads), shared by
+# both, spread these readings, so the fused stages are told from the
+# plain encoders on the trunks above; the outputs are held to about
+# 1.5x the largest reading.
+FUSED_ENC_CARD_ULPS = 32.0
 # Rows 3, 4 (general taps) and 8 against their plain versions: the lookup
 # in fp32 within 1e-5 of max(1, |plain|) (dots of length 256 summed in
 # another order), with a bf16 output within one bf16 ulp; the backward
@@ -520,7 +563,9 @@ def _ptxas_label(mangled: str) -> str:
     mangled kernel name."""
     name = re.search(r"(gru_mma_conv_kernel|gru_simt_conv_kernel|"
                      r"conv3x3_few_out_kernel|pad_rows_kernel|"
-                     r"enc_conv_tc_kernel|stem7_tc_kernel)I(.*?)EEv", mangled)
+                     r"enc_conv_tc_kernel|stem7_tc_kernel|"
+                     r"enc_conv_tc_bf16_kernel|stem7_bf16_kernel)I(.*?)EEv",
+                     mangled)
     if not name:  # _ZN <namespace> <name> E...: lengths, then characters
         ns = re.match(r"_ZN(\d+)", mangled)
         at = ns.end() + int(ns.group(1)) if ns else 0
@@ -539,7 +584,9 @@ def build_report(name, lib) -> None:
     = 16*NT weight rows per plane, 4 stages where one is at most 28 KB,
     else 3, and a barrier per stage; rows 9, 15 and 16's
     ``enc_conv_tc_kernel<stride,mode,projection,MT,NT>``'s and rows 13
-    and 12's ``stem7_tc_kernel<stride>``'s are set at launch), and the
+    and 12's ``stem7_tc_kernel<stride>``'s, and their bf16 forms'
+    ``enc_conv_tc_bf16_kernel`` and ``stem7_bf16_kernel``, are set at
+    launch), and the
     tensor-core instructions in the library, which must not be 0."""
     entry = spill = None
     for line in lib.with_suffix(".log").read_text().splitlines():
@@ -1020,6 +1067,242 @@ def encoder_kernel_phase(model, bucket, torch):
         "pallas_encoder.py:476)", f"{dims(big)} (batch 3)",
         lambda: ce.plane_stats(big), lambda: ce.stats_plain(big), n,
         ENC_TOL, 4 * (big.numel() + 2 * 6 * 64), 3 * big.numel(),
+        lib=lambda: torch.var_mean(big, dim=(2, 3), correction=0), reps=10)
+    return rows
+
+
+# The fused encoder's bf16 forms against their bf16 plain versions: a
+# convolution's exact bf16 products summed in fp32 in another order round
+# to the other bf16 neighbour at a boundary (1 ulp of max(1, |plain|), at
+# least 99% of the elements equal; the fp32 output sums within ENC_TOL
+# per pixel); the finishes round each op as plain does (bitwise).
+ENC_BF16_ULPS, ENC_BF16_EQUAL = 1.0, 0.99
+
+
+def enc_bf16_row(rows, path, name, replaces, path_shape, kern, plain, n,
+                 nbytes, flops, torch, lib=None, reps=5, products=0,
+                 exact=False):
+    """A bf16 encoder kernel held against its bf16 plain version (two
+    calls bitwise equal; bf16 outputs within ENC_BF16_ULPS with
+    ENC_BF16_EQUAL of them equal, or bitwise where ``exact``; fp32 (B, C)
+    sums within ENC_TOL per pixel, divided by ``n``) and timed beside it
+    and ``lib``; appends its row for ``path``: ``max_bf16_ulps`` and
+    ``equal_share`` of its first bf16 output, ``sums_max_rel`` the largest
+    relative sums error per pixel, each null where the kernel has no such
+    output (row 10 has no bf16 output).  ``products`` of the ``flops`` run
+    on the bf16 tensor cores (``bound_ms``), the rest on the CUDA cores.
+    Without ``nbytes`` it is held only."""
+    bf = torch.bfloat16
+    k1, k2, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    k1, k2, want = _leaves(k1), _leaves(k2), _leaves(want)
+    check(len(k1) == len(want), f"{name}: {len(k1)} outputs vs {len(want)}")
+    check(all(torch.equal(a, b) for a, b in zip(k1, k2)),
+          f"{name} {path_shape}: two calls on the same inputs differ")
+    err = equal = rel = None  # set only from this kernel's outputs
+    for i, (a, w) in enumerate(zip(k1, want)):
+        check(a.dtype == w.dtype, f"{name}: dtype {a.dtype} vs {w.dtype}")
+        if a.dtype == bf:
+            u, eq = ulps(a, w), float((a == w).float().mean())
+            if i == 0:
+                err, equal = u, eq
+            check(torch.equal(a, w) if exact else
+                  (u <= ENC_BF16_ULPS and eq >= ENC_BF16_EQUAL),
+                  f"{name} {path_shape}: {u} bf16 ulps, {eq} of elements "
+                  f"equal to plain")
+        else:
+            d = float(((a - w) / n).abs().max())
+            r = d / max(1.0, float((w / n).abs().max()))
+            rel = r if rel is None else max(rel, r)
+            check(r <= ENC_TOL, f"{name} {path_shape}: sums {r}")
+    abs_err = float((k1[0].float() - want[0].float()).abs().max())
+    held = [f"max {err:.3f} bf16 ulps, {equal:.5f} of elements equal"
+            f"{' (bitwise)' if exact else ''}"] if err is not None else []
+    held += [f"sums max rel/pixel {rel:.3e}"] if rel is not None else []
+    print(f"{name} {path_shape} bf16: {', '.join(held)} (tol "
+          f"{ENC_BF16_ULPS} ulps, {ENC_BF16_EQUAL} equal, {ENC_TOL}); "
+          f"bitwise repeatable")
+    if nbytes is None:
+        return
+    ms, plain_ms = time_ms(kern, reps), time_ms(plain, reps)
+    lib_ms = time_ms(lib, reps) if lib is not None else None
+    bound_ms, bound_by = bound(nbytes, flops - products, bf16_flops=products)
+    print(f"{name} {path_shape} bf16 ms {ms:.4f} plain_ms {plain_ms:.4f} "
+          f"library_ms {lib_ms} bound_ms {bound_ms:.4f} ({bound_by}"
+          f"{', bf16 tensor cores' if products else ''}) [{CARD}]")
+    src = ENCODER_SOURCES.get(name, "enc_conv")
+    rows.append(dict(name=name, path=path, shape=f"{path_shape} bf16",
+                     route="cuda",
+                     source=f"raftstereo_tpu_torch/csrc/{src}.cu",
+                     replaces=replaces, max_abs_err=abs_err,
+                     max_bf16_ulps=err, equal_share=equal,
+                     sums_max_rel=rel, ms=ms,
+                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=lib_ms))
+
+
+def encoder_bf16_kernel_phase(model, bucket, torch):
+    """The fused encoder kernels' bf16 forms against their bf16 plain
+    versions at the bf16 fused serving path's shapes (``serve_fused_bf16``:
+    fnet 2 images with sums, cnet 1 image without; layer2 at 288x480), row
+    12 at the ``n_downsample=3`` path's (``serve_fused_ds3_bf16``) and row
+    10 at a batch-3 fnet (6 images); one timed row per kernel, beside
+    ``F.conv2d`` on bf16 tensors (cuDNN) and ``torch.var_mean``."""
+    import torch.nn.functional as F
+
+    from raftstereo_tpu_torch.ops import cuda_encoder as ce
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(18)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    def aff(b, c):  # fp32; shifts > 0: padding before the prep would show
+        return ((0.5 + torch.rand((b, c), generator=g)).to(dev),
+                (0.5 * torch.rand((b, c), generator=g)).to(dev))
+
+    def wb(m):
+        return m.weight.detach(), m.bias.detach()
+
+    def wb16(m):
+        return m.weight.detach().to(bf), m.bias.detach().to(bf)
+
+    enc = model.fnet
+    l0, l1 = enc.layer1
+    m0, _ = enc.layer2
+    h, w = bucket
+    h2, w2 = h // 2, w // 2
+    rows = []
+    path = "serve_fused_bf16"
+
+    def row(*args, **kw):
+        enc_bf16_row(rows, path, *args, torch=torch, **kw)
+
+    # -- fnet, 2 images: conv1 (row 13), layer1 (row 9), finish (row 11)
+    img = torch.tanh(randn(2, 3, h, w)).to(bf)
+    w1, b1 = wb(enc.conv1)
+    w1h, b1h = wb16(enc.conv1)
+    n = float(h * w)
+    out = 2 * 64 * h * w
+    row("stem_conv7", "raftstereo_tpu/ops/pallas_encoder.py:648",
+        dims(img), lambda: ce.stem_conv7(img, w1, b1),
+        lambda: ce.conv_plain(img, w1, b1, 1), n,
+        2 * (img.numel() + w1.numel() + 64 + out) + 4 * 2 * 2 * 64,
+        conv_cost(img, w1, out, n_in=0),
+        lib=lambda: F.conv2d(img, w1h, b1h, 1, 3), reps=10,
+        products=conv_products(w1, out))
+    img1 = img[:1].contiguous()  # cnet's image: no sums
+    row("stem_conv7", "raftstereo_tpu/ops/pallas_encoder.py:648",
+        f"{dims(img1)} no sums",
+        lambda: ce.stem_conv7(img1, w1, b1, want_stats=False),
+        lambda: ce.conv_plain(img1, w1, b1, 1, want_stats=False), 1.0, None,
+        0)
+    x = randn(2, 64, h, w).to(bf)
+    r = randn(2, 64, h, w).to(bf)
+    a, ra = aff(2, 64), aff(2, 64)
+    wc, bc = wb(l0.conv1)
+    wch, bch = wb16(l0.conv1)
+    row("stage_conv", "raftstereo_tpu/ops/pallas_encoder.py:348",
+        f"{dims(x)} res form",
+        lambda: ce.stage_conv(x, a, wc, bc, res=r, res_aff=ra),
+        lambda: ce.conv_plain(x, wc, bc, 1, a, r, ra), n, None, 0)
+    row("stage_conv", "raftstereo_tpu/ops/pallas_encoder.py:338, :348",
+        dims(x), lambda: ce.stage_conv(x, a, wc, bc),
+        lambda: ce.conv_plain(x, wc, bc, 1, a), n,
+        2 * (2 * x.numel() + wc.numel() + 64) + 4 * (2 * 2 * 64 + 2 * 2 * 64),
+        conv_cost(x, wc, x.numel(), n_in=1),
+        lib=lambda: F.conv2d(x, wch, bch, 1, 1),
+        products=conv_products(wc, x.numel()))
+    c = randn(2, 64, h, w).to(bf)
+    a2, a3 = aff(2, 64), aff(2, 64)
+    row("stage_finish", "raftstereo_tpu/ops/pallas_encoder.py:364",
+        dims(x), lambda: ce.stage_finish(x, a, r, a2, c, a3),
+        lambda: ce.finish_plain(x, a, r, a2, c, a3), n,
+        2 * 4 * x.numel() + 4 * 6 * 2 * 64, 12 * x.numel(), reps=20,
+        exact=True)
+
+    # -- fnet layer2: entry (row 15), convs (row 16), finish (row 17)
+    t = torch.relu(x)
+    we, be = wb(m0.conv1)
+    wp, bp = wb(m0.downsample[0])
+    weh, beh = wb16(m0.conv1)
+    n2 = float(h2 * w2)
+    out2 = 2 * 96 * h2 * w2
+    row("l2_entry", "raftstereo_tpu/ops/pallas_layer2.py:118",
+        dims(t), lambda: ce.l2_entry(t, we, be, wp, bp),
+        lambda: ce.entry_plain(t, we, be, wp, bp), n2,
+        2 * (t.numel() + we.numel() + wp.numel() + 2 * 96 + 2 * out2)
+        + 4 * 2 * 2 * 2 * 96,
+        conv_cost(t, we, out2, n_in=0, proj_flops=2 * out2 * 64) + 4 * out2,
+        lib=lambda: F.conv2d(t, weh, beh, 2, 1),
+        products=conv_products(we, out2, proj_flops=2 * out2 * 64))
+    y = randn(2, 96, h2, w2).to(bf)
+    p = randn(2, 96, h2, w2).to(bf)
+    b_, pb = aff(2, 96), aff(2, 96)
+    wl, bl = wb(m0.conv2)
+    wlh, blh = wb16(m0.conv2)
+    row("l2_conv", "raftstereo_tpu/ops/pallas_layer2.py:212",
+        f"{dims(y)} res_proj form",
+        lambda: ce.l2_conv(y, b_, wl, bl, res=p, res_aff=pb),
+        lambda: ce.conv_plain(y, wl, bl, 1, b_, p, pb, res_relu=False), n2,
+        None, 0)
+    row("l2_conv", "raftstereo_tpu/ops/pallas_layer2.py:201, :212",
+        dims(y), lambda: ce.l2_conv(y, b_, wl, bl),
+        lambda: ce.conv_plain(y, wl, bl, 1, b_), n2,
+        2 * (2 * y.numel() + wl.numel() + 96) + 4 * 4 * 2 * 96,
+        conv_cost(y, wl, y.numel(), n_in=1),
+        lib=lambda: F.conv2d(y, wlh, blh, 1, 1),
+        products=conv_products(wl, y.numel()))
+    q, a4 = randn(2, 96, h2, w2).to(bf), aff(2, 96)
+    row("l2_finish", "raftstereo_tpu/ops/pallas_layer2.py:228",
+        dims(y), lambda: ce.l2_finish(p, pb, y, b_, q, a4),
+        lambda: ce.finish_plain(p, pb, y, b_, q, a4, a_relu=False), n2,
+        2 * 4 * y.numel() + 4 * 6 * 2 * 96, 12 * y.numel(), reps=20,
+        exact=True)
+
+    # -- cnet, 1 image, batch norm: the same kernels without sums
+    x1, t1 = x[:1].contiguous(), t[:1].contiguous()
+    y1, p1 = y[:1].contiguous(), p[:1].contiguous()
+    ab, b1_, pb1 = aff(1, 64), aff(1, 96), aff(1, 96)
+    row("stage_conv", "", f"{dims(x1)} no sums",
+        lambda: ce.stage_conv(x1, ab, wc, bc, want_stats=False),
+        lambda: ce.conv_plain(x1, wc, bc, 1, ab, want_stats=False), 1.0,
+        None, 0)
+    row("l2_entry", "", f"{dims(t1)} no sums",
+        lambda: ce.l2_entry(t1, we, be, wp, bp, want_stats=False),
+        lambda: ce.entry_plain(t1, we, be, wp, bp, want_stats=False), 1.0,
+        None, 0)
+    row("l2_conv", "", f"{dims(y1)} res_proj form no sums",
+        lambda: ce.l2_conv(y1, b1_, wl, bl, res=p1, res_aff=pb1,
+                           want_stats=False),
+        lambda: ce.conv_plain(y1, wl, bl, 1, b1_, p1, pb1, res_relu=False,
+                              want_stats=False), 1.0, None, 0)
+
+    # -- the n_downsample=3 path: the stride-2 conv1 (row 12), fnet's 2
+    # images with sums (timed) and cnet's 1 without (held)
+    path = "serve_fused_ds3_bf16"
+    outs2 = 2 * 64 * h2 * w2
+    row("stem_conv7_s2", "raftstereo_tpu/ops/pallas_encoder.py:721",
+        f"{dims(img)} (n_downsample=3)",
+        lambda: ce.stem_conv7_s2(img, w1, b1),
+        lambda: ce.conv_plain(img, w1, b1, 2), n2,
+        2 * (img.numel() + w1.numel() + 64 + outs2) + 4 * 2 * 2 * 64,
+        conv_cost(img, w1, outs2, n_in=0),
+        lib=lambda: F.conv2d(img, w1h, b1h, 2, 3), reps=10,
+        products=conv_products(w1, outs2))
+    row("stem_conv7_s2", "", f"{dims(img1)} no sums (n_downsample=3)",
+        lambda: ce.stem_conv7_s2(img1, w1, b1, want_stats=False),
+        lambda: ce.conv_plain(img1, w1, b1, 2, want_stats=False), 1.0, None,
+        0)
+    # -- off the batch-1 path: row 10 at a batch-3 fnet
+    path = "serve_fused_bf16"
+    big = randn(6, 64, h, w).to(bf)
+    row("plane_stats", "raftstereo_tpu/ops/pallas_norm.py:47 (via "
+        "pallas_encoder.py:476)", f"{dims(big)} (batch 3)",
+        lambda: ce.plane_stats(big), lambda: ce.stats_plain(big), n,
+        2 * big.numel() + 4 * 2 * 6 * 64, 3 * big.numel(),
         lib=lambda: torch.var_mean(big, dim=(2, 3), correction=0), reps=10)
     return rows
 
@@ -1860,6 +2143,9 @@ def bf16_forward_card_vs_cpu(model, rng, torch):
     finally:
         del model.cnet.forward, model.fnet.forward
         quant.quantize_rows = real
+    if cfg.fused_encoder:
+        fused_trunks_card_vs_cpu(model, cpu_model, i1, i2, torch)
+        fused_encoders_card_vs_cpu(cpu_model, seen, i1, i2, torch)
     cpu_model.cnet.forward = lambda x: [[t.cpu() for t in lvl]
                                         for lvl in seen["cnet"]]
     cpu_model.fnet.forward = lambda x: seen["fnet"].cpu()
@@ -1883,6 +2169,93 @@ def bf16_forward_card_vs_cpu(model, rng, torch):
         check(bool(torch.isfinite(a).all()) and err <= tol < gap,
               f"card {tag}forward differs from the CPU forward ({name}: "
               f"{err}, tol {tol}, bf16-vs-fp32 gap {gap})")
+
+
+def _norm_bf16(img, torch):
+    """The model's image normalisation, in bf16 and NCHW."""
+    return (2.0 * (img.float() / 255.0) - 1.0).to(torch.bfloat16).permute(
+        0, 3, 1, 2)
+
+
+def fused_trunk_readings(model, cpu_model, i1, i2, torch):
+    """The bf16 fused trunks (stem + layer1 + layer2: what the encoder
+    kernels compute) of fnet (both images) and cnet (the left one): the
+    card's (kernels) against the CPU's (plain versions) in max bf16 ulps
+    of max(1, |cpu|) and share of elements equal, beside the CPU's
+    plain-encoder trunk (``fused_stem=False``: the plain bf16 convolutions
+    and norms) against the same CPU fused trunk.  Returns
+    {encoder: (card ulps, card equal share, plain ulps, plain equal
+    share)}."""
+    from raftstereo_tpu_torch.models import encoders
+
+    def trunk(enc, x):
+        return encoders._trunk_layer2(enc, encoders._stem_layer1(enc, x))
+
+    a, b = _norm_bf16(i1, torch), _norm_bf16(i2, torch)
+    out = {}
+    for name, x in (("fnet", torch.cat([a, b]).contiguous()),
+                    ("cnet", a.contiguous())):
+        card_enc, cpu_enc = getattr(model, name), getattr(cpu_model, name)
+        with torch.inference_mode():
+            card = trunk(card_enc, x.cuda()).cpu()
+            cpu = trunk(cpu_enc, x)
+            fused, cpu_enc.fused_stem = cpu_enc.fused_stem, False
+            try:
+                plain = trunk(cpu_enc, x)
+            finally:
+                cpu_enc.fused_stem = fused
+        out[name] = (ulps(card, cpu), float((card == cpu).float().mean()),
+                     ulps(plain, cpu), float((plain == cpu).float().mean()))
+    return out
+
+
+def fused_trunks_card_vs_cpu(model, cpu_model, i1, i2, torch):
+    """The card's bf16 fused trunks against the CPU's within their
+    FUSED_TRUNK_TOL ulps and equal share; for fnet both limits must also
+    lie closer than the CPU's plain bf16 encoders' reading in this run
+    (``fused_trunk_readings``), so that the hold tells the fused stages
+    from the plain encoders."""
+    for name, (u, eq, pu, peq) in fused_trunk_readings(
+            model, cpu_model, i1, i2, torch).items():
+        lim, floor, apart = FUSED_TRUNK_TOL[name]
+        print(f"fused bf16 trunk {name} card vs cpu: max {u:.3f} bf16 ulps, "
+              f"{eq:.4f} of elements equal (tol {lim} ulps, {floor} equal"
+              f"{', below the plain reading' if apart else ''}); cpu "
+              f"plain-encoder trunk vs fused: max {pu:.3f} ulps, {peq:.4f} "
+              f"equal")
+        ok = u <= lim and eq >= floor
+        check(ok and (not apart or (lim < pu and floor > peq)),
+              f"fused bf16 trunk {name}: card vs cpu {u} ulps, {eq} equal; "
+              f"plain vs fused {pu} ulps, {peq} equal; limits {lim} ulps, "
+              f"{floor} equal")
+
+
+def fused_encoders_card_vs_cpu(cpu_model, seen, i1, i2, torch):
+    """The bf16 fused encoders' outputs of a card forward (kernels) against
+    the CPU's (plain versions) on the same normalised images: fnet's
+    feature maps (``fmap``) and cnet's hidden and context heads per level
+    (``net``, ``inp``), each within FUSED_ENC_CARD_ULPS of max(1, |cpu|).
+    The card's conv sums round an output to the other bf16 neighbour now
+    and then (its fp32 sums in another order), and the stages after it
+    spread the flip (a conv to its neighbours, an instance norm's sums to
+    its channel), as between the port and JAX on the CPU
+    (tests/test_torch_port_enc_bf16.py)."""
+    bf = torch.bfloat16
+    a, b = _norm_bf16(i1, torch), _norm_bf16(i2, torch)
+    with torch.inference_mode():
+        fmap = cpu_model.fnet(torch.cat([a, b]).contiguous())
+        ctx = cpu_model.cnet(a.contiguous())
+    outs = [("fmap", seen["fnet"], fmap)] + [
+        (f"{('net', 'inp')[k]}{lvl}", seen["cnet"][lvl][k], ctx[lvl][k])
+        for lvl in range(len(ctx)) for k in range(2)]
+    for name, g, c in outs:
+        g = g.cpu()
+        u, eq = ulps(g, c), float((g == c).float().mean())
+        print(f"fused bf16 encoder {name} {dims(g)} card vs cpu: max {u:.3f}"
+              f" bf16 ulps, {eq:.4f} of elements equal (tol "
+              f"{FUSED_ENC_CARD_ULPS})")
+        check(g.dtype == bf and u <= FUSED_ENC_CARD_ULPS,
+              f"fused bf16 encoder {name}: card vs cpu {u} ulps")
 
 
 def serving_wrappers():
@@ -1950,6 +2323,8 @@ def serve_tiers_phase(model, scfg, pairs, torch):
              "--cert_height", str(TIER_CERT[0][0]), "--cert_width",
              str(TIER_CERT[0][1]), "--cert_pairs", str(TIER_CERT[1]),
              "--cert_iters", str(TIER_CERT[2])]
+    flags += ["--fused_encoder"] * bool(cfg.fused_encoder)
+    tag = "fused " * bool(cfg.fused_encoder)
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         path, over = os.path.join(tmp, "cert.json"), os.path.join(
@@ -1982,6 +2357,11 @@ def serve_tiers_phase(model, scfg, pairs, torch):
               f"advertised {server.tiers}, refused {server.tier_reasons}")
         check(server.tiers == {"certified": "fp32", "fast": "bf16",
                                "turbo": "int8"}, f"tiers {server.tiers}")
+        for mode in ("bf16", "int8"):  # a fused base's tiers stay fused
+            tcfg = server.engine.model_for(mode).config
+            check(tcfg.compute_dtype == "bfloat16"
+                  and tcfg.fused_encoder == cfg.fused_encoder,
+                  f"{tag}tier model {mode}: {tcfg}")
         refusing = build_server(model, dataclasses.replace(
             scfg, tiers=("certified", "turbo"), cert_manifest=over),
             device="cuda", warmup=False)
@@ -2020,7 +2400,7 @@ def serve_tiers_phase(model, scfg, pairs, torch):
                         check(np.array_equal(disp, base),
                               f"{accuracy}: not the base model's bits")
                 launches[accuracy or "default"] = got
-                print(f"tier {accuracy or '(none)'}: meta.latency_ms "
+                print(f"{tag}tier {accuracy or '(none)'}: meta.latency_ms "
                       f"{[round(v, 3) for v in lat]} launches "
                       f"{launches[accuracy or 'default']} [{CARD}]")
             left, right = pairs[0]
@@ -2036,8 +2416,12 @@ def serve_tiers_phase(model, scfg, pairs, torch):
             for srv in (server, refusing):
                 srv.shutdown()
                 srv.server_close()
+    # a fused base's every tier runs the encoder kernels too (in its
+    # compute dtype: fp32 for certified, bf16 for fast and turbo)
+    enc = FUSED_PER_REQUEST if cfg.fused_encoder else {}
     for tier, per_request in TIER_PER_REQUEST.items():
-        want = {k: v * len(pairs) for k, v in per_request.items()}
+        want = {k: v * len(pairs) for k, v in dict(per_request, **enc).items()
+                if v}
         check(launches[tier] == want, f"tier {tier}: launches "
                                       f"{launches[tier]}, want {want}")
     return launches
@@ -3046,6 +3430,7 @@ def main() -> int:
     rows += bf16_backward_phase(model, torch)
     vol_rows, op_vol_launches = vol_bf16_kernel_phase(cfg, lo_hw, torch)
     rows += vol_rows
+    rows += encoder_bf16_kernel_phase(model, bucket, torch)
 
     def want(**per_request):
         return {fn.__name__: REQUESTS * per_request.get(fn.__name__, 0)
@@ -3077,6 +3462,7 @@ def main() -> int:
     # the earlier phases' inputs stay as they were.
     vol_rng, bf16_rng = np.random.default_rng(1), np.random.default_rng(2)
     ds3_rng, tier_rng = np.random.default_rng(3), np.random.default_rng(4)
+    fused_bf16_rng = np.random.default_rng(5)
     bf16 = dict(compute_dtype="bfloat16", corr_dtype="bfloat16")
     for path, kw, per_request, r in (
             ("serve_fused", dict(fused_encoder=True),
@@ -3098,7 +3484,14 @@ def main() -> int:
              dict(vol_lookup=ITERS, gru_update=ITERS), tier_rng),
             ("serve_turbo", dict(bf16, corr_quant=True),
              dict(int8_corr_volume=1, vol_lookup=ITERS, gru_update=ITERS),
-             tier_rng)):
+             tier_rng),
+            ("serve_fused_bf16", dict(bf16, fused_encoder=True),
+             dict(FUSED_PER_REQUEST, alt_corr=ITERS, gru_update=ITERS),
+             fused_bf16_rng),
+            ("serve_fused_ds3_bf16", dict(bf16, fused_encoder=True,
+                                          n_downsample=3),
+             dict(FUSED_PER_REQUEST_DS3, alt_corr=ITERS, gru_update=ITERS),
+             fused_bf16_rng)):
         m = RAFTStereo(dataclasses.replace(cfg, **kw), device="cuda", seed=0)
         by_path[path] = serve_and_check(m, per_request, r)
         del m
@@ -3106,11 +3499,12 @@ def main() -> int:
     by_path["serve_bf16_pallas_smooth"] = by_path["serve_bf16_pallas"]
     by_path.update(op_vol_launches)
     # The accuracy tiers of the fp32 flagship, through cli.certify and the
-    # server's accuracy field.
-    m = RAFTStereo(cfg, device="cuda", seed=0)
-    serve_tiers_phase(m, scfg, pairs, torch)
-    del m
-    torch.cuda.empty_cache()
+    # server's accuracy field, on the plain and on the fused encoders.
+    for kw in ({}, dict(fused_encoder=True)):
+        m = RAFTStereo(dataclasses.replace(cfg, **kw), device="cuda", seed=0)
+        serve_tiers_phase(m, scfg, pairs, torch)
+        del m
+        torch.cuda.empty_cache()
     for impl in ("reg", "alt"):  # the XLA lookups: plain PyTorch on the card
         forward_card_vs_cpu(RAFTStereo(dataclasses.replace(
             cfg, corr_implementation=impl), device="cuda", seed=0),

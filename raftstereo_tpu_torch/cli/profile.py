@@ -53,8 +53,10 @@ from ..serve.engine import BatchEngine
 
 # Kernel-name prefixes of each CUDA source (csrc/*.cu), then the library
 # convolutions and matrix products.
-_GROUPS = {"enc_conv_tc": ("enc_conv_tc_kernel", "enc_conv_tc_stats_kernel"),
-           "enc_conv": ("enc_conv_stats_kernel", "stem7_tc_kernel"),
+_GROUPS = {"enc_conv_tc": ("enc_conv_tc_kernel", "enc_conv_tc_stats_kernel",
+                           "enc_conv_tc_bf16_kernel"),
+           "enc_conv": ("enc_conv_stats_kernel", "stem7_tc_kernel",
+                        "stem7_bf16_kernel"),
            "enc_stats": ("enc_plane_stats_kernel",),
            "dual_sums": ("enc_dual_sums_kernel",),
            "enc_finish": ("enc_finish_kernel",),

@@ -77,7 +77,28 @@
 // gathers and splits and their address arithmetic, not the tensor cores,
 // set its pace (splitting A in registers as it is gathered, which halves
 // the gathers but adds three operations a value, was 9% slower).
+//
+// The bf16 forms (`enc_stem7_tc_forward` with `bf16` set: the JAX kernels at
+// dt=bfloat16, `img.astype(dt)` and the weights and bias `.astype(dt)`,
+// pallas_encoder.py:802-807, :863-869) are `stem7_bf16_kernel<S>`, the
+// same persistent design over bf16 operands: K = 147 in (ci, dy, dx)
+// order padded to 160, 10 k-steps of one
+// `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` (exact products,
+// fp32 sums: 4 k-steps a fresh accumulator, added in fp32), the bf16 bias
+// added in fp32, the sums of that fp32 output, the output stored rounded
+// to bf16 once.  The resident weights are bf16 rows of 16 k (20 KB); the
+// input planes bf16, one per buffer (no hi/lo split); an A register is
+// two k of one pixel (k 2t, 2t+1, or + 8), each gathered through the
+// table as a 2-byte load.  The next tile's raw values are 2 bytes, below
+// `cp.async`'s 4: each thread loads them into registers during the
+// products and stores them after.  Bound (989 TFLOP/s dense bf16): row 13
+// at 576x960 10.4 GFLOP against 74 MB, 0.022 ms per image by bytes; row
+// 12 2.6 GFLOP against 21 MB, 0.0063 ms by bytes.  A first form: right
+// and simple, with the fp32 form's gathers as its pace.
 
+#include "enc_bf16.cuh"
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -214,14 +235,19 @@ __device__ __forceinline__ uint32_t row_off(int n, int u) {
   return (uint32_t)(n * kRow + (((u ^ (n >> 2)) & 1) << 4));
 }
 
-struct StemArgs {
-  const float* x;     // (B, 3, H, W)
-  const float* w;     // (64, 3, 7, 7), OIHW
-  const float* bias;  // (64)
-  float* y;           // (B, 64, Ho, Wo)
+// In: the image's and weights' element (float, or a bf16's bits as
+// unsigned short); Out: the bias's and output's (float or __nv_bfloat16).
+template <typename In, typename Out>
+struct StemArgsT {
+  const In* x;        // (B, 3, H, W)
+  const In* w;        // (64, 3, 7, 7), OIHW
+  const Out* bias;    // (64)
+  Out* y;             // (B, 64, Ho, Wo)
   float* partials;    // (B, nb, 2, 64) per-tile sums, or null (no stats)
   int batch, h, win, ho, wo, tiles_w, nb;
 };
+using StemArgs = StemArgsT<float, float>;
+using StemArgsB = StemArgsT<unsigned short, __nv_bfloat16>;
 
 template <int S>
 __global__ void __launch_bounds__(kStemThreads, 1)
@@ -442,21 +468,22 @@ stem7_tc_kernel(const StemArgs a) {
   }
 }
 
-template <int S>
-int launch_stem7_tc(const StemArgs& a, float* stats, cudaStream_t st) {
-  static int grid_max = 0;  // persistent blocks: as many as fit the SMs
+// A persistent stem kernel (as many blocks as fit the SMs, found at its
+// first launch into `grid_max`), then the sums' reduction.
+template <typename A>
+int launch_stem7(void (*kernel)(A), int smem, int& grid_max, const A& a,
+                 float* stats, cudaStream_t st) {
   if (grid_max == 0) {
     cudaError_t e = cudaFuncSetAttribute(
-        stem7_tc_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        StemTile<S>::kSmem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     int dev = 0, sms = 0, per_sm = 0;
     e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, stem7_tc_kernel<S>, kStemThreads, StemTile<S>::kSmem);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kStemThreads, smem);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     grid_max = sms * per_sm;
@@ -466,7 +493,7 @@ int launch_stem7_tc(const StemArgs& a, float* stats, cudaStream_t st) {
   const int total = a.batch * a.nb;
   const int rounds = (total + grid_max - 1) / grid_max;
   const int grid = (total + rounds - 1) / rounds;
-  stem7_tc_kernel<S><<<grid, kStemThreads, StemTile<S>::kSmem, st>>>(a);
+  kernel<<<grid, kStemThreads, smem, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || stats == nullptr) return (int)e;
   const int ch2 = 2 * kStemOut;
@@ -476,18 +503,239 @@ int launch_stem7_tc(const StemArgs& a, float* stats, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------- rows 13 and 12 in bf16
+
+constexpr int kStemKStepsB = (kStemK + 15) / 16;     // 10 of 16
+constexpr int kStemTapBytesB = kStemOut * kRow;      // 64 rows of 16 bf16
+constexpr int kStemWBytesB = kStemKStepsB * kStemTapBytesB;
+constexpr int kStemTabBytesB = 16 * kStemKStepsB * 4;
+
+template <int S>
+struct StemTileB {
+  using T = StemTile<S>;
+  static constexpr int kPlane = T::kPlane;       // bf16 values of a tile
+  static constexpr int kPlaneStride = (T::kPlaneStride + 7) / 8 * 8;
+  static constexpr int kIPT = T::kIPT;
+  static constexpr int kPlanesBytes = 2 * kPlaneStride * 2;  // 2 buffers
+  static constexpr int kSmem =
+      kStemWBytesB + kPlanesBytes + kStemRedBytes + kStemTabBytesB;
+  static_assert(kSmem <= 232448, "the block's shared memory fits an SM");
+};
+
+template <int S>
+__global__ void __launch_bounds__(kStemThreads, 1)
+stem7_bf16_kernel(const StemArgsB a) {
+  using T = StemTile<S>;
+  using G = StemTileB<S>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / kStemWarpsN, wn = warp % kStemWarpsN;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t sw = (uint32_t)__cvta_generic_to_shared(smem);
+  unsigned short* planes =
+      reinterpret_cast<unsigned short*>(smem + kStemWBytesB);
+  float* red = reinterpret_cast<float*>(smem + kStemWBytesB + G::kPlanesBytes);
+  int* tab = reinterpret_cast<int*>(smem + G::kSmem - kStemTabBytesB);
+  const int total = a.batch * a.nb;
+
+  // ---- a tile's input: item it = its plane index (ci, staged row,
+  // column plane, column), as the fp32 kernel's; each thread loads its
+  // items' bf16 values into registers (zero outside the image and in the
+  // unused slots), then stores them into a plane buffer.
+  unsigned short rv[G::kIPT];
+  auto tile_at = [&](int tile, int& b, int& oy0, int& ox0) {
+    b = tile / a.nb;
+    const int tb = tile - b * a.nb;
+    oy0 = (tb / a.tiles_w) * kStemTH;
+    ox0 = (tb % a.tiles_w) * kStemTW;
+  };
+  auto load = [&](int tile) {
+    int b, oy0, ox0;
+    tile_at(tile, b, oy0, ox0);
+#pragma unroll
+    for (int s = 0; s < G::kIPT; ++s) {
+      int it = tid + s * kStemThreads;
+      asm volatile("" : "+r"(it));
+      if (it >= G::kPlane) break;
+      const int ci = it / (T::kIH * T::kIW);
+      const int p = it - ci * (T::kIH * T::kIW);
+      const int q = p % T::kIW, c = q % T::kPS;
+      const int gy = oy0 * S - kStemKS / 2 + p / T::kIW;
+      const int gx = ox0 * S - kStemKS / 2 + c * S + q / T::kPS;
+      const bool ok = c < T::kHalf && gy >= 0 && gy < a.h && gx >= 0 &&
+                      gx < a.win;
+      const long off =
+          ok ? (((long)b * kStemIn + ci) * a.h + gy) * a.win + gx : 0;
+      rv[s] = ok ? __ldg(a.x + off) : (unsigned short)0;
+    }
+  };
+  auto store = [&](int buf) {
+    unsigned short* pl = planes + buf * G::kPlaneStride;
+#pragma unroll
+    for (int s = 0; s < G::kIPT; ++s) {
+      int it = tid + s * kStemThreads;
+      asm volatile("" : "+r"(it));
+      if (it >= G::kPlane) break;
+      pl[it] = rv[s];
+    }
+  };
+
+  // ---- once per block: the weights, k = ci * 49 + dy * 7 + dx at k-step
+  // k / 16, position k % 16 of row n (the two 8-k halves of a row swapped
+  // where bit 2 of n is set), the pad k (147 .. 159) zero; the gather
+  // table (a pad k's offset: the zeros past the plane); those zeros.
+  if (blockIdx.x < total) load(blockIdx.x);
+  for (int e = tid; e < kStemOut * 16 * kStemKStepsB; e += kStemThreads) {
+    const int n = e / (16 * kStemKStepsB), k = e % (16 * kStemKStepsB);
+    const unsigned short v = k < kStemK ? __ldg(a.w + n * kStemK + k)
+                                        : (unsigned short)0;
+    unsigned char* blk = smem + (k / 16) * kStemTapBytesB;
+    const uint32_t off = row_off(n, (k >> 3) & 1) + (k & 7) * 2;
+    *reinterpret_cast<unsigned short*>(blk + off) = v;
+  }
+  for (int k = tid; k < 16 * kStemKStepsB; k += kStemThreads) {
+    const int ci = k / (kStemKS * kStemKS), tap = k % (kStemKS * kStemKS);
+    const int dy = tap / kStemKS, dx = tap % kStemKS;
+    tab[k] = k < kStemK
+                 ? (ci * T::kIH + dy) * T::kIW + (dx % S) * T::kPS + dx / S
+                 : G::kPlane;
+  }
+  for (int e = tid; e < 2 * (G::kPlaneStride - G::kPlane);
+       e += kStemThreads) {
+    const int z = G::kPlaneStride - G::kPlane;
+    planes[(e / z) * G::kPlaneStride + G::kPlane + e % z] = 0;
+  }
+
+  // ---- fragment geometry: m-tile i of warp wm as in the fp32 kernel;
+  // lane (g, t)'s A registers at k-step s hold rows g, g + 8 at k 16s + 2t,
+  // + 1 and 16s + 2t + 8, + 9, gathered through tab.
+  int pbase[kStemMT];
+#pragma unroll
+  for (int i = 0; i < kStemMT; ++i) {
+    const int mt = wm * kStemMT + i;
+    pbase[i] = (mt / (kStemTW / 16)) * S * T::kIW +
+               (mt % (kStemTW / 16)) * 16 + g;
+  }
+  const int b_row = wn * 8 * kStemNT + (lane & 7) + ((lane >> 4) << 3);
+  const uint32_t b_off = row_off(b_row, (lane >> 3) & 1);
+
+  int buf = 0;
+  if (blockIdx.x < total) store(0);
+  __syncthreads();
+
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x, buf ^= 1) {
+    const int next = tile + gridDim.x;
+    if (next < total) load(next);  // in flight during the products
+    const unsigned short* ph = planes + buf * G::kPlaneStride;
+    float acc[kStemMT][kStemNT][4];
+#pragma unroll
+    for (int i = 0; i < kStemMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kStemNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll 1
+    for (int s0 = 0; s0 < kStemKStepsB; s0 += kStemGroup) {
+      float f[kStemMT][kStemNT][4];  // these k-steps' fresh partial sums
+#pragma unroll
+      for (int ss = 0; ss < kStemGroup; ++ss) {
+        const int s = s0 + ss;
+        if (s >= kStemKStepsB) break;
+        const uint32_t blk = sw + s * kStemTapBytesB;
+        uint32_t bq[kStemNT / 2][2][2];
+#pragma unroll
+        for (int jp = 0; jp < kStemNT / 2; ++jp)
+          ldmatrix_x4(bq[jp][0][0], bq[jp][0][1], bq[jp][1][0], bq[jp][1][1],
+                      blk + b_off + 16 * jp * kRow);
+        const int o0 = tab[16 * s + 2 * t], o1 = tab[16 * s + 2 * t + 1];
+        const int o2 = tab[16 * s + 2 * t + 8], o3 = tab[16 * s + 2 * t + 9];
+#pragma unroll
+        for (int i = 0; i < kStemMT; ++i) {
+          const int q = pbase[i];
+          const uint32_t af[4] = {
+              ph[q + o0] | ((uint32_t)ph[q + o1] << 16),
+              ph[q + 8 + o0] | ((uint32_t)ph[q + 8 + o1] << 16),
+              ph[q + o2] | ((uint32_t)ph[q + o3] << 16),
+              ph[q + 8 + o2] | ((uint32_t)ph[q + 8 + o3] << 16)};
+#pragma unroll
+          for (int j = 0; j < kStemNT; ++j)
+            mma_bf16(f[i][j], af, bq[j / 2][j % 2][0], bq[j / 2][j % 2][1],
+                     ss == 0);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kStemMT; ++i)
+#pragma unroll
+        for (int j = 0; j < kStemNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += f[i][j][e];
+    }
+
+    // ---- + the bf16 bias in fp32, the bf16 store, the fp32 sums of the
+    // unrounded values; reduced as in the fp32 kernel (fixed order).
+    int b, oy0, ox0;
+    tile_at(tile, b, oy0, ox0);
+    const bool sums = a.partials != nullptr;
+    float* rb = red + buf * (kStemWarpsM * 2 * kStemOut);
+#pragma unroll
+    for (int j = 0; j < kStemNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int n = wn * 8 * kStemNT + 8 * j + 2 * t + e;
+        const float bv = __bfloat162float(a.bias[n]);
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < kStemMT; ++i)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int mt = wm * kStemMT + i;
+            const int oy = oy0 + mt / (kStemTW / 16);
+            const int ox = ox0 + (mt % (kStemTW / 16)) * 16 + g + 8 * half;
+            if (oy >= a.ho || ox >= a.wo) continue;
+            const float v = acc[i][j][2 * half + e] + bv;
+            a.y[(((long)b * kStemOut + n) * a.ho + oy) * a.wo + ox] =
+                __float2bfloat16_rn(v);
+            s1 += v;
+            s2 = fmaf(v, v, s2);
+          }
+        if (sums) {
+#pragma unroll
+          for (int m = 4; m < 32; m <<= 1) {
+            s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+            s2 += __shfl_xor_sync(0xffffffffu, s2, m);
+          }
+          if (g == 0) {
+            rb[(wm * 2 + 0) * kStemOut + n] = s1;
+            rb[(wm * 2 + 1) * kStemOut + n] = s2;
+          }
+        }
+      }
+    if (next < total) store(buf ^ 1);  // the next tile's plane
+    __syncthreads();
+    if (sums && tid < 2 * kStemOut) {
+      const int n = tid % kStemOut, kind = tid / kStemOut;
+      float s = rb[kind * kStemOut + n];
+#pragma unroll
+      for (int w = 1; w < kStemWarpsM; ++w)
+        s += rb[(w * 2 + kind) * kStemOut + n];
+      a.partials[((long)tile * 2 + kind) * kStemOut + n] = s;
+    }
+  }
+}
+
 }  // namespace
 
 // Rows 13 (stride 1) and 12 (stride 2).  x (B, 3, H, W); w (64, 3, 7, 7)
 // OIHW; bias (64); y (B, 64, Ho, Wo), Ho = (H - 1) / stride + 1 (and Wo
-// alike); partials (B, nb, 2, 64) scratch and stats (B, 2, 64), both null
-// without statistics, nb = ceil(Ho/8) * ceil(Wo/32).  All fp32 and
-// contiguous.  Returns the CUDA error code of the launches (0 on success).
-extern "C" int enc_stem7_tc_forward(const float* x, const float* w,
-                                    const float* bias, float* y,
+// alike): fp32, or bf16 with `bf16` set; partials (B, nb, 2, 64) scratch
+// and stats (B, 2, 64) fp32, both null without statistics, nb =
+// ceil(Ho/8) * ceil(Wo/32).  All contiguous.  Returns the CUDA error code
+// of the launches (0 on success).
+extern "C" int enc_stem7_tc_forward(const void* x, const void* w,
+                                    const void* bias, void* y,
                                     float* partials, float* stats, int batch,
                                     int h, int win, int stride, int nb,
-                                    void* stream) {
+                                    int bf16, void* stream) {
   if (batch < 1 || h < 1 || win < 1 || (stride != 1 && stride != 2))
     return (int)cudaErrorInvalidValue;
   const int ho = (h - 1) / stride + 1, wo = (win - 1) / stride + 1;
@@ -496,9 +744,25 @@ extern "C" int enc_stem7_tc_forward(const float* x, const float* w,
       (long)batch * nb > 0x7fffffffL ||
       (stats == nullptr) != (partials == nullptr))
     return (int)cudaErrorInvalidValue;
-  const StemArgs a{x, w, bias, y, partials, batch, h, win, ho, wo, tiles_w,
-                   nb};
+  static int grid_max[2][2];  // [bf16][stride - 1], at the first launch
+  int& gm = grid_max[bf16 != 0][stride - 1];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return stride == 1 ? launch_stem7_tc<1>(a, stats, s)
-                     : launch_stem7_tc<2>(a, stats, s);
+  if (bf16) {
+    const StemArgsB a{static_cast<const unsigned short*>(x),
+                      static_cast<const unsigned short*>(w),
+                      static_cast<const __nv_bfloat16*>(bias),
+                      static_cast<__nv_bfloat16*>(y), partials, batch, h, win,
+                      ho, wo, tiles_w, nb};
+    return stride == 1 ? launch_stem7(stem7_bf16_kernel<1>,
+                                      StemTileB<1>::kSmem, gm, a, stats, s)
+                       : launch_stem7(stem7_bf16_kernel<2>,
+                                      StemTileB<2>::kSmem, gm, a, stats, s);
+  }
+  const StemArgs a{static_cast<const float*>(x), static_cast<const float*>(w),
+                   static_cast<const float*>(bias), static_cast<float*>(y),
+                   partials, batch, h, win, ho, wo, tiles_w, nb};
+  return stride == 1 ? launch_stem7(stem7_tc_kernel<1>, StemTile<1>::kSmem, gm,
+                                    a, stats, s)
+                     : launch_stem7(stem7_tc_kernel<2>, StemTile<2>::kSmem, gm,
+                                    a, stats, s);
 }

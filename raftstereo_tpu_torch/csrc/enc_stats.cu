@@ -31,7 +31,16 @@
 // enough planes are in flight (B x 64 of them, each thread with two
 // 16-byte loads outstanding for the dual sums) to keep every SM's loads
 // busy.
+//
+// enc_stats_forward with `bf16` set is row 10's bf16 form (the TPU kernel
+// reads its input's dtype and sums `x.astype(float32)`,
+// pallas_norm.py:58-63): the same kernel over bf16 planes, 8 values a
+// 16-byte load, fp32 sums.  Bound: bytes, half the fp32 form's (70.8 MB per
+// 64-channel 576x960 image, 21 us).
 
+#include "enc_bf16.cuh"
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -60,24 +69,29 @@ __device__ __forceinline__ void block_store(float s, float q, float* out,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-enc_plane_stats_kernel(const float* __restrict__ x, float* __restrict__ stats,
+enc_plane_stats_kernel(const T* __restrict__ x, float* __restrict__ stats,
                        int c, long hw) {
+  constexpr int kV = 16 / sizeof(T);
   const int ch = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const float* p = x + ((long)b * c + ch) * hw;
+  const T* p = x + ((long)b * c + ch) * hw;
   float s = 0.f, q = 0.f;
-  if ((hw & 3) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
-    const float4* p4 = reinterpret_cast<const float4*>(p);
-    for (long i = tid; i < hw / 4; i += 256) {
-      const float4 v = __ldg(p4 + i);
-      s += v.x; q = fmaf(v.x, v.x, q);
-      s += v.y; q = fmaf(v.y, v.y, q);
-      s += v.z; q = fmaf(v.z, v.z, q);
-      s += v.w; q = fmaf(v.w, v.w, q);
+  if (hw % kV == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    const uint4* p16 = reinterpret_cast<const uint4*>(p);
+    for (long i = tid; i < hw / kV; i += 256) {
+      Pack16<T> u;
+      u.u = __ldg(p16 + i);
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        const float v = to_f(u.v[e]);
+        s += v;
+        q = fmaf(v, v, q);
+      }
     }
   } else {
     for (long i = tid; i < hw; i += 256) {
-      const float v = __ldg(p + i);
+      const float v = to_f(__ldg(p + i));
       s += v;
       q = fmaf(v, v, q);
     }
@@ -118,15 +132,21 @@ enc_dual_sums_kernel(const float* __restrict__ u, const float* __restrict__ v,
 
 }  // namespace
 
-// x (B, C, H*W) fp32 contiguous -> stats (B, 2, C): sums, then sums of
-// squares.  Returns the CUDA error code of the launch (0 on success).
-extern "C" int enc_stats_forward(const float* x, float* stats, int batch,
-                                 int c, long hw, void* stream) {
+// x (B, C, H*W) contiguous, fp32 or (bf16 set) bf16 -> stats (B, 2, C)
+// fp32: sums, then sums of squares.  Returns the CUDA error code of the
+// launch (0 on success).
+extern "C" int enc_stats_forward(const void* x, float* stats, int batch,
+                                 int c, long hw, int bf16, void* stream) {
   if (batch < 1 || c < 1 || hw < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  enc_plane_stats_kernel<<<dim3(c, batch), 256, 0,
-                           static_cast<cudaStream_t>(stream)>>>(x, stats, c,
-                                                                hw);
+  const dim3 grid(c, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    enc_plane_stats_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), stats, c, hw);
+  else
+    enc_plane_stats_kernel<float><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(x), stats, c, hw);
   return (int)cudaGetLastError();
 }
 

@@ -62,8 +62,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import (BF16_VOLUME_TRAINING, RAFTStereoConfig,
-                      check_supported)
+from ..config import (BF16_FUSED_TRAINING, BF16_VOLUME_TRAINING,
+                      RAFTStereoConfig, check_supported)
 from ..device import fp32_numerics, resolve_device
 from ..ops.corr import (build_corr_state, corr_lookup, corr_lookup_epi,
                         resolve_implementation)
@@ -173,6 +173,9 @@ class RAFTStereo(nn.Module):
 
     def _forward(self, image1, image2, iters, flow_init, test_mode):
         cfg = self.config
+        if (not test_mode and self.dtype == torch.bfloat16
+                and cfg.fused_encoder is True):
+            raise NotImplementedError(BF16_FUSED_TRAINING)
         n, hd = cfg.n_gru_layers, cfg.hidden_dims
         b = image1.shape[0]
 

@@ -41,6 +41,17 @@ CUDA tensors (counted in ``<wrapper>.launches``); it never falls back from
 one to the other.  The convolution wrappers repack the OIHW weights on
 every call (``tc_pack`` for the tensor-core kernel: 295 KB at 64->64), so
 nothing goes stale after ``load_state_dict``.
+
+Every wrapper but ``dual_sums`` takes float32 or bfloat16 activations and
+dispatches on their dtype: float32 to the fp32 kernels, bfloat16 to their
+bf16 forms (the JAX kernels at ``dt=bfloat16``, the fast and turbo tiers
+of a fused base).  Affines and sums stay float32; any other dtype or mix
+raises.  The bf16 forms round where the JAX kernels round: the prep
+casts the fp32 affine to bf16 and rounds after each product and each sum
+(never one fused multiply-add); a convolution takes bf16 operands (the
+weights and bias cast at use), sums its exact products in fp32, adds the
+bias in fp32, takes the output sums of that fp32 result and rounds it to
+bf16 once.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ from . import _build
 from .cuda_gru import tf32_round
 
 Affine = Tuple[torch.Tensor, torch.Tensor]
+BF16 = torch.bfloat16
 
 # enc_conv.cu's output tile (kTileH, kTileW: 8x32 pixels, all 64
 # outputs) and weight shape (3 -> 64 channels, 7x7); the tensor-core 3x3
@@ -67,6 +79,7 @@ _NONE, _PREP, _RES, _RES_PROJ = 0, 1, 2, 3
 # per stage (kKC), and its instances (kInst) by wrapper: (instance id,
 # stride, output columns per block 8*MT, outputs per block 16*NT).
 TC_TILE_H, TC_STAGE = 8, 8
+TC_STAGE_BF16 = 16  # enc_conv_tc.cu's kKCB: one k16 step a tap
 TC_INSTANCES = {"stage_conv": (0, 1, 32, 64), "l2_entry": (1, 2, 16, 96),
                 "l2_conv": (2, 1, 16, 96)}
 
@@ -111,17 +124,44 @@ def tc_pack(weight: torch.Tensor, proj_weight: Optional[torch.Tensor],
     return torch.stack([hi, tf32_round(w - hi)], 3).contiguous()
 
 
+def tc_pack_bf16(weight: torch.Tensor, proj_weight: Optional[torch.Tensor],
+                 bn: int) -> torch.Tensor:
+    """The bf16 tensor-core conv's weights, each stage's tap blocks as
+    they lie in shared memory: (Cout tiles of ``bn``, stages of 16 input
+    channels, taps (9, ky*3 + kx; a tenth for the 1x1 ``proj_weight``),
+    bn outputs, 16 channels), bf16 (``weight`` rounded once), zero past
+    Cout and Cin.  In rows whose output index has bit 2 set the two
+    8-channel halves are swapped, as ``tc_pack`` swaps its 4-channel
+    halves: a row is 32 bytes in both."""
+    o, i = weight.shape[:2]
+    w = weight.detach().to(BF16).permute(0, 2, 3, 1).reshape(o, 9, i)
+    if proj_weight is not None:
+        w = torch.cat([w, proj_weight.detach().to(BF16).reshape(o, 1, i)],
+                      1)
+    nt, nk = -(-o // bn), -(-i // TC_STAGE_BF16)
+    w = F.pad(w, (0, nk * TC_STAGE_BF16 - i, 0, 0, 0, nt * bn - o))
+    w = w.reshape(nt, bn, w.shape[1], nk, TC_STAGE_BF16).permute(0, 3, 2, 1,
+                                                                  4)
+    swap = ((torch.arange(bn, device=w.device) >> 2) & 1).bool()
+    w = torch.where(swap[:, None], w.roll(TC_STAGE_BF16 // 2, -1), w)
+    return w.contiguous()
+
+
 # ------------------------------------------------------- plain versions
 
 def prep(x: torch.Tensor, aff: Affine, relu: bool = True) -> torch.Tensor:
-    """relu(x*s + t) per (image, channel); no relu with ``relu=False``."""
-    s, t = aff
-    y = x * s[:, :, None, None] + t[:, :, None, None]
+    """relu(x*s + t) per (image, channel); no relu with ``relu=False``.
+    The affine is cast to ``x``'s dtype first, as the JAX kernels' prep
+    casts it: in bf16 the product and the sum each round to bf16."""
+    s, t = (a.to(x.dtype)[:, :, None, None] for a in aff)
+    y = x * s + t
     return torch.relu(y) if relu else y
 
 
 def stats_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 (sum, sum of squares) over (H, W), each (B, C)."""
+    """fp32 (sum, sum of squares) over (H, W), each (B, C); a bf16 ``y``
+    is summed in fp32."""
+    y = y.float()
     return y.sum(dim=(2, 3)), (y * y).sum(dim=(2, 3))
 
 
@@ -139,12 +179,22 @@ def conv_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """Plain version of ``enc_conv``: the prepped input (``x`` itself
     without ``aff``; with ``res``, relu(prep(res) + prep(x)), the residual
     term without its relu when ``res_relu`` is False), zero-padded, through
-    ``F.conv2d``.  Returns ``(y, sums or None)``."""
+    ``F.conv2d``.  A bf16 ``x`` convolves in fp32 over bf16 operands (the
+    weights and bias rounded once), so that the sums are of the fp32
+    output before it is rounded to bf16, as the JAX kernels take them (a
+    bf16 ``F.conv2d`` would round first).  Returns ``(y, sums or
+    None)``."""
     t = x if aff is None else prep(x, aff)
     if res is not None:
         t = torch.relu(prep(res, res_aff, relu=res_relu) + t)
-    y = F.conv2d(t, weight, bias, stride, weight.shape[-1] // 2)
-    return y, (stats_plain(y) if want_stats else None)
+    pad = weight.shape[-1] // 2
+    if x.dtype != BF16:
+        y = F.conv2d(t, weight, bias, stride, pad)
+        return y, (stats_plain(y) if want_stats else None)
+    y = F.conv2d(t.float(), weight.to(BF16).float(), None, stride, pad)
+    if bias is not None:
+        y = y + bias.to(BF16).float()[:, None, None]
+    return y.to(BF16), (stats_plain(y) if want_stats else None)
 
 
 def entry_plain(t: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -173,18 +223,31 @@ def _on_cpu(*ts) -> bool:
     return all(t.device.type == "cpu" for t in ts if t is not None)
 
 
-def _check(name: str, *ts) -> torch.device:
-    """All operands fp32, contiguous and on one CUDA device."""
+def _act_dtype(name: str, x: torch.Tensor) -> torch.dtype:
+    """The dtype of ``name``'s activations: float32 or bfloat16."""
+    if x.dtype not in (torch.float32, BF16):
+        raise ValueError(f"{name}: {x.dtype} activations; its kernels take "
+                         f"float32 or bfloat16")
+    return x.dtype
+
+
+def _check(name: str, dtype: torch.dtype, acts, f32s=()) -> torch.device:
+    """The activations (with the packed weights and biases) contiguous
+    ``dtype``, the affines and sums contiguous float32, all on one CUDA
+    device."""
+    ts = [t for t in (*acts, *f32s) if t is not None]
     dev = ts[0].device
     for t in ts:
-        if t is None:
-            continue
         if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name}: operands on "
-                             f"{[u.device for u in ts if u is not None]}; "
-                             f"all must be on one CUDA device")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} takes contiguous float32 tensors")
+            raise ValueError(f"{name}: operands on {[u.device for u in ts]};"
+                             f" all must be on one CUDA device")
+    for group, want in ((acts, dtype), (f32s, torch.float32)):
+        for t in group:
+            if t is not None and (t.dtype != want or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name} takes contiguous {dtype} activations and "
+                    f"float32 affines; got a {t.dtype} operand "
+                    f"(contiguous: {t.is_contiguous()})")
     return dev
 
 
@@ -213,8 +276,10 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
     if res is not None and res.shape != x.shape:
         raise ValueError(f"{name}: residual {tuple(res.shape)} != "
                          f"{tuple(x.shape)}")
-    bias = bias.detach().contiguous()
-    bp = None if proj is None else proj[1].detach().contiguous()
+    dt = _act_dtype(name, x)
+    bf = dt == BF16
+    bias = bias.detach().to(dt).contiguous()
+    bp = None if proj is None else proj[1].detach().to(dt).contiguous()
     tc = name in TC_INSTANCES
     if tc:
         inst, inst_stride = TC_INSTANCES[name][:2]
@@ -222,16 +287,17 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
             raise ValueError(f"{name}: a {ks}x{ks} stride-{stride} kernel; "
                              f"this conv is 3x3 stride {inst_stride}")
         ho, wo, _, bn, nb = tc_geometry(h, wd, name)
-        w = tc_pack(weight, None if proj is None else proj[0], bn)
+        w = (tc_pack_bf16 if bf else tc_pack)(
+            weight, None if proj is None else proj[0], bn)
     else:
         if tuple(weight.shape) != STEM_WEIGHT or stride != STEMS[name]:
             raise ValueError(f"{name}: weight {tuple(weight.shape)}, stride "
                              f"{stride}; the stem takes {STEM_WEIGHT} at "
                              f"stride {STEMS[name]}")
         ho, wo, nb = stem_geometry(h, wd, stride)
-        w = weight.detach().contiguous()
-    dev = _check(name, x, s, t, res, rs, rt, w, bias, bp)
-    y = torch.empty((b, cout, ho, wo), dtype=torch.float32, device=dev)
+        w = weight.detach().to(dt).contiguous()
+    dev = _check(name, dt, (x, res, w, bias, bp), (s, t, rs, rt))
+    y = torch.empty((b, cout, ho, wo), dtype=dt, device=dev)
     yp = torch.empty_like(y) if proj is not None else None
     ch = cout * (2 if proj is not None else 1)
     partials = stats = None
@@ -243,11 +309,11 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
         fn = _build.load("enc_conv_tc").enc_conv_tc_forward
         ptrs = [_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
                 _ptr(w), _ptr(bias), _ptr(bp), _ptr(y), _ptr(yp)]
-        ints = [b, cin, h, wd, cout, inst, mode, nb, bn]
+        ints = [b, cin, h, wd, cout, inst, mode, nb, bn, int(bf)]
     else:
         fn = _build.load("enc_conv").enc_stem7_tc_forward
         ptrs = [_ptr(x), _ptr(w), _ptr(bias), _ptr(y)]
-        ints = [b, h, wd, stride, nb]
+        ints = [b, h, wd, stride, nb, int(bf)]
     ptrs += [_ptr(partials), _ptr(stats)]
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
@@ -348,16 +414,19 @@ def plane_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     10)."""
     if _on_cpu(x):
         return stats_plain(x)
-    dev = _check("plane_stats", x)
+    dt = _act_dtype("plane_stats", x)
+    dev = _check("plane_stats", dt, (x,))
     b, c, h, w = x.shape
     stats = torch.empty((b, 2, c), dtype=torch.float32, device=dev)
     fn = _build.load("enc_stats").enc_stats_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_long, ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_long, ctypes.c_int,
+                   ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(x.data_ptr(), stats.data_ptr(), b, c, h * w, stream)
+        rc = fn(x.data_ptr(), stats.data_ptr(), b, c, h * w,
+                int(dt == BF16), stream)
     if rc != 0:
         raise RuntimeError(f"plane_stats kernel launch failed: CUDA error "
                            f"{rc}")
@@ -372,7 +441,12 @@ def dual_sums(u: torch.Tensor, v: torch.Tensor
     (row 14)."""
     if _on_cpu(u, v):
         return dual_sums_plain(u, v)
-    dev = _check("dual_sums", u, v)
+    if BF16 in (u.dtype, v.dtype):
+        raise NotImplementedError(
+            "dual_sums: the bf16 form of row 14 (the instance-norm "
+            "backward's sums, bf16 training of the fused encoder) is not "
+            "ported yet; see ROADMAP.md Queue 2")
+    dev = _check("dual_sums", torch.float32, (u, v))
     if u.shape != v.shape or u.dim() != 4:
         raise ValueError(f"dual_sums: shapes {tuple(u.shape)} and "
                          f"{tuple(v.shape)}; want one (B, C, H, W) shape")
@@ -394,7 +468,8 @@ def dual_sums(u: torch.Tensor, v: torch.Tensor
 
 
 def _finish_cuda(name, a, aff_a, b, aff_b, c, aff_c, a_relu):
-    dev = _check(name, a, b, c, *aff_a, *aff_b, *aff_c)
+    dt = _act_dtype(name, a)
+    dev = _check(name, dt, (a, b, c), (*aff_a, *aff_b, *aff_c))
     if not a.shape == b.shape == c.shape:
         raise ValueError(f"{name}: shapes {tuple(a.shape)}, "
                          f"{tuple(b.shape)}, {tuple(c.shape)} differ")
@@ -406,13 +481,15 @@ def _finish_cuda(name, a, aff_a, b, aff_b, c, aff_c, a_relu):
     fn = _build.load("enc_finish").enc_finish_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_long, ctypes.c_long,
-                                            ctypes.c_int, ctypes.c_void_p]
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(a.data_ptr(), aff_a[0].data_ptr(), aff_a[1].data_ptr(),
                 b.data_ptr(), aff_b[0].data_ptr(), aff_b[1].data_ptr(),
                 c.data_ptr(), aff_c[0].data_ptr(), aff_c[1].data_ptr(),
-                out.data_ptr(), n * ch, h * w, int(a_relu), stream)
+                out.data_ptr(), n * ch, h * w, int(a_relu), int(dt == BF16),
+                stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return out

@@ -14,6 +14,12 @@ kernel as relu(x*s + t):
 * frozen batch norm: the constant folded affine ``bn_affine``, and the
   kernels compute no sums.
 
+The stages compute in their input's dtype: a bf16 image or activation
+runs the kernels' bf16 forms with the fp32 parameters cast at use, the
+affines and sums staying fp32 (``ops.cuda_encoder``), and returns a bf16
+output.  The bf16 backward is not ported: it raises
+``config.BF16_FUSED_TRAINING``.
+
 Tensors are NCHW; ``params`` map a conv's name to ``(weight, bias)`` with
 OIHW weights (``c10, c11, c20, c21`` for layer1; ``c1, proj, c2, c3, c4``
 for layer2); ``affines`` are five (C,) pairs in the JAX package's stage
@@ -38,6 +44,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..config import BF16_FUSED_TRAINING
 from . import cuda_encoder as ce
 from . import encoder_bwd as eb
 from .cuda_encoder import Affine
@@ -148,6 +155,8 @@ class _Stem(torch.autograd.Function):
     def backward(ctx, g):
         stride, bn = ctx.stride, ctx.bn
         x, y1, *rest = ctx.saved_tensors
+        if y1.dtype == torch.bfloat16:
+            raise NotImplementedError(BF16_FUSED_TRAINING)
         raws, weights, rest = rest[:4], rest[4:8], rest[8:]
         if stride:
             w1, *rest = rest
@@ -244,6 +253,8 @@ class _Layer2(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.saved_tensors[0].dtype == torch.bfloat16:
+            raise NotImplementedError(BF16_FUSED_TRAINING)
         with torch.enable_grad():
             xs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             params = dict(zip(_L2_CONVS, _pairs(xs[1:11])))

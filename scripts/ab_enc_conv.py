@@ -17,8 +17,10 @@ with sums; row 16 at layer2's 2x96x288x480, its res_proj form too) and
 the fused training shapes (fnet 12x64x320x720 with sums, cnet 6 images
 without; row 16 at 12x96x160x360, both forms), each with its largest
 error against the plain version, relative to max(1, |plain|) (sums per
-pixel, as ``chip_smoke.hold``), and beside row 16 one ``F.conv2d`` of the
-same input and weights.  ``--report`` prints the ptxas report
+pixel, as ``chip_smoke.hold``) and a SHA-256 digest of its outputs, and
+beside row 16 one ``F.conv2d`` of the same input and weights; then rows
+10, 11 and 17 (``plane_stats``, ``stage_finish``, ``l2_finish``) at the
+same shapes, with their digests.  ``--report`` prints the ptxas report
 (registers, shared memory, spills) of the encoder conv libraries first,
 ``--profile`` each call's kernels by device time, ``--stems`` times the
 stems alone (a tree whose ``csrc`` holds only ``enc_conv.cu``: a stem
@@ -181,6 +183,17 @@ def main() -> int:
              lambda: ce.l2_conv(y, ay, wl, bl, res=yp, res_aff=ayp),
              lambda: ce.conv_plain(y, wl, bl, 1, ay, yp, ayp,
                                    res_relu=False))]
+        q = randn(b, 96, h2, w2)
+        a3, ayq = aff(b, 64), aff(b, 96)
+        cases += [
+            (f"row10 {b}x64x{h}x{w}", n, lambda: ce.plane_stats(x),
+             lambda: ce.stats_plain(x)),
+            (f"row11 {b}x64x{h}x{w}", 1.0,
+             lambda: ce.stage_finish(x, a, r, ra, t, a3),
+             lambda: ce.finish_plain(x, a, r, ra, t, a3)),
+            (f"row17 {b}x96x{h2}x{w2}", 1.0,
+             lambda: ce.l2_finish(yp, ayp, y, ay, q, ayq),
+             lambda: ce.finish_plain(yp, ayp, y, ay, q, ayq, a_relu=False))]
         for label, npix, kern, plain in cases:
             got, want = _leaves(kern()), _leaves(plain())
             torch.cuda.synchronize()
@@ -191,7 +204,7 @@ def main() -> int:
                 err = max(err, float((k - p).abs().max())
                           / max(1.0, float(p.abs().max())))
             ms = chip_smoke.time_ms(kern, 5)
-            out.append(f"{label} ms {ms:.4f} err {err:.2e}")
+            out.append(f"{label} ms {ms:.4f} err {err:.2e} sha {sha(got)}")
             if label.startswith(f"row16 {b}x"):
                 lib = chip_smoke.time_ms(lambda: F.conv2d(y, wl, bl, 1, 1), 5)
                 out.append(f"row16 F.conv2d ms {lib:.4f}")
@@ -204,7 +217,7 @@ def main() -> int:
                     f"{_short(ev.name)} {ev.device_time_total / 1e3:.3f}"
                     for ev in prof.events()
                     if ev.device_type == torch.autograd.DeviceType.CUDA))
-        del x, r, t, x1, t1, y, yp, y1
+        del x, r, t, x1, t1, y, yp, y1, q
         torch.cuda.empty_cache()
     print(f"{root} [{torch.cuda.get_device_name(0)}] " + " | ".join(out),
           flush=True)

@@ -504,13 +504,12 @@ def test_cli_serve_mixed_precision(monkeypatch, capsys):
     (dict(corr_dtype="bfloat16"), "Queue 1 item 7"),
     (dict(corr_dtype="bfloat16", corr_quant=True), "Queue 1 item 7"),
     (dict(corr_implementation="pallas", corr_dtype="bfloat16"),
-     "Queue 1 item 7"),
-    (dict(fused_encoder=True, compute_dtype="bfloat16"), "Queue 2")])
+     "Queue 1 item 7")])
 def test_unported_bf16_combination_raises(kw, item):
     """bf16 correlation at fp32 compute (with the int8 volume or the
-    ``pallas`` volume too) and the fused encoder in bf16 are refused at
-    construction; the bf16 ``pallas`` volume and the int8 tier at bf16
-    compute serve (``test_accepted_bf16_combinations_build``)."""
+    ``pallas`` volume too) is refused at construction; the bf16 ``pallas``
+    volume, the int8 tier and the fused encoder at bf16 compute serve
+    (``test_accepted_bf16_combinations_build``)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         RAFTStereo(RAFTStereoConfig(**TINY, **kw), device="cpu")
 
@@ -523,6 +522,8 @@ def test_unported_bf16_combination_raises(kw, item):
          corr_implementation="reg"),
     dict(corr_implementation="pallas", **BF16),
     dict(corr_quant=True, **BF16),
-    dict(compute_dtype="bfloat16", corr_quant=True)])
+    dict(compute_dtype="bfloat16", corr_quant=True),
+    dict(fused_encoder=True, compute_dtype="bfloat16"),
+    dict(fused_encoder=True, corr_quant=True, **BF16)])
 def test_accepted_bf16_combinations_build(kw):
     RAFTStereo(RAFTStereoConfig(**TINY, **kw), device="cpu")

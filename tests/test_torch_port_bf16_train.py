@@ -903,7 +903,8 @@ def test_cli_profile_train_takes_mixed_precision(monkeypatch):
     ids=["bf16_pallas_volume", "fused_encoder", "corr_quant"])
 def test_bf16_training_refusals_stay(kw, item):
     """What bf16 training still refuses, naming its ROADMAP item: the
-    fused encoder in bf16 at construction; training over the bf16
+    fused encoder in bf16 at a train-mode forward (the model serves it in
+    test mode); training over the bf16
     ``pallas`` volume at a train-mode forward (the model serves it in
     test mode), also with ``corr_quant``, which trains on the
     unquantized volume of the configured backend."""

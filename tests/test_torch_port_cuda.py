@@ -750,6 +750,204 @@ def test_fused_encoder_on_card_never_runs_plain(dev, batch, ds, monkeypatch):
     torch.testing.assert_close(up_g.cpu(), up_c, rtol=0, atol=5e-3)
 
 
+# ------------------------------------- fused encoder kernels in bf16
+
+BF = torch.bfloat16
+# The bf16 forms against their bf16 plain versions: a convolution's exact
+# products summed in fp32 in another order round to the other bf16
+# neighbour at a boundary (1 ulp of max(1, |plain|), at least 99% of the
+# outputs equal); its fp32 output sums within 1e-4 of max(1, |plain|)
+# per pixel, as the fp32 forms; the finishes round each op as plain does
+# (bitwise); row 10's fp32 sums of bf16 values within 1e-5 per pixel.
+ENC_BF16_ULPS, ENC_BF16_EQUAL = 1.0, 0.99
+
+
+def _assert_bf16(k1, k2, want, n=1.0, equal=ENC_BF16_EQUAL):
+    """Bitwise repeatable; bf16 outputs within ENC_BF16_ULPS of the plain
+    version with ``equal`` of them equal, fp32 (B, C) sums within 1e-4
+    per pixel (divided by ``n``)."""
+    for a, b, w in zip(_leaves(k1), _leaves(k2), _leaves(want)):
+        assert torch.equal(a, b)
+        a, w = a.cpu(), w.cpu()
+        assert a.dtype == w.dtype
+        if a.dtype == BF:
+            a, w = a.float(), w.float()
+            ulps = float(((a - w).abs() / w.abs().clamp_min(1.0)).max())
+            assert ulps <= ENC_BF16_ULPS * 2.0 ** -7
+            assert float((a == w).float().mean()) >= equal
+        else:
+            scale = max(1.0, float((w / n).abs().max()))
+            assert float(((a - w) / n).abs().max()) <= 1e-4 * scale
+
+
+def _bf16_case(rng, dev, b, cin, h, w):
+    x = (_randn(rng, b, cin, h, w) * 2 + 0.3).to(BF)
+    x[:, 0] = 0.25
+    r = (_randn(rng, b, cin, h, w) * 2 - 0.3).to(BF)
+    return x.to(dev), r.to(dev)
+
+
+def _cpu(v):
+    if isinstance(v, tuple):
+        return tuple(_cpu(u) for u in v)
+    return v.cpu() if isinstance(v, torch.Tensor) else v
+
+
+def _twice_bf16(fn, args, kw, monkeypatch):
+    """Two kernel calls with every plain version patched to raise, one
+    launch each, and the plain version on the CPU."""
+    want = fn(*map(_cpu, args), **{k: _cpu(v) for k, v in kw.items()})
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    with monkeypatch.context() as m:
+        for name in ("conv_plain", "entry_plain", "finish_plain",
+                     "stats_plain", "prep"):
+            m.setattr(cuda_encoder, name, boom)
+        before = fn.launches
+        k1, k2 = fn(*args, **kw), fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+    return k1, k2, want
+
+
+# The fp32 forms' hostile shapes (odd sizes, W not a multiple of the
+# tiles nor of 8, H not a multiple of the 8-row tile), a 16-channel
+# conv (one stage, Cin not a multiple of 16 for 12) and the serving
+# path's layer2 width.
+BF16_CASES = [(2, 13, 2), (1, 9, 37), (3, 21, 70), (2, 14, 4), (1, 17, 66),
+              (2, 40, 90)]
+
+
+@pytest.mark.parametrize("b,h,w", BF16_CASES)
+def test_encoder_convs_bf16_match_plain(dev, monkeypatch, b, h, w):
+    """Rows 9 (prep, residual), 15 (conv and projection) and 16 (prep,
+    residual-projection) in bf16, with and without sums, and rows 13 and
+    12 (the stems) on a bf16 image."""
+    rng = np.random.default_rng(300 + w)
+    x, r = _bf16_case(rng, dev, b, 64, h, w)
+    y, p = _bf16_case(rng, dev, b, 96, h, w)
+    aff, raff = _aff(rng, dev, b, 64, const=True), _aff(rng, dev, b, 64)
+    a96, p96 = _aff(rng, dev, b, 96), _aff(rng, dev, b, 96)
+    wt, bias = _wb(rng, dev, 64, 64, 3)
+    we, be = _wb(rng, dev, 96, 64, 3)
+    wp, bp = _wb(rng, dev, 96, 64, 1)
+    wl, bl = _wb(rng, dev, 96, 96, 3)
+    w7, b7 = _wb(rng, dev, 64, 3, 7)
+    img = torch.tanh(_randn(rng, b, 3, h, w)).to(BF).to(dev)
+    t = torch.relu(x)
+    n, n2 = float(h * w), float(((h + 1) // 2) * ((w + 1) // 2))
+    ce = cuda_encoder
+    for fn, args, kw, nn in (
+            (ce.stage_conv, (x, aff, wt, bias), {}, n),
+            (ce.stage_conv, (x, aff, wt, bias), dict(res=r, res_aff=raff), n),
+            (ce.l2_entry, (t, we, be, wp, bp), {}, n2),
+            (ce.l2_conv, (y, a96, wl, bl), {}, n),
+            (ce.l2_conv, (y, a96, wl, bl), dict(res=p, res_aff=p96), n),
+            (ce.stem_conv7, (img, w7, b7), {}, n),
+            (ce.stem_conv7_s2, (img, w7, b7), {}, n2)):
+        for ws in (True, False):
+            k1, k2, want = _twice_bf16(fn, args, dict(kw, want_stats=ws),
+                                       monkeypatch)
+            assert k1[0].dtype == BF
+            _assert_bf16(k1, k2, want, nn)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 13, 7), (1, 96, 7, 9),
+                                   (6, 64, 24, 40)])
+def test_stats_and_finish_bf16_match_plain(dev, monkeypatch, shape):
+    """Row 10 on bf16 planes (the scalar path where H*W is not a multiple
+    of 8), within 1e-5 per pixel; rows 11 and 17 bitwise equal to their
+    plain versions."""
+    rng = np.random.default_rng(shape[3])
+    b, c = shape[:2]
+    x = (_randn(rng, *shape) * 3 + 10).to(BF).to(dev)
+    k1, k2, want = _twice_bf16(cuda_encoder.plane_stats, (x,), {},
+                               monkeypatch)
+    n = shape[2] * shape[3]
+    for a, a2, w in zip(k1, k2, want):
+        assert torch.equal(a, a2) and a.dtype == torch.float32
+        scale = max(1.0, float((w / n).abs().max()))
+        assert float(((a.cpu() - w) / n).abs().max()) <= 1e-5 * scale
+    ts = [(_randn(rng, *shape) * 2).to(BF).to(dev) for _ in range(3)]
+    affs = [_aff(rng, dev, b, c) for _ in range(3)]
+    args = tuple(v for pair in zip(ts, affs) for v in pair)
+    for fn in (cuda_encoder.stage_finish, cuda_encoder.l2_finish):
+        k1, k2, want = _twice_bf16(fn, args, {}, monkeypatch)
+        assert k1.dtype == BF
+        assert torch.equal(k1, k2) and torch.equal(k1.cpu(), want)
+
+
+def test_encoder_wrappers_bf16_refuse_mixes(dev):
+    """A bf16 CUDA tensor reaches only a bf16 kernel: a mix of dtypes, a
+    bf16 affine, or fp16 raises; row 14 in bf16 is not ported."""
+    rng = np.random.default_rng(10)
+    x, r = _bf16_case(rng, dev, 1, 64, 8, 8)
+    aff = _aff(rng, dev, 1, 64)
+    wt, bias = _wb(rng, dev, 64, 64, 3)
+    ce = cuda_encoder
+    with pytest.raises(ValueError):  # a fp32 residual beside bf16 x
+        ce.stage_conv(x, aff, wt, bias, res=r.float(), res_aff=aff)
+    with pytest.raises(ValueError):  # a bf16 affine
+        ce.stage_conv(x, tuple(a.to(BF) for a in aff), wt, bias)
+    with pytest.raises(ValueError):  # fp16 activations
+        ce.plane_stats(x.half())
+    with pytest.raises(ValueError):  # the finish's terms of two dtypes
+        ce.stage_finish(x, aff, r.float(), aff, x, aff)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+        ce.dual_sums(x, x)
+
+
+@pytest.mark.parametrize("ds", [2, 3])
+def test_fused_encoder_bf16_on_card_never_runs_plain(dev, ds, monkeypatch):
+    """``fused_encoder=True`` in bf16 on CUDA tensors: every plain version
+    patched to raise, the model runs with each bf16 kernel counted per
+    row, and the card's encoder outputs match the CPU's (plain versions)
+    within the flips of conv sums taken in another order, spread through
+    the stages (fnet's feature maps within 24 ulps of max(1, |cpu|), as
+    tests/test_torch_port_enc_bf16.py holds the port against JAX)."""
+    cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                           corr_levels=2, corr_radius=2, fused_encoder=True,
+                           n_downsample=ds, compute_dtype="bfloat16",
+                           corr_dtype="bfloat16")
+    gpu = RAFTStereo(cfg, device=dev, seed=4)
+    cpu = RAFTStereo(cfg, device="cpu", seed=4)
+    rng = np.random.default_rng(ds)
+    hw = (32, 48) if ds == 2 else (32, 64)
+    img = torch.from_numpy(rng.uniform(-1, 1, (2, 3) + hw).astype(
+        np.float32)).to(BF)
+    with torch.inference_mode():
+        want = cpu.fnet(img)
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    for name in ("conv_plain", "entry_plain", "finish_plain", "stats_plain",
+                 "prep"):
+        monkeypatch.setattr(cuda_encoder, name, boom)
+    for fn in cuda_encoder.WRAPPERS:
+        fn.launches = 0
+    with torch.inference_mode():
+        got = gpu.fnet(img.to(dev))
+    lo, up = gpu(*(torch.from_numpy(rng.uniform(0, 255, (1,) + hw + (3,))
+                                    .astype(np.float32)).to(dev)
+                   for _ in range(2)), iters=2)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in cuda_encoder.WRAPPERS}
+    assert launches == {"stem_conv7": 3 * (ds == 2),
+                        "stem_conv7_s2": 3 * (ds == 3), "stage_conv": 12,
+                        "plane_stats": 0, "stage_finish": 3, "l2_entry": 3,
+                        "l2_conv": 9, "l2_finish": 3, "dual_sums": 0}
+    assert got.dtype == BF and bool(torch.isfinite(up).all())
+    ulps = ((got.cpu().float() - want.float()).abs()
+            / want.float().abs().clamp_min(1.0)).max()
+    assert float(ulps) <= 24 * 2.0 ** -7
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
+        gpu(*(torch.zeros((1,) + hw + (3,), device=dev),) * 2, iters=1,
+            test_mode=False)
+
+
 # ------------------------------------ precomputed-volume lookup, int8 volume
 
 def _same_bits(a, b):

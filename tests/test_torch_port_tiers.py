@@ -376,9 +376,10 @@ def test_healthz_reports_the_tiers(tier_server):
 def test_unadvertised_tier_is_400(tier_server, base_model, manifest,
                                   tmp_path, case):
     """An unknown tier, a tier the manifest holds over bound, a tier the
-    server was not asked to offer, and a tier whose numerics the port
-    does not run on the base architecture (bf16 with the fused encoder)
-    are 400s; the refused ones carry the reason recorded at startup."""
+    server was not asked to offer, and a tier certified on another
+    architecture (a fused-encoder base with the plain encoders' manifest:
+    the fused stages are another numeric function) are 400s; the refused
+    ones carry the reason recorded at startup."""
     left, right = _pair(3)
     if case == "unknown":
         status, obj = _post(tier_server, left, right, "ultra")
@@ -392,10 +393,9 @@ def test_unadvertised_tier_is_400(tier_server, base_model, manifest,
     elif case == "fused_encoder":
         model = RAFTStereo(RAFTStereoConfig(**SMALL, fused_encoder=True),
                            device="cpu")
-        m = dict(m, model=certify._arch_of(model.config),
-                 tiers=dict(m["tiers"], turbo=dict(m["tiers"]["turbo"],
-                                                   bound=1e3,
-                                                   certified=True)))
+        m = dict(m, tiers=dict(m["tiers"], turbo=dict(m["tiers"]["turbo"],
+                                                      bound=1e3,
+                                                      certified=True)))
     certify.write_manifest(m, path)
     srv = build_server(model, _scfg(path, tiers), device="cpu",
                        warmup=False)
@@ -407,9 +407,44 @@ def test_unadvertised_tier_is_400(tier_server, base_model, manifest,
         srv.server_close()
     assert status == 400 and "not advertised" in obj["error"]
     want = {"over_bound": "over bound", "not_offered": "not offered",
-            "fused_encoder": "fused_encoder=True with compute_dtype"}
+            "fused_encoder": "architecture"}
     assert want[case] in obj["error"]
     assert set(srv.tiers) == {"certified"}
+
+
+def test_fused_base_serves_the_bf16_tiers(tmp_path):
+    """A ``fused_encoder=True`` base certified on its own architecture
+    advertises ``fast`` and ``turbo`` (their models run the fused stages'
+    bf16 kernels), and serves each bitwise equal to a direct engine call
+    in its mode, which is not the base's reply."""
+    model = RAFTStereo(RAFTStereoConfig(**SMALL, fused_encoder=True),
+                       device="cpu", seed=5)
+    path = str(tmp_path / "cert.json")
+    certify.write_manifest(certify.certify_tiers(
+        model, hw=HW, n_pairs=2, iters=ITERS,
+        bounds={"fast": 1e3, "turbo": 1e3}), path)
+    srv = build_server(model, _scfg(path), device="cpu")
+    assert srv.tiers == {"certified": "fp32", "fast": "bf16",
+                         "turbo": "int8"}
+    for mode in ("bf16", "int8"):
+        cfg = srv.engine.model_for(mode).config
+        assert cfg.fused_encoder is True
+        assert cfg.compute_dtype == "bfloat16"
+    srv.start()
+    left, right = _pair(4)
+    try:
+        _, base = _post(srv, left, right)
+        for tier in ("fast", "turbo"):
+            status, obj = _post(srv, left, right, tier)
+            assert status == 200, obj
+            got = decode_array(obj["disparity"])
+            (want,) = srv.engine.infer_batch(
+                [(left, right)], mode=quant.TIER_MODES[tier])
+            np.testing.assert_array_equal(got, want)
+            assert not np.array_equal(got, decode_array(base["disparity"]))
+    finally:
+        srv.shutdown()
+        srv.server_close()
 
 
 def test_certified_on_a_non_tier_base_runs_fp32(tmp_path):
