@@ -170,7 +170,23 @@ pinned within 1.0 / 1.5 px; (31)
 phase 28 again on a ``fused_encoder=True`` base (``cli.certify
 --fused_encoder``): ``fast`` and ``turbo`` advertised, their models fused
 and bf16, every reply bitwise a direct engine call, each tier's launches
-its ``TIER_PER_REQUEST`` plus the encoder kernels'.  Prints
+its ``TIER_PER_REQUEST`` plus the encoder kernels'.  Then bf16
+training through the fused encoder and on the bf16 ``pallas`` volume:
+(32) hold the bf16 forms of the kernels that the bf16 fused training
+path launches at its shapes (fnet's 12 images of 320x720, layer2 at
+160x360; cnet's 6 images without sums held): row 14's bf16 form (the
+stage backward's dual sums of two bf16 tensors, within DUAL_TOL, bitwise
+repeatable) and rows 10, 9, 11, 15, 16 and 17 in bf16, timed beside
+their plain versions and one library call each; (33) train 3 steps of
+the recipe on each of ``train_fused_bf16`` (``fused_encoder=True`` with
+bf16 compute and feature maps: ``FUSED_PER_STEP``, 5 bf16 dual sums
+among them, and the bf16 lookup pair a step) and ``train_bf16_pallas``
+(the bf16 volume: 16 lookups and 16 backward lookups a step), step walls
+and peak memory beside the other training paths'; one 64x96 bf16 step
+card vs CPU for each (the fused one at both correlation dtypes).  Every
+bf16 step card vs CPU pins the encoders' outputs with their gradients
+flowing through the encoders, whose parameter gradients join the held
+gradients.  Prints
 a ``{"kernels": [...]}`` line, one row per kernel and path (the path's
 launches beside the times and bound at its shapes), and, last,
 ``{"ok": true, "device": ...}``.
@@ -244,6 +260,8 @@ FUSED_PER_REQUEST_DS3 = dict(FUSED_PER_REQUEST, stem_conv7=0,
 # conv1 runs in cuDNN, fnet's stage takes its first sums from the stats
 # kernel, and the instance-norm stage backward takes its five dual sums,
 # for dc21, dc20, dc11, dc10 and dy1; cnet's frozen-BN backward takes none).
+# The bf16 fused path (train_fused_bf16) launches the same kernels in their
+# bf16 forms.
 FUSED_STEPS = 3
 FUSED_PER_STEP = {"stage_conv": 8, "plane_stats": 1, "stage_finish": 2,
                   "l2_entry": 2, "l2_conv": 6, "l2_finish": 2,
@@ -305,7 +323,7 @@ BWD_BF16_ULPS, BWD_BF16_EQUAL = 1.0, 0.99
 TRAIN_BF16_STEPS = 3
 # The bf16 step, card vs CPU with the encoders pinned (64x96, flagship
 # widths, 3 iterations): the loss within 5e-3 relative, and the
-# predictions, non-encoder gradients and encoder-output cotangents each
+# predictions, all gradients and encoder-output cotangents each
 # at most 0.7 of the CPU's bf16-vs-fp32 distance (2-norms).  On the CPU,
 # the same step with its bf16 convs summed in another order (exact
 # products, fp32 sums: as cuDNN's differ from oneDNN's) moved the loss by
@@ -1430,6 +1448,149 @@ def train_fused_kernel_phase(model, torch):
         lambda: ce.finish_plain(p, pb, y, b_, q, a4, a_relu=False), n2,
         FINISH_TOL, 4 * (4 * y.numel() + 6 * b * 96), 12 * y.numel(),
         reps=10)
+    return rows
+
+
+def train_fused_bf16_kernel_phase(model, torch):
+    """The bf16 forms of the kernels that the bf16 fused training path
+    (``train_fused_bf16``) launches, held against their bf16 plain
+    versions and timed at its shapes: fnet's 12 images of 320x720 (cnet's
+    6 images take the same kernels without sums: held), layer2 at
+    160x360, the stats kernel on conv1's output, and the backward's dual
+    sums (row 14's bf16 form) of two bf16 such tensors, held within
+    DUAL_TOL; one row per kernel, beside one library call: cuDNN's
+    ``F.conv2d`` on bf16 tensors, ``torch.var_mean``, and for the dual
+    sums ``u.sum((2, 3), dtype=torch.float32)`` with a bf16 ``einsum``
+    (cuBLAS, fp32 accumulation, a bf16 result: the closest single
+    calls)."""
+    import torch.nn.functional as F
+
+    from raftstereo_tpu_torch.ops import cuda_encoder as ce
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    def aff(b, c):  # fp32; shifts > 0: padding before the prep would show
+        return (0.5 + torch.rand((b, c), generator=g, device=dev),
+                0.5 * torch.rand((b, c), generator=g, device=dev))
+
+    def wb(m):
+        return m.weight.detach(), m.bias.detach()
+
+    def wb16(m):
+        return m.weight.detach().to(bf), m.bias.detach().to(bf)
+
+    rows = []
+    path = "train_fused_bf16"
+
+    def row(*args, **kw):
+        enc_bf16_row(rows, path, *args, torch=torch, **kw)
+
+    enc = model.fnet
+    l0, _ = enc.layer1
+    m0, _ = enc.layer2
+    b, (h, w) = 2 * TRAIN_BATCH, TRAIN_HW
+    h2, w2 = h // 2, w // 2
+    n, n2 = float(h * w), float(h2 * w2)
+    half = b // 2
+
+    # -- row 14's bf16 form: fp32 sums of two bf16 tensors
+    u, v = randn(b, 64, h, w), randn(b, 64, h, w)
+    enc_row(rows, path, "dual_sums", "raftstereo_tpu/ops/pallas_encoder.py"
+            ":1148", f"{dims(u)} bf16", lambda: ce.dual_sums(u, v),
+            lambda: ce.dual_sums_plain(u, v), n, DUAL_TOL,
+            2 * (u.numel() + v.numel()) + 4 * 2 * b * 64, 3 * u.numel(),
+            torch, reps=10,
+            lib=lambda: (u.sum((2, 3), dtype=torch.float32),
+                         torch.einsum("bchw,bchw->bc", u, v)))
+    del u, v
+    # -- the stage: row 10 (conv1's sums), 9 (convs), 11 (finish)
+    x = randn(b, 64, h, w)
+    row("plane_stats", "raftstereo_tpu/ops/pallas_norm.py:47 (via "
+        "pallas_encoder.py:476)", dims(x), lambda: ce.plane_stats(x),
+        lambda: ce.stats_plain(x), n, 2 * x.numel() + 4 * 2 * b * 64,
+        3 * x.numel(), reps=10,
+        lib=lambda: torch.var_mean(x, dim=(2, 3), correction=0))
+    a = aff(b, 64)
+    wc, bc = wb(l0.conv1)
+    wch, bch = wb16(l0.conv1)
+    row("stage_conv", "raftstereo_tpu/ops/pallas_encoder.py:338, :348",
+        dims(x), lambda: ce.stage_conv(x, a, wc, bc),
+        lambda: ce.conv_plain(x, wc, bc, 1, a), n,
+        2 * (2 * x.numel() + wc.numel() + 64) + 4 * 4 * b * 64,
+        conv_cost(x, wc, x.numel(), n_in=1),
+        lib=lambda: F.conv2d(x, wch, bch, 1, 1),
+        products=conv_products(wc, x.numel()))
+    r, c = randn(b, 64, h, w), randn(b, 64, h, w)
+    a2, a3 = aff(b, 64), aff(b, 64)
+    row("stage_conv", "", f"{dims(x)} res form",
+        lambda: ce.stage_conv(x, a, wc, bc, res=r, res_aff=a2),
+        lambda: ce.conv_plain(x, wc, bc, 1, a, r, a2), n, None, 0)
+    x1 = x[:half].contiguous()
+    a1 = (a[0][:half].contiguous(), a[1][:half].contiguous())
+    row("stage_conv", "", f"{dims(x1)} no sums",
+        lambda: ce.stage_conv(x1, a1, wc, bc, want_stats=False),
+        lambda: ce.conv_plain(x1, wc, bc, 1, a1, want_stats=False), 1.0,
+        None, 0)
+    del x1
+    row("stage_finish", "raftstereo_tpu/ops/pallas_encoder.py:364",
+        dims(x), lambda: ce.stage_finish(x, a, r, a2, c, a3),
+        lambda: ce.finish_plain(x, a, r, a2, c, a3), n,
+        2 * 4 * x.numel() + 4 * 6 * b * 64, 12 * x.numel(), reps=10,
+        exact=True)
+    del r, c
+    # -- layer2: entry (row 15), convs (row 16), finish (row 17)
+    t = torch.relu(x)
+    del x
+    we, be = wb(m0.conv1)
+    wp, bp = wb(m0.downsample[0])
+    weh, beh = wb16(m0.conv1)
+    out2 = b * 96 * h2 * w2
+    row("l2_entry", "raftstereo_tpu/ops/pallas_layer2.py:118", dims(t),
+        lambda: ce.l2_entry(t, we, be, wp, bp),
+        lambda: ce.entry_plain(t, we, be, wp, bp), n2,
+        2 * (t.numel() + we.numel() + wp.numel() + 2 * 96 + 2 * out2)
+        + 4 * 2 * 2 * b * 96,
+        conv_cost(t, we, out2, n_in=0, proj_flops=2 * out2 * 64) + 4 * out2,
+        lib=lambda: F.conv2d(t, weh, beh, 2, 1),
+        products=conv_products(we, out2, proj_flops=2 * out2 * 64))
+    t1 = t[:half].contiguous()
+    row("l2_entry", "", f"{dims(t1)} no sums",
+        lambda: ce.l2_entry(t1, we, be, wp, bp, want_stats=False),
+        lambda: ce.entry_plain(t1, we, be, wp, bp, want_stats=False), 1.0,
+        None, 0)
+    del t, t1
+    y, p, q = (randn(b, 96, h2, w2) for _ in range(3))
+    b_, pb, a4 = aff(b, 96), aff(b, 96), aff(b, 96)
+    wl, bl = wb(m0.conv2)
+    wlh, blh = wb16(m0.conv2)
+    row("l2_conv", "raftstereo_tpu/ops/pallas_layer2.py:201, :212",
+        dims(y), lambda: ce.l2_conv(y, b_, wl, bl),
+        lambda: ce.conv_plain(y, wl, bl, 1, b_), n2,
+        2 * (2 * y.numel() + wl.numel() + 96) + 4 * 4 * b * 96,
+        conv_cost(y, wl, y.numel(), n_in=1),
+        lib=lambda: F.conv2d(y, wlh, blh, 1, 1),
+        products=conv_products(wl, y.numel()))
+    row("l2_conv", "", f"{dims(y)} res_proj form",
+        lambda: ce.l2_conv(y, b_, wl, bl, res=p, res_aff=pb),
+        lambda: ce.conv_plain(y, wl, bl, 1, b_, p, pb, res_relu=False), n2,
+        None, 0)
+    y1 = y[:half].contiguous()
+    b1 = (b_[0][:half].contiguous(), b_[1][:half].contiguous())
+    row("l2_conv", "", f"{dims(y1)} no sums",
+        lambda: ce.l2_conv(y1, b1, wl, bl, want_stats=False),
+        lambda: ce.conv_plain(y1, wl, bl, 1, b1, want_stats=False), 1.0,
+        None, 0)
+    del y1
+    row("l2_finish", "raftstereo_tpu/ops/pallas_layer2.py:228", dims(y),
+        lambda: ce.l2_finish(p, pb, y, b_, q, a4),
+        lambda: ce.finish_plain(p, pb, y, b_, q, a4, a_relu=False), n2,
+        2 * 4 * y.numel() + 4 * 6 * b * 96, 12 * y.numel(), reps=10,
+        exact=True)
     return rows
 
 
@@ -2595,20 +2756,33 @@ def train_step_card_vs_cpu(torch, batch, mcfg):
 
 def pinned_step(model, pinned, batch, dev, torch, dtype=None):
     """One train-mode forward and backward of ``model`` on ``dev`` (3
-    iterations, ``sequence_loss``) with its encoders' outputs replaced by
-    ``pinned`` (cnet's heads per level, fnet's maps) as leaf tensors in
-    ``dtype`` (default: as given).  Returns the loss, the predictions,
-    the gradients of the non-encoder parameters and the leaves'
-    cotangents, on the CPU."""
+    iterations, ``sequence_loss``) with its encoders' outputs pinned to
+    ``pinned`` (cnet's heads per level, fnet's maps, as leaf tensors in
+    ``dtype``, default as given): the encoders still run, each output
+    takes its pinned value, and its cotangent reaches both the leaf and
+    the encoder, whose backward runs on it.  Returns the loss, the
+    predictions, every parameter's gradient and the leaves' cotangents,
+    on the CPU."""
     from raftstereo_tpu_torch.train.loss import sequence_loss
+
+    class Pin(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, out, value):
+            return value.detach().clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, g
 
     def leaf(t):
         return t.detach().to(dev, dtype or t.dtype).clone().requires_grad_()
 
     couts = [[leaf(t) for t in lvl] for lvl in pinned[0]]
     fmaps = leaf(pinned[1])
-    model.cnet.forward = lambda x: couts
-    model.fnet.forward = lambda x: fmaps
+    cnet, fnet = model.cnet.forward, model.fnet.forward
+    model.cnet.forward = lambda x: [[Pin.apply(o, p) for o, p in zip(lo, lp)]
+                                    for lo, lp in zip(cnet(x), couts)]
+    model.fnet.forward = lambda x: Pin.apply(fnet(x), fmaps)
     try:
         preds = model(*(t.to(dev) for t in batch[:2]), iters=3,
                       test_mode=False)
@@ -2617,27 +2791,32 @@ def pinned_step(model, pinned, batch, dev, torch, dtype=None):
     finally:
         del model.cnet.forward, model.fnet.forward
     grads = {k: p.grad.detach().float().cpu()
-             for k, p in model.named_parameters()
-             if not k.startswith(("cnet.", "fnet."))}
+             for k, p in model.named_parameters()}
     cots = [t.grad.detach().float().cpu() for lvl in couts for t in lvl]
     return (float(loss.detach()), preds.detach().float().cpu(), grads,
             cots + [fmaps.grad.float().cpu()])
 
 
-def bf16_train_step_card_vs_cpu(torch, batch, corr_dtype):
-    """One bf16 train step (``pallas_alt``, flagship widths, 3 iterations,
-    the 64x96 batch) on the card (the lookup and its backward as kernels,
-    cuDNN's bf16 convs) against the CPU (plain versions, oneDNN's), with
-    the card's bf16 encoder outputs pinned as leaves in both: the loss
-    (within BF16_STEP_LOSS_TOL, relative), and the predictions, the
-    gradients of every non-encoder parameter, and the cotangents reaching
-    fnet's maps and cnet's outputs, each as a 2-norm distance card-CPU at
-    most BF16_STEP_SHARE of the CPU's own bf16-vs-fp32 distance on the
-    same pinned inputs, so a card step that ran fp32 fails."""
+def bf16_train_step_card_vs_cpu(torch, batch, corr_dtype, **kw):
+    """One bf16 train step (``pallas_alt`` unless ``kw`` says otherwise,
+    flagship widths, 3 iterations, the 64x96 batch) on the card (the
+    lookup and its backward as kernels, cuDNN's bf16 convs) against the
+    CPU (plain versions, oneDNN's), with the card's bf16 encoder outputs
+    pinned in both (``pinned_step``: the encoders run under their pinned
+    outputs, their gradients flowing through them; with
+    ``fused_encoder=True`` through the fused stages' bf16 backward, row
+    14's bf16 form among it): the loss (within BF16_STEP_LOSS_TOL,
+    relative), and the predictions, every parameter's gradient, and the
+    cotangents reaching fnet's maps and cnet's outputs, each as a 2-norm
+    distance card-CPU at most BF16_STEP_SHARE of the CPU's own
+    bf16-vs-fp32 distance on the same pinned inputs, so a card step that
+    ran fp32 fails.  The encoders' gradients' share alone is printed
+    beside."""
     from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig
 
-    cfg = RAFTStereoConfig(corr_implementation="pallas_alt",
-                           compute_dtype="bfloat16", corr_dtype=corr_dtype)
+    cfg = RAFTStereoConfig(**dict(dict(
+        corr_implementation="pallas_alt", compute_dtype="bfloat16",
+        corr_dtype=corr_dtype), **kw))
     model = RAFTStereo(cfg, device="cuda", seed=1)
     cpu_model = copy.deepcopy(model).to("cpu")
     f32_model = RAFTStereo(dataclasses.replace(
@@ -2656,29 +2835,37 @@ def bf16_train_step_card_vs_cpu(torch, batch, corr_dtype):
     got = pinned_step(model, pinned, batch, "cuda", torch)
     want = pinned_step(cpu_model, pinned, batch, "cpu", torch)
     f32 = pinned_step(f32_model, pinned, batch, "cpu", torch, torch.float32)
+    label = (f"{cfg.corr_implementation}, {corr_dtype} corr"
+             f"{', fused encoder' * bool(cfg.fused_encoder)}")
     check(np.isfinite(got[0]) and all(bool(torch.isfinite(g).all())
                                       for g in got[2].values()),
-          f"bf16 train step ({corr_dtype} corr): non-finite loss or gradient")
+          f"bf16 train step ({label}): non-finite loss or gradient")
 
     def flat(d):
         return torch.cat([t.reshape(-1) for t in
                           (d.values() if isinstance(d, dict) else d)])
 
+    def share(i, keep=lambda k: True):
+        a, b, c = (flat({k: t for k, t in d[i].items() if keep(k)})
+                   if isinstance(d[i], dict) else flat(d[i])
+                   for d in (got, want, f32))
+        return float((a - b).norm() / (c - b).norm())
+
     loss_err = abs(got[0] - want[0]) / abs(want[0])
-    shares = {}
-    for i, name in ((1, "predictions"), (2, "gradients"), (3, "cotangents")):
-        a, b, c = flat(got[i]), flat(want[i]), flat(f32[i])
-        shares[name] = float((a - b).norm() / (c - b).norm())
-    print(f"bf16 train step ({corr_dtype} corr) card vs cpu (encoders "
+    shares = {name: share(i) for i, name in
+              ((1, "predictions"), (2, "gradients"), (3, "cotangents"))}
+    enc = share(2, lambda k: k.startswith(("cnet.", "fnet.")))
+    print(f"bf16 train step ({label}) card vs cpu (encoder outputs "
           f"pinned): loss {got[0]:.6g} vs {want[0]:.6g} (fp32 {f32[0]:.6g};"
           f" relative error {loss_err:.2e}, tol {BF16_STEP_LOSS_TOL}); "
           f"distance over the cpu's bf16-vs-fp32 distance: "
           + ", ".join(f"{k} {v:.3f}" for k, v in shares.items())
-          + f" (tol {BF16_STEP_SHARE})")
+          + f" (tol {BF16_STEP_SHARE}); the encoders' gradients alone "
+          f"{enc:.3f}")
     check(loss_err <= BF16_STEP_LOSS_TOL
           and all(v <= BF16_STEP_SHARE for v in shares.values()),
-          f"card bf16 train step ({corr_dtype} corr) differs from the "
-          f"CPU's: loss {loss_err}, {shares}")
+          f"card bf16 train step ({label}) differs from the CPU's: loss "
+          f"{loss_err}, {shares}")
 
 
 def counted_wrappers():
@@ -3431,6 +3618,7 @@ def main() -> int:
     vol_rows, op_vol_launches = vol_bf16_kernel_phase(cfg, lo_hw, torch)
     rows += vol_rows
     rows += encoder_bf16_kernel_phase(model, bucket, torch)
+    rows += train_fused_bf16_kernel_phase(model, torch)
 
     def want(**per_request):
         return {fn.__name__: REQUESTS * per_request.get(fn.__name__, 0)
@@ -3522,19 +3710,31 @@ def main() -> int:
              dict(vol_lookup=TRAIN_ITERS, vol_lookup_backward=TRAIN_ITERS)),
             ("train_fused", dict(fused_encoder=True), ((FUSED_STEPS, 0),),
              dict(FUSED_PER_STEP, **lookup)),
-            ("train_bf16", bf16, ((TRAIN_BF16_STEPS, 0),), lookup)):
+            ("train_bf16", bf16, ((TRAIN_BF16_STEPS, 0),), lookup),
+            ("train_fused_bf16", dict(bf16, fused_encoder=True),
+             ((TRAIN_BF16_STEPS, 0),), dict(FUSED_PER_STEP, **lookup)),
+            ("train_bf16_pallas", dict(bf16, corr_implementation="pallas"),
+             ((TRAIN_BF16_STEPS, 0),),
+             dict(vol_lookup=TRAIN_ITERS, vol_lookup_backward=TRAIN_ITERS))):
         mcfg = RAFTStereoConfig(**dict(dict(corr_implementation="pallas_alt",
                                             fused_encoder=False), **kw))
         by_path[path], secs, peak_gb = train_phase(torch, mcfg, runs,
                                                    per_step)
         walls[path] = (statistics.median(secs[1:]), peak_gb)
-        if path == "train_bf16":
-            for corr_dtype in ("bfloat16", "float32"):
-                bf16_train_step_card_vs_cpu(torch, batch, corr_dtype)
-        else:
+        # bf16 steps card vs CPU: (correlation dtype, config) each
+        for corr_dtype, bkw in {
+                "train_bf16": (("bfloat16", {}), ("float32", {})),
+                "train_fused_bf16": (("bfloat16", dict(fused_encoder=True)),
+                                     ("float32", dict(fused_encoder=True))),
+                "train_bf16_pallas": (
+                    ("bfloat16", dict(corr_implementation="pallas")),),
+        }.get(path, ()):
+            bf16_train_step_card_vs_cpu(torch, batch, corr_dtype, **bkw)
+        if mcfg.compute_dtype != "bfloat16":
             train_step_card_vs_cpu(torch, batch, mcfg)
         torch.cuda.empty_cache()
-    for path in ("train", "train_fused", "train_bf16"):
+    for path in ("train", "train_fused", "train_bf16", "train_fused_bf16",
+                 "train_bf16_pallas"):
         print(f"{path}: median step wall (steps 2 on) {walls[path][0]:.3f}s, "
               f"peak memory {walls[path][1]:.2f} GB [{CARD}]")
     by_path["train_bf16_smooth"] = by_path["train_bf16"]

@@ -16,15 +16,14 @@ fused stem + layer1 and layer2 stages (CUDA kernels, and their
 hand-written backward in training).
 
 ``compute_dtype="bfloat16"`` (the JAX package's ``--mixed_precision``)
-runs inference and training in bf16 with the plain encoders and any
-backend, and inference with the fused encoder stages too (their bf16
-kernels; a train-mode forward raises ``BF16_FUSED_TRAINING``);
-``corr_dtype="bfloat16"`` then stores the on-demand lookup's
+runs inference and training in bf16 with the plain or the fused encoder
+stages (their bf16 kernels, and in training their bf16 backward) and any
+backend; ``corr_dtype="bfloat16"`` then stores the on-demand lookup's
 feature maps in bf16 (``pallas_alt``), or the ``pallas`` volume pyramid
-in bf16 (inference; training on it raises at ``forward``); ``reg`` and
-``alt`` build in fp32 whatever it says, as the JAX package does.  With
-``corr_quant`` the int8 volume comes out in ``corr_dtype`` (the int8
-tier: bf16).  ``check_dtypes`` refuses the bf16 combinations outside
+in bf16; ``reg`` and ``alt`` build in fp32 whatever it says, as the JAX
+package does.  With ``corr_quant`` the int8 volume comes out in
+``corr_dtype`` (the int8 tier: bf16); training builds the unquantized
+volume.  ``check_dtypes`` refuses the bf16 combinations outside
 those paths.  Every other field value that
 selects another path raises ``NotImplementedError`` naming the ROADMAP
 item that will add it.
@@ -123,29 +122,14 @@ def check_supported(config: RAFTStereoConfig) -> None:
     check_dtypes(config)
 
 
-# Raised by a train-mode forward over the bf16 ``pallas`` volume.
-BF16_VOLUME_TRAINING = (
-    "training on the bf16 pallas volume (corr_implementation='pallas' with "
-    "corr_dtype='bfloat16') is not ported yet; see ROADMAP.md Queue 1 "
-    "item 7")
-# Raised by a train-mode forward of the fused encoder in bf16, and by its
-# stages' backward on bf16 tensors.
-BF16_FUSED_TRAINING = (
-    "training the fused encoder in bf16 (fused_encoder=True with "
-    "compute_dtype='bfloat16': row 14's bf16 form and the stages' bf16 "
-    "backward) is not ported yet; see ROADMAP.md Queue 2 item 4")
-
-
 def check_dtypes(config: RAFTStereoConfig) -> None:
-    """The bf16 paths: bf16 compute with the plain or the fused encoders,
-    the on-demand lookup with bf16 or fp32 feature maps (its backward's
-    bf16 or fp32 form), ``reg``/``alt`` (fp32 lookups cast to bf16),
-    ``pallas`` with its fp32 volume, and in inference the bf16 ``pallas``
-    volume and the int8 tier (``corr_quant``; training builds the
+    """The bf16 paths, in inference and training: bf16 compute with the
+    plain or the fused encoders, the on-demand lookup with bf16 or fp32
+    feature maps (its backward's bf16 or fp32 form), ``reg``/``alt`` (fp32
+    lookups cast to bf16), ``pallas`` with its fp32 or bf16 volume, and in
+    inference the int8 tier (``corr_quant``; training builds the
     unquantized volume of the configured backend).  Refused: bf16
-    correlation at fp32 compute; a train-mode forward over the bf16
-    ``pallas`` volume raises ``BF16_VOLUME_TRAINING``, one of the fused
-    encoder in bf16 ``BF16_FUSED_TRAINING``."""
+    correlation at fp32 compute."""
     if config.corr_dtype == "bfloat16" and config.compute_dtype != "bfloat16":
         raise NotImplementedError(
             "corr_dtype='bfloat16' with compute_dtype='float32' (bf16 "

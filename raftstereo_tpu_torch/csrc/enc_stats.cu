@@ -32,11 +32,18 @@
 // 16-byte loads outstanding for the dual sums) to keep every SM's loads
 // busy.
 //
-// enc_stats_forward with `bf16` set is row 10's bf16 form (the TPU kernel
-// reads its input's dtype and sums `x.astype(float32)`,
-// pallas_norm.py:58-63): the same kernel over bf16 planes, 8 values a
-// 16-byte load, fp32 sums.  Bound: bytes, half the fp32 form's (70.8 MB per
-// 64-channel 576x960 image, 21 us).
+// With `bf16` set, each entry runs its bf16 form: the same kernel over
+// bf16 planes, 8 values a 16-byte load converted to fp32 in registers,
+// fp32 sums.  enc_stats_forward's is row 10's (the TPU kernel reads its
+// input's dtype and sums `x.astype(float32)`, pallas_norm.py:58-63);
+// bound: bytes, half the fp32 form's (70.8 MB per 64-channel 576x960
+// image, 21 us).  enc_dual_sums_forward's is row 14's, which the JAX
+// package runs when it trains the fused encoder in bf16: its kernel
+// upcasts u and v in registers (pallas_encoder.py:1158-1159) and keeps
+// them in their storage dtype in memory, since an fp32 copy of a recipe
+// tensor would take 708 MB; each product of two bf16 values is exact in
+// fp32.  Bound: bytes, u and v each 12x64x320x720 in bf16 (707.8 MB
+// together), 0.2113 ms.
 
 #include "enc_bf16.cuh"
 
@@ -99,32 +106,37 @@ enc_plane_stats_kernel(const T* __restrict__ x, float* __restrict__ stats,
   block_store(s, q, stats, c, ch, b);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-enc_dual_sums_kernel(const float* __restrict__ u, const float* __restrict__ v,
+enc_dual_sums_kernel(const T* __restrict__ u, const T* __restrict__ v,
                      float* __restrict__ sums, int c, long hw) {
+  constexpr int kV = 16 / sizeof(T);
   const int ch = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const long off = ((long)b * c + ch) * hw;
-  const float* pu = u + off;
-  const float* pv = v + off;
+  const T* pu = u + off;
+  const T* pv = v + off;
   float s = 0.f, q = 0.f;
-  if ((hw & 3) == 0 && (reinterpret_cast<uintptr_t>(pu) & 15) == 0 &&
+  if (hw % kV == 0 && (reinterpret_cast<uintptr_t>(pu) & 15) == 0 &&
       (reinterpret_cast<uintptr_t>(pv) & 15) == 0) {
-    const float4* u4 = reinterpret_cast<const float4*>(pu);
-    const float4* v4 = reinterpret_cast<const float4*>(pv);
+    const uint4* u16 = reinterpret_cast<const uint4*>(pu);
+    const uint4* v16 = reinterpret_cast<const uint4*>(pv);
 #pragma unroll 2
-    for (long i = tid; i < hw / 4; i += 256) {
-      const float4 a = __ldg(u4 + i);
-      const float4 w = __ldg(v4 + i);
-      s += a.x; q = fmaf(a.x, w.x, q);
-      s += a.y; q = fmaf(a.y, w.y, q);
-      s += a.z; q = fmaf(a.z, w.z, q);
-      s += a.w; q = fmaf(a.w, w.w, q);
+    for (long i = tid; i < hw / kV; i += 256) {
+      Pack16<T> a, w;
+      a.u = __ldg(u16 + i);
+      w.u = __ldg(v16 + i);
+#pragma unroll
+      for (int e = 0; e < kV; ++e) {
+        const float x = to_f(a.v[e]);
+        s += x;
+        q = fmaf(x, to_f(w.v[e]), q);
+      }
     }
   } else {
     for (long i = tid; i < hw; i += 256) {
-      const float a = __ldg(pu + i);
-      s += a;
-      q = fmaf(a, __ldg(pv + i), q);
+      const float x = to_f(__ldg(pu + i));
+      s += x;
+      q = fmaf(x, to_f(__ldg(pv + i)), q);
     }
   }
   block_store(s, q, sums, c, ch, b);
@@ -150,15 +162,23 @@ extern "C" int enc_stats_forward(const void* x, float* stats, int batch,
   return (int)cudaGetLastError();
 }
 
-// u, v (B, C, H*W) fp32 contiguous -> sums (B, 2, C): sums of u, then sums
-// of u * v.  Returns the CUDA error code of the launch (0 on success).
-extern "C" int enc_dual_sums_forward(const float* u, const float* v,
+// u, v (B, C, H*W) contiguous, both fp32 or (bf16 set) both bf16 -> sums
+// (B, 2, C) fp32: sums of u, then sums of u * v.  Returns the CUDA error
+// code of the launch (0 on success).
+extern "C" int enc_dual_sums_forward(const void* u, const void* v,
                                      float* sums, int batch, int c, long hw,
-                                     void* stream) {
+                                     int bf16, void* stream) {
   if (batch < 1 || c < 1 || hw < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  enc_dual_sums_kernel<<<dim3(c, batch), 256, 0,
-                         static_cast<cudaStream_t>(stream)>>>(u, v, sums, c,
-                                                              hw);
+  const dim3 grid(c, batch);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    enc_dual_sums_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(u),
+        static_cast<const __nv_bfloat16*>(v), sums, c, hw);
+  else
+    enc_dual_sums_kernel<float><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(u), static_cast<const float*>(v), sums, c,
+        hw);
   return (int)cudaGetLastError();
 }

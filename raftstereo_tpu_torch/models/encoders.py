@@ -6,9 +6,9 @@ layer2 through the fused stages (``ops.encoder_stage``, CUDA kernels
 ``csrc/enc_*.cu``, with the JAX package's hand-written backward); otherwise
 the plain convolutions and norms run (the JAX package's ``_plain_stem``
 path).  Both compute in the input's dtype: a bf16 image (``compute_dtype=
-"bfloat16"``) takes the fused stages' bf16 kernels, as the JAX package's
-fused stages take ``dt=bfloat16`` (test mode only: their bf16 backward is
-not ported).  In training, gradients reach the frozen batch norms' weight and
+"bfloat16"``) takes the fused stages' bf16 kernels and, in training, their
+bf16 backward, as the JAX package's fused stages take ``dt=bfloat16``.
+In training, gradients reach the frozen batch norms' weight and
 bias through ``encoder_stage.bn_affine``; their running statistics are
 buffers and get none."""
 

@@ -7,8 +7,9 @@ modules: parameters stay fp32 and are cast at use, a convolution's output
 is rounded to bf16 before its bias is added in bf16, batch norm computes
 in fp32 and rounds once, and instance norm keeps the JAX package's
 ``instance_norm_stats`` rounding points.  In training the bias add and
-instance norm take the VJPs of JAX's transposes (``_BiasAddBf16``,
-``_InstanceNormBf16``), whose bf16 sums over an image are ``_sum32``."""
+instance norm take the VJPs of JAX's transposes (``ops/bf16.py``'s
+``conv_bf16``, ``_InstanceNormBf16``), whose bf16 sums over an image are
+``bf16.sum32``."""
 
 from __future__ import annotations
 
@@ -16,39 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-
-BF16 = torch.bfloat16
-
-
-def _sum32(x: torch.Tensor, dims) -> torch.Tensor:
-    """A bf16 sum over ``dims`` accumulated in fp32 and rounded once (the
-    bf16 sums of the JAX package's transposes, as an accelerator takes
-    them; XLA:CPU instead rounds every add)."""
-    return x.float().sum(dim=dims, keepdim=True).to(BF16)
-
-
-class _BiasAddBf16(torch.autograd.Function):
-    """``y + bias`` in bf16 for NCHW ``y`` and an fp32 ``bias`` cast at
-    use, as flax adds it: the bias's cotangent is the bf16 sum of ``dy``
-    over the batch and pixels (``_sum32``), then widened to fp32 through
-    the cast."""
-
-    @staticmethod
-    def forward(ctx, y, bias):
-        return y + bias.to(BF16)[:, None, None]
-
-    @staticmethod
-    def backward(ctx, dy):
-        return dy, _sum32(dy, (0, 2, 3)).reshape(-1).float()
-
-
-def conv_bf16(x: torch.Tensor, weight: torch.Tensor, bias, stride=1,
-              padding=0) -> torch.Tensor:
-    """flax ``nn.Conv(dtype=bfloat16)``: input and kernel in bf16, the
-    product rounded to bf16 (fp32 accumulation inside), then the bias
-    added in bf16 -- one rounding more than ``F.conv2d(x, w, b)``."""
-    y = F.conv2d(x.to(BF16), weight.to(BF16), None, stride, padding)
-    return y if bias is None else _BiasAddBf16.apply(y, bias)
+from ..ops import bf16
+from ..ops.bf16 import BF16, conv_bf16
 
 
 class Conv2d(nn.Conv2d):
@@ -128,8 +98,9 @@ class _InstanceNormBf16(torch.autograd.Function):
         nf = torch.full((), float(ctx.n), device=dy.device)
         dyr = dy.reshape(bz.shape)
         cf = dyr * sw                                     # the sweep's
-        d_scale = _sum32(bz * dyr, (2, 3)).float().sum(dim=4, keepdim=True)
-        d_mbar = _sum32(-cf, (2, 3)).float().sum(dim=4, keepdim=True)
+        d_scale = bf16.sum32(bz * dyr, (2, 3)).float().sum(dim=4,
+                                                           keepdim=True)
+        d_mbar = bf16.sum32(-cf, (2, 3)).float().sum(dim=4, keepdim=True)
         # rsqrt, then max(var, 0): slope 1 above 0, 1/2 at 0, 0 below
         d_var = d_scale * (-0.5 * (scale / eps))
         d_var = d_var * (torch.where(var == varc, 1.0, 0.0)
@@ -139,7 +110,7 @@ class _InstanceNormBf16(torch.autograd.Function):
         d_m32 = cy + d_mbar / kf                          # (b, c, 1, 1, k)
         d_v = (d_var / kf).to(BF16).float() / nf          # via v's mean
         ds = d_v.to(BF16) * ctr2                          # via ctr * ctr
-        d_m = d_m32.to(BF16) + _sum32(-ds, (2, 3))
+        d_m = d_m32.to(BF16) + bf16.sum32(-ds, (2, 3))
         ec = (d_m.float() / nf).to(BF16)                  # via m's mean
         # JAX adds the three in the order its transposes reach x: the
         # group view is a separate array for k > 1, x itself for k = 1.

@@ -14,8 +14,8 @@ lookup (``ops.corr.corr_lookup``) and one update of the GRU levels.
   lookup; train mode builds the unquantized state of the configured
   backend whatever the flag says, as the JAX package does.  With
   ``corr_dtype="bfloat16"`` the "pallas" volume pyramid (and the int8
-  volume) is stored in bf16 and looked up by the kernel's bf16 form, in
-  test mode only.
+  volume) is stored in bf16 and looked up by the kernel's bf16 form; in
+  train mode the lookup's fp32 backward is cast to the bf16 volume.
 
 * ``fused_encoder`` None or False: plain-convolution encoders (the JAX
   package's ``fused_encoder=False`` path).  True: both encoders run their
@@ -24,7 +24,8 @@ lookup (``ops.corr.corr_lookup``) and one update of the GRU levels.
   ``enc_conv.cu``, ``enc_stats.cu``, ``enc_finish.cu``); in train mode
   their backward is
   the JAX package's hand-written one (``ops.encoder_bwd``, with the
-  instance-norm backward's sums as ``enc_stats.cu``'s second kernel).
+  instance-norm backward's sums as ``enc_stats.cu``'s second kernel), in
+  the compute dtype.
 
 * Test mode with ``gru_backend`` "auto" or "fused": the coarser levels,
   then one fused finest-level update (``ops.cuda_gru.gru_update``, CUDA
@@ -62,11 +63,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..config import (BF16_FUSED_TRAINING, BF16_VOLUME_TRAINING,
-                      RAFTStereoConfig, check_supported)
+from ..config import RAFTStereoConfig, check_supported
 from ..device import fp32_numerics, resolve_device
-from ..ops.corr import (build_corr_state, corr_lookup, corr_lookup_epi,
-                        resolve_implementation)
+from ..ops.corr import build_corr_state, corr_lookup, corr_lookup_epi
 from ..ops.cuda_gru import gru_update, pack_update_params, tanh_bf16
 from ..ops.image import coords_grid_x, resize_nchw
 from ..ops.upsample import convex_upsample
@@ -173,9 +172,6 @@ class RAFTStereo(nn.Module):
 
     def _forward(self, image1, image2, iters, flow_init, test_mode):
         cfg = self.config
-        if (not test_mode and self.dtype == torch.bfloat16
-                and cfg.fused_encoder is True):
-            raise NotImplementedError(BF16_FUSED_TRAINING)
         n, hd = cfg.n_gru_layers, cfg.hidden_dims
         b = image1.shape[0]
 
@@ -194,10 +190,6 @@ class RAFTStereo(nn.Module):
         # The int8 volume is inference-only: its rounding defines no useful
         # gradient, so train mode builds the unquantized state.
         quant = cfg.corr_quant and test_mode
-        if (not test_mode and self.corr_dtype == torch.bfloat16
-                and resolve_implementation(cfg.corr_implementation)
-                == "pallas"):
-            raise NotImplementedError(BF16_VOLUME_TRAINING)
         state = build_corr_state(_nhwc(fmaps[:b]), _nhwc(fmaps[b:]),
                                  cfg.corr_levels, cfg.corr_implementation,
                                  quant, self.corr_dtype)

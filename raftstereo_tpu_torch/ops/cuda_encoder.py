@@ -42,16 +42,16 @@ one to the other.  The convolution wrappers repack the OIHW weights on
 every call (``tc_pack`` for the tensor-core kernel: 295 KB at 64->64), so
 nothing goes stale after ``load_state_dict``.
 
-Every wrapper but ``dual_sums`` takes float32 or bfloat16 activations and
-dispatches on their dtype: float32 to the fp32 kernels, bfloat16 to their
-bf16 forms (the JAX kernels at ``dt=bfloat16``, the fast and turbo tiers
-of a fused base).  Affines and sums stay float32; any other dtype or mix
-raises.  The bf16 forms round where the JAX kernels round: the prep
-casts the fp32 affine to bf16 and rounds after each product and each sum
-(never one fused multiply-add); a convolution takes bf16 operands (the
-weights and bias cast at use), sums its exact products in fp32, adds the
-bias in fp32, takes the output sums of that fp32 result and rounds it to
-bf16 once.
+Every wrapper takes float32 or bfloat16 activations and dispatches on
+their dtype: float32 to the fp32 kernels, bfloat16 to their bf16 forms
+(the JAX kernels at ``dt=bfloat16``: the fast and turbo tiers of a fused
+base, and ``dual_sums`` in the stages' bf16 backward).  Affines and sums
+stay float32; any other dtype or mix raises.  The bf16 forms round where
+the JAX kernels round: the prep casts the fp32 affine to bf16 and rounds
+after each product and each sum (never one fused multiply-add); a
+convolution takes bf16 operands (the weights and bias cast at use), sums
+its exact products in fp32, adds the bias in fp32, takes the output sums
+of that fp32 result and rounds it to bf16 once.
 """
 
 from __future__ import annotations
@@ -167,7 +167,11 @@ def stats_plain(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def dual_sums_plain(u: torch.Tensor, v: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """fp32 (sum of u, sum of u*v) over (H, W), each (B, C)."""
+    """fp32 (sum of u, sum of u*v) over (H, W), each (B, C).  bf16
+    operands are upcast before they are multiplied and summed, as the TPU
+    kernel upcasts them in registers: each product of two bf16 values is
+    exact in fp32."""
+    u, v = u.float(), v.float()
     return u.sum(dim=(2, 3)), (u * v).sum(dim=(2, 3))
 
 
@@ -438,15 +442,12 @@ def dual_sums(u: torch.Tensor, v: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 (sum of u, sum of u*v) of each (image, channel) plane of two
     tensors of one shape: the instance-norm backward's two reductions
-    (row 14)."""
+    (row 14).  Both float32 or both bfloat16 (the bf16 form: fp32 sums of
+    the upcast values)."""
     if _on_cpu(u, v):
         return dual_sums_plain(u, v)
-    if BF16 in (u.dtype, v.dtype):
-        raise NotImplementedError(
-            "dual_sums: the bf16 form of row 14 (the instance-norm "
-            "backward's sums, bf16 training of the fused encoder) is not "
-            "ported yet; see ROADMAP.md Queue 2")
-    dev = _check("dual_sums", torch.float32, (u, v))
+    dt = _act_dtype("dual_sums", u)
+    dev = _check("dual_sums", dt, (u, v))
     if u.shape != v.shape or u.dim() != 4:
         raise ValueError(f"dual_sums: shapes {tuple(u.shape)} and "
                          f"{tuple(v.shape)}; want one (B, C, H, W) shape")
@@ -455,11 +456,12 @@ def dual_sums(u: torch.Tensor, v: torch.Tensor
     fn = _build.load("enc_stats").enc_dual_sums_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_long, ctypes.c_void_p]
+                                           ctypes.c_long, ctypes.c_int,
+                                           ctypes.c_void_p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(u.data_ptr(), v.data_ptr(), sums.data_ptr(), b, c, h * w,
-                stream)
+                int(dt == BF16), stream)
     if rc != 0:
         raise RuntimeError(f"dual_sums kernel launch failed: CUDA error "
                            f"{rc}")

@@ -17,8 +17,8 @@ kernel as relu(x*s + t):
 The stages compute in their input's dtype: a bf16 image or activation
 runs the kernels' bf16 forms with the fp32 parameters cast at use, the
 affines and sums staying fp32 (``ops.cuda_encoder``), and returns a bf16
-output.  The bf16 backward is not ported: it raises
-``config.BF16_FUSED_TRAINING``.
+output; its backward then runs in bf16 with the JAX package's rounding
+points (``ops.encoder_bwd``).
 
 Tensors are NCHW; ``params`` map a conv's name to ``(weight, bias)`` with
 OIHW weights (``c10, c11, c20, c21`` for layer1; ``c1, proj, c2, c3, c4``
@@ -44,7 +44,6 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..config import BF16_FUSED_TRAINING
 from . import cuda_encoder as ce
 from . import encoder_bwd as eb
 from .cuda_encoder import Affine
@@ -155,8 +154,6 @@ class _Stem(torch.autograd.Function):
     def backward(ctx, g):
         stride, bn = ctx.stride, ctx.bn
         x, y1, *rest = ctx.saved_tensors
-        if y1.dtype == torch.bfloat16:
-            raise NotImplementedError(BF16_FUSED_TRAINING)
         raws, weights, rest = rest[:4], rest[4:8], rest[8:]
         if stride:
             w1, *rest = rest
@@ -253,8 +250,6 @@ class _Layer2(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.saved_tensors[0].dtype == torch.bfloat16:
-            raise NotImplementedError(BF16_FUSED_TRAINING)
         with torch.enable_grad():
             xs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             params = dict(zip(_L2_CONVS, _pairs(xs[1:11])))

@@ -12,7 +12,11 @@ are kept where they differ from ``torch.optim.AdamW`` and
 * weight decay is added to the Adam direction before the learning rate
   scales it: ``p += -lr * (m_hat / (sqrt(v_hat) + eps) + wd * p)``;
 * the Adam bias correction counts applied updates (``AdamW.count``); the
-  schedule counts steps, so a skipped step advances the schedule only.
+  schedule counts steps, so a skipped step advances the schedule only;
+* the bias corrections ``1 - b ** count`` are taken in fp32, from the
+  fp32 ``b``, as optax takes them (in float64 the first step's
+  ``1 - 0.999`` is 1.3e-5 larger, relative, and each update 6e-6
+  larger).
 """
 
 from __future__ import annotations
@@ -88,8 +92,9 @@ class AdamW:
         """One update of ``params`` (in place) with learning rate ``lr``."""
         b1, b2 = self.b1, self.b2
         self.count += 1
-        bc1 = 1.0 - b1 ** self.count
-        bc2 = 1.0 - b2 ** self.count
+        f32 = np.float32
+        bc1 = float(f32(1) - f32(b1) ** f32(self.count))
+        bc2 = float(f32(1) - f32(b2) ** f32(self.count))
         for k, p in params.items():
             g = grads[k]
             mu = (1 - b1) * g + b1 * self.mu[k]

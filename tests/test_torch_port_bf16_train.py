@@ -15,8 +15,9 @@ encoders, block by block, on the same inputs and cotangents; then the
 model in bf16 train mode with its encoders' outputs pinned to JAX's (as
 ``test_torch_port_bf16.py`` pins them for the forward), held against
 ``jax.grad`` of the JAX bf16 model within a tolerance below JAX's own
-bf16-vs-fp32 gap on the same inputs; one optimizer step; the CLI; and the
-refusals that stay.
+bf16-vs-fp32 gap on the same inputs; one optimizer step; and the CLI.
+(The fused encoder and the bf16 ``pallas`` volume in training:
+``test_torch_port_enc_bf16_train.py``.)
 """
 
 import argparse
@@ -50,10 +51,10 @@ from raftstereo_tpu_torch import RAFTStereo, RAFTStereoConfig
 from raftstereo_tpu_torch.cli import profile as cli_profile
 from raftstereo_tpu_torch.cli import train as cli_train
 from raftstereo_tpu_torch.config import TrainConfig
-from raftstereo_tpu_torch.models import layers as tlayers
 from raftstereo_tpu_torch.models.layers import conv_bf16, instance_norm_bf16
 from raftstereo_tpu_torch.models.update import ConvGRU
 from raftstereo_tpu_torch.ops import alt_lookup as talt
+from raftstereo_tpu_torch.ops import bf16 as tbf16
 from raftstereo_tpu_torch.ops.corr import build_corr_state, corr_lookup
 from raftstereo_tpu_torch.ops.cuda_gru import sigmoid_bf16, tanh_bf16
 from raftstereo_tpu_torch.ops.image import resize_bilinear_align_corners
@@ -295,7 +296,7 @@ def test_general_bf16_autograd_reaches_both_maps():
 def _sum_seq(x: torch.Tensor, dims) -> torch.Tensor:
     """A bf16 sum over ``dims`` as XLA:CPU takes one: an add at a time,
     each rounded to bf16, over the reduced positions in row-major order
-    (batch, height, width of NHWC).  The port's ``layers._sum32``
+    (batch, height, width of NHWC).  The port's ``ops.bf16.sum32``
     accumulates in fp32 and rounds once, as an accelerator does; patching
     this in shows every other rounding point of a VJP to be JAX's."""
     dims = sorted(d % x.dim() for d in dims)
@@ -313,7 +314,7 @@ def _sum_seq(x: torch.Tensor, dims) -> torch.Tensor:
 @pytest.fixture
 def cpu_sums(monkeypatch):
     """The port's bf16 image sums taken as XLA:CPU takes them."""
-    monkeypatch.setattr(tlayers, "_sum32", _sum_seq)
+    monkeypatch.setattr(tbf16, "sum32", _sum_seq)
 
 def _vjp_pair(jfn, tfn, *xs, seed=0):
     """``jax.vjp`` of ``jfn`` and torch autograd of ``tfn`` on the same
@@ -359,7 +360,7 @@ def test_conv_bf16_vjp_matches_flax(sums, monkeypatch):
     port's sums it is bitwise the fp32 sum of JAX's cotangent rounded
     once; with the sums taken as XLA:CPU takes them, bitwise JAX's."""
     if sums == "cpu":
-        monkeypatch.setattr(tlayers, "_sum32", _sum_seq)
+        monkeypatch.setattr(tbf16, "sum32", _sum_seq)
     import flax.linen as nn
 
     rng = np.random.default_rng(2)
@@ -476,7 +477,7 @@ def test_instance_norm_bf16_vjp_matches_jax(shape, monkeypatch):
         lambda a: _nhwc(instance_norm_bf16(_nchw(a))), x)
     assert np.array_equal(_np(ty), _np(y))
     assert _ulps(td, jd).max() <= 3.0 and _equal_share(td, jd) >= 0.55
-    monkeypatch.setattr(tlayers, "_sum32", _sum_seq)
+    monkeypatch.setattr(tbf16, "sum32", _sum_seq)
     _, (_, (td,)) = _vjp_pair(
         lambda a: JaxInstanceNorm().apply({}, a),
         lambda a: _nhwc(instance_norm_bf16(_nchw(a))), x)
@@ -620,12 +621,14 @@ def _pinned_encoders(v):
 
 def _jax_train(v, couts, fmaps, **kw):
     """``jax.grad`` of the JAX model's sequence loss (``pallas_alt`` with
-    its custom VJP in interpret mode, ``gru_backend="xla"``, jitted) with
-    the encoders' outputs given: the loss, every iteration's prediction
-    and the gradients of the parameters, of cnet's outputs and of fnet's
-    maps."""
-    jm = JaxModel(JaxConfig(fused_encoder=False, gru_backend="xla",
-                            corr_implementation="pallas_alt", **TINY, **kw))
+    its custom VJP in interpret mode unless ``kw`` names another backend,
+    ``gru_backend="xla"``, jitted) with the encoders' outputs given: the
+    loss, every iteration's prediction and the gradients of the
+    parameters (also as JAX's tree, ``tree``), of cnet's outputs and of
+    fnet's maps."""
+    jm = JaxModel(JaxConfig(**{**dict(fused_encoder=False, gru_backend="xla",
+                                      corr_implementation="pallas_alt",
+                                      **TINY), **kw}))
     dt = jm.dtype
     couts = [[o.astype(dt) for o in lvl] for lvl in couts]
     fmaps = fmaps.astype(dt)
@@ -645,9 +648,9 @@ def _jax_train(v, couts, fmaps, **kw):
 
     (loss, preds), grads = jax.jit(jax.value_and_grad(
         loss_fn, argnums=(0, 1, 2), has_aux=True))(v["params"], couts, fmaps)
-    return dict(loss=float(loss), preds=_np(preds),
-                params=variables_to_state_dict(
-                    {"params": jax.device_get(grads[0])}),
+    tree = jax.device_get(grads[0])
+    return dict(loss=float(loss), preds=_np(preds), tree=tree,
+                params=variables_to_state_dict({"params": tree}),
                 couts=[_np(o) for lvl in grads[1] for o in lvl],
                 fmaps=_np(grads[2]))
 
@@ -890,26 +893,3 @@ def test_cli_profile_train_takes_mixed_precision(monkeypatch):
         with pytest.raises(SystemExit) as e:
             cli_profile.main(["--train", "--mixed_precision"] + bad)
         assert e.value.code == 2
-
-
-# ------------------------------------------------------------ refusals
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(corr_implementation="pallas", corr_dtype="bfloat16"),
-     "Queue 1 item 7"),
-    (dict(fused_encoder=True), "Queue 2"),
-    (dict(corr_implementation="pallas", corr_dtype="bfloat16",
-          corr_quant=True), "Queue 1 item 7")],
-    ids=["bf16_pallas_volume", "fused_encoder", "corr_quant"])
-def test_bf16_training_refusals_stay(kw, item):
-    """What bf16 training still refuses, naming its ROADMAP item: the
-    fused encoder in bf16 at a train-mode forward (the model serves it in
-    test mode); training over the bf16
-    ``pallas`` volume at a train-mode forward (the model serves it in
-    test mode), also with ``corr_quant``, which trains on the
-    unquantized volume of the configured backend."""
-    img = torch.zeros((1, 32, 48, 3))
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        model = RAFTStereo(RAFTStereoConfig(
-            **TINY, compute_dtype="bfloat16", **kw), device="cpu")
-        model(img, img, iters=1, test_mode=False)

@@ -8,6 +8,7 @@ repo's conftest:
 """
 
 import ctypes
+import dataclasses
 import subprocess
 from pathlib import Path
 
@@ -803,7 +804,7 @@ def _twice_bf16(fn, args, kw, monkeypatch):
 
     with monkeypatch.context() as m:
         for name in ("conv_plain", "entry_plain", "finish_plain",
-                     "stats_plain", "prep"):
+                     "stats_plain", "dual_sums_plain", "prep"):
             m.setattr(cuda_encoder, name, boom)
         before = fn.launches
         k1, k2 = fn(*args, **kw), fn(*args, **kw)
@@ -881,7 +882,7 @@ def test_stats_and_finish_bf16_match_plain(dev, monkeypatch, shape):
 
 def test_encoder_wrappers_bf16_refuse_mixes(dev):
     """A bf16 CUDA tensor reaches only a bf16 kernel: a mix of dtypes, a
-    bf16 affine, or fp16 raises; row 14 in bf16 is not ported."""
+    bf16 affine, or fp16 raises."""
     rng = np.random.default_rng(10)
     x, r = _bf16_case(rng, dev, 1, 64, 8, 8)
     aff = _aff(rng, dev, 1, 64)
@@ -895,8 +896,31 @@ def test_encoder_wrappers_bf16_refuse_mixes(dev):
         ce.plane_stats(x.half())
     with pytest.raises(ValueError):  # the finish's terms of two dtypes
         ce.stage_finish(x, aff, r.float(), aff, x, aff)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-        ce.dual_sums(x, x)
+    with pytest.raises(ValueError):  # row 14's operands of two dtypes
+        ce.dual_sums(x, x.float())
+    with pytest.raises(ValueError):  # fp16 operands
+        ce.dual_sums(x.half(), x.half())
+
+
+# H*W not a multiple of 8 (the scalar path), one plane smaller than the
+# block, the recipe's 230,400-pixel planes (2 of its 12 images).
+@pytest.mark.parametrize("shape", [(2, 64, 13, 7), (1, 8, 3, 5),
+                                   (2, 64, 320, 720)])
+def test_dual_sums_bf16_kernel_matches_plain(dev, shape, monkeypatch):
+    """Row 14's bf16 form (training the fused encoder in bf16): fp32 sums
+    of the upcast bf16 u and u*v per plane, bitwise repeatable, within
+    1e-5 of max(1, |plain|) per pixel (fp32 sums in another order), one
+    launch a call, never the plain version."""
+    rng = np.random.default_rng(shape[2])
+    u = _randn(rng, *shape).to(BF).to(dev)
+    v = (_randn(rng, *shape) * 2 + 0.5).to(BF).to(dev)
+    k1, k2, want = _twice_bf16(cuda_encoder.dual_sums, (u, v), {},
+                               monkeypatch)
+    n = shape[2] * shape[3]
+    for a, b, w in zip(k1, k2, want):
+        assert torch.equal(a, b) and a.dtype == w.dtype == torch.float32
+        scale = max(1.0, float((w / n).abs().max()))
+        assert float(((a.cpu() - w) / n).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.parametrize("ds", [2, 3])
@@ -943,9 +967,103 @@ def test_fused_encoder_bf16_on_card_never_runs_plain(dev, ds, monkeypatch):
     ulps = ((got.cpu().float() - want.float()).abs()
             / want.float().abs().clamp_min(1.0)).max()
     assert float(ulps) <= 24 * 2.0 ** -7
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-        gpu(*(torch.zeros((1,) + hw + (3,), device=dev),) * 2, iters=1,
-            test_mode=False)
+
+
+class _Pin(torch.autograd.Function):
+    """Forward: the pinned value; backward: its cotangent to both the
+    output it replaces (so the encoder's backward runs on it) and the
+    pinned leaf."""
+
+    @staticmethod
+    def forward(ctx, out, pinned):
+        return pinned.detach().clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, g
+
+
+# The bf16 step card vs CPU (TINY widths, 32x48, 3 iterations), the card's
+# encoder outputs pinned in both with their gradients flowing through the
+# encoders: each 2-norm distance card-CPU at most 0.7 of the CPU's
+# bf16-vs-fp32 distance (chip_smoke.py's BF16_STEP_SHARE) for the
+# predictions, the non-encoder gradients, the cotangents at the encoders'
+# outputs and the fused encoders' gradients.  Measured (NVIDIA H100 80GB
+# HBM3, 700 W; bf16 / fp32 correlation): 0.058 / 0.053, 0.13 / 0.095,
+# 0.15 / 0.11, 0.33 / 0.29.  Unpinned, the whole step read 0.73-0.84:
+# the encoders' forward flips, grown by the GRU.
+
+
+@pytest.mark.parametrize("corr_dtype", ["bfloat16", "float32"])
+def test_fused_bf16_train_step_on_card(dev, corr_dtype, monkeypatch):
+    """A bf16 train step with ``fused_encoder=True`` on the card, every
+    plain version patched to raise: fnet's 2 images take the conv1 stage
+    and its bf16 backward with 5 dual sums (row 14's bf16 form); the
+    gradients are finite; the card's step lies nearer the CPU's bf16 step
+    (plain versions) than the CPU's fp32 step does (the shares above), so
+    a card step that ran fp32 fails."""
+    from raftstereo_tpu_torch.train.loss import sequence_loss
+
+    cfg = RAFTStereoConfig(n_gru_layers=3, hidden_dims=(32, 32, 32),
+                           corr_levels=2, corr_radius=2, fused_encoder=True,
+                           compute_dtype="bfloat16", corr_dtype=corr_dtype)
+    rng = np.random.default_rng(7)
+    batch = [torch.from_numpy(rng.uniform(0, 255, (1, 32, 48, 3))
+                              .astype(np.float32)) for _ in range(2)]
+    batch += [torch.from_numpy(-rng.uniform(1, 20, (1, 32, 48, 1))
+                               .astype(np.float32)), torch.ones(1, 32, 48)]
+    card = RAFTStereo(cfg, device=dev, seed=4)
+    with torch.no_grad():
+        img = [(2.0 * (t / 255.0) - 1.0).to(torch.bfloat16).permute(
+            0, 3, 1, 2).contiguous().to(dev) for t in batch[:2]]
+        pinned = (card.cnet(img[0]), card.fnet(torch.cat(img)))
+
+    def step(m, device, dtype):
+        leaves = [[t.detach().to(device, dtype).clone().requires_grad_()
+                   for t in lvl] for lvl in pinned[0]]
+        fm = pinned[1].detach().to(device, dtype).clone().requires_grad_()
+        cnet, fnet = m.cnet.forward, m.fnet.forward
+        m.cnet.forward = lambda x: [[_Pin.apply(o, p) for o, p in
+                                     zip(lo, lp)]
+                                    for lo, lp in zip(cnet(x), leaves)]
+        m.fnet.forward = lambda x: _Pin.apply(fnet(x), fm)
+        preds = m(*(t.to(device) for t in batch[:2]), iters=3,
+                  test_mode=False)
+        loss, _ = sequence_loss(preds, *(t.to(device) for t in batch[2:]))
+        loss.backward()
+        grads = {k: p.grad.float().cpu() for k, p in m.named_parameters()}
+        cots = [t.grad for lvl in leaves for t in lvl] + [fm.grad]
+        return dict(
+            preds=preds.detach().float().cpu().reshape(-1),
+            cots=torch.cat([t.float().cpu().reshape(-1) for t in cots]),
+            grads=torch.cat([grads[k].reshape(-1) for k in sorted(grads)
+                             if not k.startswith(("cnet.", "fnet."))]),
+            enc=torch.cat([grads[k].reshape(-1) for k in sorted(grads)
+                           if k.startswith(("cnet.", "fnet."))]))
+
+    def boom(*a, **k):
+        raise AssertionError("a plain version ran on the card path")
+
+    with monkeypatch.context() as mp:
+        for name in ("conv_plain", "entry_plain", "finish_plain",
+                     "stats_plain", "dual_sums_plain", "prep"):
+            mp.setattr(cuda_encoder, name, boom)
+        for fn in cuda_encoder.WRAPPERS:
+            fn.launches = 0
+        got = step(card, dev, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert cuda_encoder.dual_sums.launches == 5
+        assert cuda_encoder.stem_conv7.launches == 2
+    cpu = RAFTStereo(cfg, device="cpu", seed=4)
+    f32 = RAFTStereo(dataclasses.replace(
+        cfg, compute_dtype="float32", corr_dtype="float32"), device="cpu",
+        seed=4)
+    want, ref = step(cpu, "cpu", torch.bfloat16), step(f32, "cpu",
+                                                      torch.float32)
+    assert all(bool(torch.isfinite(t).all()) for t in got.values())
+    shares = {k: float((got[k] - want[k]).norm() / (ref[k] - want[k]).norm())
+              for k in got}
+    assert all(v <= 0.7 for v in shares.values()), shares
 
 
 # ------------------------------------ precomputed-volume lookup, int8 volume

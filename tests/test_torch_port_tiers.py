@@ -130,21 +130,6 @@ def test_tier_model_matches_jax(tiny_vars, model_inputs, monkeypatch, tier,
         corr_quant=tier == "turbo"))
 
 
-@pytest.mark.parametrize("kw", [dict(corr_implementation="pallas"),
-                                dict(corr_implementation="pallas",
-                                     corr_quant=True)],
-                         ids=["bf16_volume", "bf16_volume_quant"])
-def test_train_mode_over_the_bf16_volume_raises(kw):
-    """A train-mode forward over the bf16 ``pallas`` volume raises,
-    naming its ROADMAP item (``corr_quant`` trains on the unquantized
-    volume of the configured backend, here that one)."""
-    model = RAFTStereo(RAFTStereoConfig(**SMALL, **BF16, **kw), device="cpu")
-    img = torch.zeros((1,) + HW + (3,))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 7"):
-        model(img, img, iters=1, test_mode=False)
-
-
 def test_train_mode_ignores_corr_quant_in_bf16():
     """bf16 training with ``corr_quant`` on the on-demand backend runs,
     bitwise equal to the same config without the flag."""
@@ -157,6 +142,28 @@ def test_train_mode_ignores_corr_quant_in_bf16():
                        device="cpu", seed=1)
         outs.append(m(*imgs, iters=2, test_mode=False))
     assert torch.equal(outs[0], outs[1])
+
+
+def test_train_mode_ignores_corr_quant_on_the_bf16_volume():
+    """bf16 training over the bf16 ``pallas`` volume runs, and with
+    ``corr_quant`` it trains on that unquantized volume, as the JAX
+    package does: bitwise equal to the run without the flag, gradients
+    and all."""
+    rng = np.random.default_rng(4)
+    imgs = [torch.from_numpy(rng.uniform(0, 255, (1,) + HW + (3,))
+                             .astype(np.float32)) for _ in range(2)]
+    outs = []
+    for q in (True, False):
+        m = RAFTStereo(RAFTStereoConfig(**SMALL, **BF16,
+                                        corr_implementation="pallas",
+                                        corr_quant=q), device="cpu", seed=1)
+        preds = m(*imgs, iters=2, test_mode=False)
+        preds.float().square().mean().backward()
+        outs.append((preds, {k: p.grad for k, p in m.named_parameters()}))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert bool(torch.isfinite(outs[0][0]).all())
+    for k, g in outs[1][1].items():
+        assert torch.equal(outs[0][1][k], g), k
 
 
 # --------------------------------------------------------- certification
