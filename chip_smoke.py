@@ -7,9 +7,11 @@ Phases, none caught: (1) print the card's name and power limit; (2) build
 the CUDA kernels from ``raftstereo_tpu_torch/csrc``, printing ptxas's
 registers, shared memory and spills of each tensor-core kernel (row 2's
 fused update, ``gru_update.cu``; rows 9, 15 and 16's encoder convs,
-``enc_conv_tc.cu``; rows 13 and 12's stems, ``enc_conv.cu``) and, where
+``enc_conv_tc.cu``; rows 13 and 12's stems, ``enc_conv.cu``; rows 15 and
+16's bf16 forms, ``enc_conv_wg.cu``, which must spill nothing) and, where
 ``cuobjdump`` exists, the count of tensor-core instructions (HMMA/HGMMA)
-in each library, which must not be 0; (3) hold each kernel against its
+in each library, which must not be 0 (``enc_conv_wg``: HGMMA only); (3)
+hold each kernel against its
 plain PyTorch version on the card at the shapes its main path gives it,
 and time both (the tensor-core
 kernels' ``bound_ms`` is their 3xTF32 tensor-core bound, also
@@ -154,7 +156,7 @@ compute and feature maps: the fast and turbo tiers on a fused base):
 (29) hold the bf16 forms of rows 13, 9, 11, 15, 16 and 17 at the fused
 serving shapes (fnet's 2 images with sums, cnet's 1 without; row 9 in
 its prep and residual forms, row 16 in its prep and residual-projection
-forms), row 12 at the ``n_downsample=3`` shapes and row 10 at a batch-3
+forms; rows 15 and 16 on ``enc_conv_wg.cu``), row 12 at the ``n_downsample=3`` shapes and row 10 at a batch-3
 fnet against their bf16 plain versions (within 1 bf16 ulp with 99% of
 the elements equal, the sums within ENC_TOL, the finishes bitwise; two
 calls bitwise equal), timed beside the plain versions, ``F.conv2d`` on
@@ -582,7 +584,8 @@ def _ptxas_label(mangled: str) -> str:
     name = re.search(r"(gru_mma_conv_kernel|gru_simt_conv_kernel|"
                      r"conv3x3_few_out_kernel|pad_rows_kernel|"
                      r"enc_conv_tc_kernel|stem7_tc_kernel|"
-                     r"enc_conv_tc_bf16_kernel|stem7_bf16_kernel)I(.*?)EEv",
+                     r"enc_conv_tc_bf16_kernel|stem7_bf16_kernel|"
+                     r"enc_conv_wg_kernel)I(.*?)EEv",
                      mangled)
     if not name:  # _ZN <namespace> <name> E...: lengths, then characters
         ns = re.match(r"_ZN(\d+)", mangled)
@@ -603,9 +606,11 @@ def build_report(name, lib) -> None:
     else 3, and a barrier per stage; rows 9, 15 and 16's
     ``enc_conv_tc_kernel<stride,mode,projection,MT,NT>``'s and rows 13
     and 12's ``stem7_tc_kernel<stride>``'s, and their bf16 forms'
-    ``enc_conv_tc_bf16_kernel`` and ``stem7_bf16_kernel``, are set at
-    launch), and the
-    tensor-core instructions in the library, which must not be 0."""
+    ``enc_conv_tc_bf16_kernel`` and ``stem7_bf16_kernel``, and rows 15
+    and 16's bf16 ``enc_conv_wg_kernel<stride,mode,projection,k-steps>``,
+    are set at launch), and the tensor-core instructions in the library,
+    which must not be 0.  ``enc_conv_wg``, the `wgmma` conv, must spill
+    nothing and hold HGMMA and no HMMA instructions."""
     entry = spill = None
     for line in lib.with_suffix(".log").read_text().splitlines():
         props = re.search(r"Function properties for (\S+)", line)
@@ -627,6 +632,10 @@ def build_report(name, lib) -> None:
             print(f"  {name} ptxas {entry}: {used.group(1)} registers, "
                   f"{smem.group(1) if smem else 0} bytes static smem{ring}; "
                   f"{spill}")
+            if name == "enc_conv_wg":
+                check(re.search(r"\b0 bytes spill stores, 0 bytes spill "
+                                r"loads", spill or "") is not None,
+                      f"{entry} spills: {spill}")
             entry = None
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -644,6 +653,9 @@ def build_report(name, lib) -> None:
           f"(cuobjdump -sass {lib.name})")
     check(hmma + hgmma > 0, f"{name}: no tensor-core instruction in the "
                             f"built library")
+    if name == "enc_conv_wg":
+        check(hgmma > 0 and hmma == 0, f"{name}: {hmma} HMMA, {hgmma} HGMMA "
+                                       f"(want wgmma only)")
 
 
 def kernel_phase(model, lo_hw, torch):
@@ -888,11 +900,14 @@ def conv_cost(x, wt, out_numel, n_in=1, proj_flops=0):
             + 3 * n_in * x.numel())
 
 
-# The source of each encoder row under csrc/ (enc_conv where not listed).
+# The source of each encoder row under csrc/ (enc_conv where not listed),
+# and of its bf16 form where that differs (rows 15 and 16: the wgmma conv).
 ENCODER_SOURCES = {"stage_conv": "enc_conv_tc", "l2_entry": "enc_conv_tc",
                    "l2_conv": "enc_conv_tc",
                    "stage_finish": "enc_finish", "l2_finish": "enc_finish",
                    "plane_stats": "enc_stats", "dual_sums": "enc_stats"}
+ENCODER_BF16_SOURCES = {**ENCODER_SOURCES, "l2_entry": "enc_conv_wg",
+                        "l2_conv": "enc_conv_wg"}
 
 
 def enc_row(rows, path, name, replaces, path_shape, kern, plain, n, tol,
@@ -1148,7 +1163,7 @@ def enc_bf16_row(rows, path, name, replaces, path_shape, kern, plain, n,
     print(f"{name} {path_shape} bf16 ms {ms:.4f} plain_ms {plain_ms:.4f} "
           f"library_ms {lib_ms} bound_ms {bound_ms:.4f} ({bound_by}"
           f"{', bf16 tensor cores' if products else ''}) [{CARD}]")
-    src = ENCODER_SOURCES.get(name, "enc_conv")
+    src = ENCODER_BF16_SOURCES.get(name, "enc_conv")
     rows.append(dict(name=name, path=path, shape=f"{path_shape} bf16",
                      route="cuda",
                      source=f"raftstereo_tpu_torch/csrc/{src}.cu",
@@ -1297,6 +1312,10 @@ def encoder_bf16_kernel_phase(model, bucket, torch):
                            want_stats=False),
         lambda: ce.conv_plain(y1, wl, bl, 1, b1_, p1, pb1, res_relu=False,
                               want_stats=False), 1.0, None, 0)
+    row("l2_conv", "", f"{dims(y1)} no sums",
+        lambda: ce.l2_conv(y1, b1_, wl, bl, want_stats=False),
+        lambda: ce.conv_plain(y1, wl, bl, 1, b1_, want_stats=False), 1.0,
+        None, 0)
 
     # -- the n_downsample=3 path: the stride-2 conv1 (row 12), fnet's 2
     # images with sums (timed) and cnet's 1 without (held)
@@ -1585,7 +1604,14 @@ def train_fused_bf16_kernel_phase(model, torch):
         lambda: ce.l2_conv(y1, b1, wl, bl, want_stats=False),
         lambda: ce.conv_plain(y1, wl, bl, 1, b1, want_stats=False), 1.0,
         None, 0)
-    del y1
+    p1 = p[:half].contiguous()
+    pb1 = (pb[0][:half].contiguous(), pb[1][:half].contiguous())
+    row("l2_conv", "", f"{dims(y1)} res_proj form no sums",
+        lambda: ce.l2_conv(y1, b1, wl, bl, res=p1, res_aff=pb1,
+                           want_stats=False),
+        lambda: ce.conv_plain(y1, wl, bl, 1, b1, p1, pb1, res_relu=False,
+                              want_stats=False), 1.0, None, 0)
+    del y1, p1
     row("l2_finish", "raftstereo_tpu/ops/pallas_layer2.py:228", dims(y),
         lambda: ce.l2_finish(p, pb, y, b_, q, a4),
         lambda: ce.finish_plain(p, pb, y, b_, q, a4, a_relu=False), n2,
@@ -3598,7 +3624,7 @@ def main() -> int:
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    for name in ("gru_update", "enc_conv_tc", "enc_conv"):
+    for name in ("gru_update", "enc_conv_tc", "enc_conv", "enc_conv_wg"):
         build_report(name, libs[name])
 
     cfg = RAFTStereoConfig(corr_implementation="pallas_alt",

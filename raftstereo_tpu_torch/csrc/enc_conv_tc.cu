@@ -106,18 +106,18 @@
 // (295 KB at 64->64, 664 KB at 96->96), and rows 15 and 16's 8x16 tiles
 // take it twice as often per pixel as row 9's 8x32.
 //
-// The bf16 forms (`enc_conv_tc_forward` with `bf16` set: the JAX kernels at
-// dt=bfloat16, the fast and turbo tiers on a fused base) are
-// `enc_conv_tc_bf16_kernel`, instances of the same three geometries
-// (kInst) beside the fp32 ones.  Function: the same, over bf16 x, r, w and
-// biases with fp32 affines, rounded where the TPU kernels round
-// (pallas_encoder.py `_prep` :257, `_enc_conv_res_kernel` :348;
-// pallas_layer2.py `_prep_f` :163, `_l2_conv_res_kernel` :212): each
-// affine cast to bf16, each product and each sum of the prep rounded to
-// bf16 (`__fmul_rn`/`__fadd_rn` then a rounding: nvcc would contract
-// a*b + c into one FMA, one rounding too few); the convolution's products
-// of bf16 values exact, summed in fp32 with the bf16 bias added in fp32;
-// the sums of that fp32 output, which is then stored rounded to bf16 once.
+// The bf16 form of row 9 (`enc_conv_tc_forward` with `bf16` set: the JAX
+// kernels at dt=bfloat16, the fast and turbo tiers on a fused base; rows
+// 15 and 16's bf16 forms are enc_conv_wg.cu's) is
+// `enc_conv_tc_bf16_kernel`, on instance 0's geometry (kInst).  Function:
+// the same, over bf16 x, r, w and biases with fp32 affines, rounded where
+// the TPU kernels round (pallas_encoder.py `_prep` :257,
+// `_enc_conv_res_kernel` :348): each affine cast to bf16, each product and
+// each sum of the prep rounded to bf16 (`__fmul_rn`/`__fadd_rn` then a
+// rounding: nvcc would contract a*b + c into one FMA, one rounding too
+// few); the convolution's products of bf16 values exact, summed in fp32
+// with the bf16 bias added in fp32; the sums of that fp32 output, which is
+// then stored rounded to bf16 once.
 // Design: the fp32 kernel's, with a stage of 16 input channels (kKCB),
 // one bf16 plane (a pixel's 16 channels are again one 32-byte row, its
 // two 8-channel halves swapped where bit 2 of the pixel index is set),
@@ -126,19 +126,16 @@
 // fragments load by `ldmatrix` at the fp32 kernel's addresses.  The raw
 // values are 2 bytes, below `cp.async`'s 4, so each thread loads its
 // items' next-stage values into registers before a stage's products and
-// preps them into shared memory after.  Row 15's projection is the
-// stage's 10th tap block, its products (one k-step per stage) summed fresh
-// and added in fp32 after the conv's 9 taps, on the centre-tap (dy = dx
-// = 1) A fragments: at stride 2 those rows are the pixels (2*oy, 2*ox).
+// preps them into shared memory after.
 // Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): row 9's
 // 64->64 conv over a 576x960 image is 40.8 GFLOP against 142 MB moved,
-// 0.042 ms per image by bytes; row 15 17 GFLOP against 124 MB, 0.037 ms
-// per image; row 16 22.9 GFLOP against 80 MB, 0.024 ms by bytes (0.023 by
-// operations).  Counted per call by chip_smoke.py.  This first form is
-// simple and correct, not fast: `mma.sync` at a fraction of `wgmma`'s rate,
-// the fill between two barriers, the weights re-read from L2 per block.
+// 0.042 ms per image by bytes.  Counted per call by chip_smoke.py.  This
+// first form is simple and correct, not fast: `mma.sync` at a fraction of
+// `wgmma`'s rate, the fill between two barriers, the weights re-read from
+// L2 per block.
 
 #include "enc_bf16.cuh"
+#include "enc_partials.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -669,24 +666,6 @@ enc_conv_tc_kernel(const Args a) {
   }
 }
 
-// partials (B, nb, 2*CH) -> stats (B, 2*CH): one warp per output, lanes
-// strided over the blocks, then a butterfly.  Fixed order.
-__global__ void __launch_bounds__(256)
-enc_conv_tc_stats_kernel(const float* __restrict__ partials,
-                         float* __restrict__ stats, int nb, int ch2,
-                         int total) {
-  const int idx = blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (idx >= total) return;  // whole warps exit together
-  const int b = idx / ch2, k = idx - b * ch2;
-  const float* p = partials + (long)b * nb * ch2 + k;
-  float s = 0.f;
-  for (int i = lane; i < nb; i += 32) s += p[(long)i * ch2];
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-  if (lane == 0) stats[idx] = s;
-}
-
 // A conv kernel over the grid (tiles, Cout tiles of `bn`, images), then
 // the sums' reduction.
 template <typename A>
@@ -730,25 +709,21 @@ int launch_inst(const Args& a, int batch, float* stats, cudaStream_t st) {
 
 constexpr int kKCB = 16;  // input channels per bf16 stage: one k16 step a tap
 
-template <int S, int MT, int NT, bool PROJ>
+template <int MT, int NT>
 struct GeoB {
   static constexpr int TW = 8 * MT;
   static constexpr int BN = kWarpsN * 8 * NT;
-  static constexpr int RH = (kTH - 1) * S + 3;
-  static constexpr int RW = (TW - 1) * S + 3;
-  static constexpr int PW = S == 1 ? RW : TW + 1;
-  static constexpr int PS = S == 1 ? RH * RW : (kTH + 1) * (TW + 1);
-  static constexpr int NPIX = S == 1 ? PS : 4 * PS;
-  static constexpr int kABytes = NPIX * kRow;      // one bf16 plane
+  static constexpr int RH = kTH + 2;  // raw input tile (stride 1)
+  static constexpr int RW = TW + 2;
+  static constexpr int kABytes = RH * RW * kRow;   // one bf16 plane
   static constexpr int kTapBytes = BN * kRow;      // a tap's BN rows
-  static constexpr int kTaps = 9 + (PROJ ? 1 : 0);
-  static constexpr int kBBytes = kTaps * kTapBytes;  // a stage's weights
+  static constexpr int kBBytes = 9 * kTapBytes;    // a stage's weights
   static constexpr int kPackElems = kBBytes / 2;
   static constexpr int kStageBytes = kABytes + kBBytes;
   // fill items: (channel octet q, raw tile pixel)
   static constexpr int kItems = 2 * RH * RW;
   static constexpr int kIPT = (kItems + kThreads - 1) / kThreads;
-  static constexpr int kRed = kWarpsM * 2 * 2 * BN * 4;
+  static constexpr int kRed = kWarpsM * 2 * BN * 4;
   static constexpr int kSmem =
       2 * kStageBytes > kRed ? 2 * kStageBytes : kRed;
   static_assert(kStageBytes % 16 == 0, "16-byte copies");
@@ -756,18 +731,19 @@ struct GeoB {
   static_assert(kSmem <= 232448, "the block's shared memory fits an SM");
 };
 
-template <int S, int MODE, bool PROJ, int MT, int NT>
+template <int MODE, int MT, int NT>
 __global__ void __launch_bounds__(kThreads, 1)
 enc_conv_tc_bf16_kernel(const ArgsB a) {
-  using G = GeoB<S, MT, NT, PROJ>;
+  using G = GeoB<MT, NT>;
   static_assert(NT % 2 == 0, "B fragments load in pairs of n-tiles");
+  static_assert(MODE == kPrep || MODE == kRes, "row 9's modes");
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
   const int b = blockIdx.z, n0 = blockIdx.y * G::BN;
   const int oy0 = (blockIdx.x / a.tiles_w) * kTH;
   const int ox0 = (blockIdx.x % a.tiles_w) * G::TW;
-  const int iy0 = oy0 * S - 1, ix0 = ox0 * S - 1;
+  const int iy0 = oy0 - 1, ix0 = ox0 - 1;
   const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem);
   const unsigned short* wsrc =
       a.w + (long)blockIdx.y * a.nchunk * G::kPackElems;
@@ -824,24 +800,20 @@ enc_conv_tc_bf16_kernel(const ArgsB a) {
         const int c = k * kKCB + q * 8 + e;
         float v = 0.f;  // outside the image or past Cin: zero AFTER prep
         if (inside && c < a.cin) {
-          v = bf_bits(rx[s][e]);
-          if constexpr (MODE != kNone) {
-            const int plane = b * a.cin + c;
-            v = relu(prep_bf16(v, __ldg(a.xs + plane), __ldg(a.xt + plane)));
-            if constexpr (has_res(MODE)) {
-              float u = prep_bf16(bf_bits(rr[s][e]), __ldg(a.rs + plane),
-                                  __ldg(a.rt + plane));
-              if constexpr (MODE == kRes) u = relu(u);
-              v = relu(rbf(__fadd_rn(u, v)));
-            }
+          const int plane = b * a.cin + c;
+          v = relu(prep_bf16(bf_bits(rx[s][e]), __ldg(a.xs + plane),
+                             __ldg(a.xt + plane)));
+          if constexpr (MODE == kRes) {
+            const float u = relu(prep_bf16(bf_bits(rr[s][e]),
+                                           __ldg(a.rs + plane),
+                                           __ldg(a.rt + plane)));
+            v = relu(rbf(__fadd_rn(u, v)));
           }
         }
         // v is bf16-valued: its high 16 bits are the bf16
         o[e / 2] |= (__float_as_uint(v) >> 16) << (16 * (e & 1));
       }
-      const int sp = S == 1 ? lr * G::RW + lc
-                            : ((lr & 1) * 2 + (lc & 1)) * G::PS +
-                                  (lr >> 1) * G::PW + (lc >> 1);
+      const int sp = lr * G::RW + lc;
       st_shared_v4(sa + row_off(sp, q), o[0], o[1], o[2], o[3]);
     }
   };
@@ -865,7 +837,7 @@ enc_conv_tc_bf16_kernel(const ArgsB a) {
   auto m_col = [&](int i) { return (wm * MT + i) % (G::TW / 16) * 16; };
   int pbase[MT];
 #pragma unroll
-  for (int i = 0; i < MT; ++i) pbase[i] = m_row(i) * G::PW + m_col(i) + r16;
+  for (int i = 0; i < MT; ++i) pbase[i] = m_row(i) * G::RW + m_col(i) + r16;
   auto b_pair = [&](uint32_t blk, int jp, uint32_t(&h)[2][2]) {
     ldmatrix_x4(h[0][0], h[0][1], h[1][0], h[1][1],
                 blk + b_off + 16 * jp * kRow);
@@ -873,21 +845,14 @@ enc_conv_tc_bf16_kernel(const ArgsB a) {
   auto a_frag = [&](uint32_t plane, int p, uint32_t(&h)[4]) {
     ldmatrix_x4(h[0], h[1], h[2], h[3], plane + row_off(p, a_u));
   };
-  // The centre tap's offset (dy = dx = 1): at stride 2 its rows are the
-  // pixels (2*oy, 2*ox), the projection's input.
-  constexpr int kCentre = S == 1 ? G::RW + 1 : 3 * G::PS;
 
   float acc[MT][NT][4];
-  float accp[PROJ ? MT : 1][PROJ ? NT : 1][4];
 #pragma unroll
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][j][e] = 0.f;
-        if constexpr (PROJ) accp[i][j][e] = 0.f;
-      }
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   copy(sbase + G::kABytes, 0, G::kBBytes);
   load(0);
@@ -908,10 +873,7 @@ enc_conv_tc_bf16_kernel(const ArgsB a) {
     float t[MT][NT][4];  // this stage's fresh partial sums
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      const int toff = S == 1 ? dy * G::RW + dx
-                              : ((dy & 1) * 2 + (dx & 1)) * G::PS +
-                                    (dy >> 1) * G::PW + (dx >> 1);
+      const int toff = tap / 3 * G::RW + tap % 3;
       uint32_t bq[NT / 2][2][2];
 #pragma unroll
       for (int jp = 0; jp < NT / 2; ++jp)
@@ -932,104 +894,77 @@ enc_conv_tc_bf16_kernel(const ArgsB a) {
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] += t[i][j][e];
-    if constexpr (PROJ) {  // the projection: the 10th tap block
-      uint32_t bq[NT / 2][2][2];
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp)
-        b_pair(sb + 9 * G::kTapBytes, jp, bq[jp]);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        uint32_t af[4];
-        a_frag(sa, pbase[i] + kCentre, af);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          float tp[4];
-          mma_bf16(tp, af, bq[j / 2][j % 2][0], bq[j / 2][j % 2][1], true);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) accp[i][j][e] += tp[e];
-        }
-      }
-    }
     cp_async_wait_all();
     if (more) store(k + 1, cur ^ 1);
     __syncthreads();  // stage cur is free, stage cur^1 is complete
   }
 
-  // ---- epilogue of output o (0: the conv, 1: the projection): + the
-  // bf16 bias in fp32, the bf16 store, and this lane's fp32 sums of the
-  // unrounded values; reduced as in the fp32 kernel (fixed order).
+  // ---- epilogue: + the bf16 bias in fp32, the bf16 store, and this
+  // lane's fp32 sums of the unrounded values; reduced as in the fp32
+  // kernel (fixed order).
   const int g = lane >> 2, tq = lane & 3;
-  constexpr int kOuts = PROJ ? 2 : 1;
   const bool sums = a.partials != nullptr;
   float* red = reinterpret_cast<float*>(smem);
-  auto finish = [&](int o, const float(&v4)[MT][NT][4]) {
-    const __nv_bfloat16* bias = o ? a.bp : a.bias;
-    __nv_bfloat16* out = o ? a.yp : a.y;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = wn * 8 * NT + 8 * j + 2 * tq + e, n = n0 + col;
-        float s1 = 0.f, s2 = 0.f;
-        if (n < a.cout) {
-          const float bv = __bfloat162float(bias[n]);
+    for (int e = 0; e < 2; ++e) {
+      const int col = wn * 8 * NT + 8 * j + 2 * tq + e, n = n0 + col;
+      float s1 = 0.f, s2 = 0.f;
+      if (n < a.cout) {
+        const float bv = __bfloat162float(a.bias[n]);
 #pragma unroll
-          for (int i = 0; i < MT; ++i)
+        for (int i = 0; i < MT; ++i)
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int oy = oy0 + m_row(i);
-              const int ox = ox0 + m_col(i) + g + 8 * half;
-              if (oy >= a.ho || ox >= a.wo) continue;
-              const float v = v4[i][j][2 * half + e] + bv;
-              out[(((long)b * a.cout + n) * a.ho + oy) * a.wo + ox] =
-                  __float2bfloat16_rn(v);
-              s1 += v;
-              s2 = fmaf(v, v, s2);
-            }
+          for (int half = 0; half < 2; ++half) {
+            const int oy = oy0 + m_row(i);
+            const int ox = ox0 + m_col(i) + g + 8 * half;
+            if (oy >= a.ho || ox >= a.wo) continue;
+            const float v = acc[i][j][2 * half + e] + bv;
+            a.y[(((long)b * a.cout + n) * a.ho + oy) * a.wo + ox] =
+                __float2bfloat16_rn(v);
+            s1 += v;
+            s2 = fmaf(v, v, s2);
+          }
+      }
+      if (sums) {
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          s1 += __shfl_xor_sync(0xffffffffu, s1, m);
+          s2 += __shfl_xor_sync(0xffffffffu, s2, m);
         }
-        if (sums) {
-#pragma unroll
-          for (int m = 4; m < 32; m <<= 1) {
-            s1 += __shfl_xor_sync(0xffffffffu, s1, m);
-            s2 += __shfl_xor_sync(0xffffffffu, s2, m);
-          }
-          if (g == 0) {
-            red[((wm * kOuts + o) * 2 + 0) * G::BN + col] = s1;
-            red[((wm * kOuts + o) * 2 + 1) * G::BN + col] = s2;
-          }
+        if (g == 0) {
+          red[(wm * 2 + 0) * G::BN + col] = s1;
+          red[(wm * 2 + 1) * G::BN + col] = s2;
         }
       }
-  };
-  finish(0, acc);
-  if constexpr (PROJ) finish(1, accp);
+    }
   if (!sums) return;
   __syncthreads();
-  const int ch = kOuts * a.cout;
-  for (int idx = tid; idx < kOuts * 2 * G::BN; idx += kThreads) {
-    const int col = idx % G::BN, kind = (idx / G::BN) % 2,
-              o = idx / (2 * G::BN);
+  for (int idx = tid; idx < 2 * G::BN; idx += kThreads) {
+    const int col = idx % G::BN, kind = idx / G::BN;
     if (n0 + col >= a.cout) continue;
-    float s = red[(o * 2 + kind) * G::BN + col];
+    float s = red[kind * G::BN + col];
 #pragma unroll
-    for (int w = 1; w < kWarpsM; ++w)
-      s += red[((w * kOuts + o) * 2 + kind) * G::BN + col];
-    a.partials[(((long)b * a.nb + blockIdx.x) * 2 + kind) * ch +
-               o * a.cout + n0 + col] = s;
+    for (int w = 1; w < kWarpsM; ++w) s += red[(w * 2 + kind) * G::BN + col];
+    a.partials[(((long)b * a.nb + blockIdx.x) * 2 + kind) * a.cout + n0 +
+               col] = s;
   }
 }
 
-template <int I, int MODE, bool PROJ>
-int launch_inst(const ArgsB& a, int batch, float* stats, cudaStream_t st) {
-  constexpr Inst in = kInst[I];
-  using G = GeoB<in.stride, in.mt, in.nt, PROJ>;
-  return launch_conv(
-      enc_conv_tc_bf16_kernel<in.stride, MODE, PROJ, in.mt, in.nt>, G::kSmem,
-      G::BN, PROJ, a, batch, stats, st);
+// Row 9's instance in bf16 (rows 15 and 16's bf16 forms are
+// enc_conv_wg.cu's).
+template <int MODE>
+int launch_bf16(const ArgsB& a, int batch, float* stats, cudaStream_t st) {
+  constexpr Inst in = kInst[0];
+  using G = GeoB<in.mt, in.nt>;
+  static_assert(in.stride == 1, "the bf16 kernel is stride 1");
+  return launch_conv(enc_conv_tc_bf16_kernel<MODE, in.mt, in.nt>, G::kSmem,
+                     G::BN, false, a, batch, stats, st);
 }
 
 // The supported (instance, mode) pairs.
-template <typename A>
-int dispatch(const A& a, int inst, int mode, int batch, float* stats,
+int dispatch(const Args& a, int inst, int mode, int batch, float* stats,
              cudaStream_t s) {
   if (inst == 0 && mode == kPrep)
     return launch_inst<0, kPrep, false>(a, batch, stats, s);
@@ -1041,6 +976,13 @@ int dispatch(const A& a, int inst, int mode, int batch, float* stats,
     return launch_inst<2, kPrep, false>(a, batch, stats, s);
   if (inst == 2 && mode == kResProj)
     return launch_inst<2, kResProj, false>(a, batch, stats, s);
+  return (int)cudaErrorInvalidValue;
+}
+int dispatch(const ArgsB& a, int inst, int mode, int batch, float* stats,
+             cudaStream_t s) {
+  if (inst == 0 && mode == kPrep)
+    return launch_bf16<kPrep>(a, batch, stats, s);
+  if (inst == 0 && mode == kRes) return launch_bf16<kRes>(a, batch, stats, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1070,7 +1012,8 @@ int forward(const void* x, const float* xs, const float* xt, const void* r,
 // `tc_pack_bf16` (the affines, partials and stats stay fp32).  Cout a
 // multiple of 32, any Cin.  `inst` picks the instance of kInst (its
 // stride, tile width and bn, which must match `bn`); supported (instance,
-// mode): (0, prep|res), (1, none) with the projection, (2, prep|res_proj).
+// mode): (0, prep|res), (1, none) with the projection, (2, prep|res_proj);
+// with `bf16`, (0, prep|res) only.
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int enc_conv_tc_forward(
     const void* x, const float* xs, const float* xt, const void* r,

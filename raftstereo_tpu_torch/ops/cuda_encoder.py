@@ -22,9 +22,10 @@ wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
 ``stage_finish``       row 11, ``pallas_encoder.py`` ``_enc_finish_kernel``
 ``dual_sums``          row 14, ``pallas_encoder.py`` ``_dual_sum_kernel``
 ``l2_entry``           row 15, ``pallas_layer2.py`` ``_l2_entry_kernel``
-                       (``enc_conv_tc.cu``)
+                       (``enc_conv_tc.cu``; bf16 ``enc_conv_wg.cu``)
 ``l2_conv``            row 16, ``pallas_layer2.py`` ``_l2_conv_kernel``,
-                       ``_l2_conv_res_kernel`` (``enc_conv_tc.cu``)
+                       ``_l2_conv_res_kernel`` (``enc_conv_tc.cu``; bf16
+                       ``enc_conv_wg.cu``)
 ``l2_finish``          row 17, ``pallas_layer2.py`` ``_l2_finish_kernel``
 =====================  ==================================================
 
@@ -45,7 +46,10 @@ nothing goes stale after ``load_state_dict``.
 Every wrapper takes float32 or bfloat16 activations and dispatches on
 their dtype: float32 to the fp32 kernels, bfloat16 to their bf16 forms
 (the JAX kernels at ``dt=bfloat16``: the fast and turbo tiers of a fused
-base, and ``dual_sums`` in the stages' bf16 backward).  Affines and sums
+base, and ``dual_sums`` in the stages' bf16 backward); the bf16 forms of
+``l2_entry`` and ``l2_conv`` are ``enc_conv_wg.cu``'s persistent
+``wgmma`` conv (weights as ``wg_pack``), which takes 3x3 convs to 96
+outputs only.  Affines and sums
 stay float32; any other dtype or mix raises.  The bf16 forms round where
 the JAX kernels round: the prep casts the fp32 affine to bf16 and rounds
 after each product and each sum (never one fused multiply-add); a
@@ -124,20 +128,15 @@ def tc_pack(weight: torch.Tensor, proj_weight: Optional[torch.Tensor],
     return torch.stack([hi, tf32_round(w - hi)], 3).contiguous()
 
 
-def tc_pack_bf16(weight: torch.Tensor, proj_weight: Optional[torch.Tensor],
-                 bn: int) -> torch.Tensor:
-    """The bf16 tensor-core conv's weights, each stage's tap blocks as
+def tc_pack_bf16(weight: torch.Tensor, bn: int) -> torch.Tensor:
+    """Row 9's bf16 tensor-core conv's weights, each stage's tap blocks as
     they lie in shared memory: (Cout tiles of ``bn``, stages of 16 input
-    channels, taps (9, ky*3 + kx; a tenth for the 1x1 ``proj_weight``),
-    bn outputs, 16 channels), bf16 (``weight`` rounded once), zero past
-    Cout and Cin.  In rows whose output index has bit 2 set the two
-    8-channel halves are swapped, as ``tc_pack`` swaps its 4-channel
-    halves: a row is 32 bytes in both."""
+    channels, 9 taps (ky*3 + kx), bn outputs, 16 channels), bf16
+    (``weight`` rounded once), zero past Cout and Cin.  In rows whose
+    output index has bit 2 set the two 8-channel halves are swapped, as
+    ``tc_pack`` swaps its 4-channel halves: a row is 32 bytes in both."""
     o, i = weight.shape[:2]
     w = weight.detach().to(BF16).permute(0, 2, 3, 1).reshape(o, 9, i)
-    if proj_weight is not None:
-        w = torch.cat([w, proj_weight.detach().to(BF16).reshape(o, 1, i)],
-                      1)
     nt, nk = -(-o // bn), -(-i // TC_STAGE_BF16)
     w = F.pad(w, (0, nk * TC_STAGE_BF16 - i, 0, 0, 0, nt * bn - o))
     w = w.reshape(nt, bn, w.shape[1], nk, TC_STAGE_BF16).permute(0, 3, 2, 1,
@@ -145,6 +144,42 @@ def tc_pack_bf16(weight: torch.Tensor, proj_weight: Optional[torch.Tensor],
     swap = ((torch.arange(bn, device=w.device) >> 2) & 1).bool()
     w = torch.where(swap[:, None], w.roll(TC_STAGE_BF16 // 2, -1), w)
     return w.contiguous()
+
+
+# enc_conv_wg.cu's geometry (the bf16 forms of rows 15 and 16): input
+# channels a k-step (kKC), outputs (kN: all of Cout in one wgmma N),
+# output columns a tile (kTW), and by wrapper (stride, output rows a tile,
+# largest Cin).
+WG_STAGE, WG_COUT, WG_TILE_W = 16, 96, 64
+WG_INSTANCES = {"l2_entry": (2, 2, 64), "l2_conv": (1, 4, 96)}
+
+
+def wg_geometry(h: int, w: int, instance: str):
+    """The wgmma conv's output (ho, wo) for an (h, w) input to wrapper
+    ``instance``'s bf16 form and its tiles per image ``nb`` (TH x 64
+    pixels; the last tile of each axis overhangs the output)."""
+    stride, th, _ = WG_INSTANCES[instance]
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    return ho, wo, -(-ho // th) * -(-wo // WG_TILE_W)
+
+
+def wg_pack(weight: torch.Tensor,
+            proj_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The wgmma conv's weights, laid out as its B descriptors read them:
+    (k-steps of 16 input channels, taps (9, ky*3 + kx; a tenth for the 1x1
+    ``proj_weight``), 2 (channels 0-7 | 8-15 of the k-step), Cout, 8)
+    bf16 (``weight`` rounded once), zero past Cin.  A (k-step, tap) block
+    is 2 x Cout rows of 16 bytes: core matrices of 8 outputs 128 bytes
+    apart (SBO), the two channel halves Cout * 16 bytes apart (LBO)."""
+    o, i = weight.shape[:2]
+    w = weight.detach().to(BF16).permute(0, 2, 3, 1).reshape(o, 9, i)
+    if proj_weight is not None:
+        w = torch.cat([w, proj_weight.detach().to(BF16).reshape(o, 1, i)],
+                      1)
+    nk = -(-i // WG_STAGE)
+    w = F.pad(w, (0, nk * WG_STAGE - i))
+    return w.reshape(o, w.shape[1], nk, 2, 8).permute(2, 1, 3, 0,
+                                                      4).contiguous()
 
 
 # ------------------------------------------------------- plain versions
@@ -261,12 +296,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
                res_aff=None, proj=None, want_stats=True):
-    """One launch of wrapper ``name``'s kernel: ``enc_conv_tc_forward``
-    for the tensor-core instances (``TC_INSTANCES``: the 3x3 convs of rows
-    9, 15 and 16, weights as ``tc_pack``; ``proj`` the projection's
-    (weight, bias)), else ``enc_stem7_tc_forward`` for the stems (``STEMS``:
-    rows 13 and 12 on the tensor cores, the raw image, OIHW weights split
-    in the kernel).  Returns (y, yp or None, stats (B, 2, CH) or None)."""
+    """One launch of wrapper ``name``'s kernel: ``enc_conv_wg_forward``
+    for rows 15 and 16 in bf16 (``WG_INSTANCES``, weights as ``wg_pack``),
+    else ``enc_conv_tc_forward`` for the tensor-core instances
+    (``TC_INSTANCES``: the 3x3 convs of rows 9, 15 and 16, weights as
+    ``tc_pack`` or in bf16 ``tc_pack_bf16``), else ``enc_stem7_tc_forward``
+    for the stems (``STEMS``: rows 13 and 12 on the tensor cores, the raw
+    image, OIHW weights split in the kernel); ``proj`` the projection's
+    (weight, bias).  Returns (y, yp or None, stats (B, 2, CH) or None)."""
     cout, cin, ks, _ = weight.shape
     b, c, h, wd = x.shape
     if c != cin or cout % _COUT_TILE:
@@ -284,15 +321,25 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
     bf = dt == BF16
     bias = bias.detach().to(dt).contiguous()
     bp = None if proj is None else proj[1].detach().to(dt).contiguous()
-    tc = name in TC_INSTANCES
-    if tc:
+    wg = bf and name in WG_INSTANCES
+    tc = name in TC_INSTANCES and not wg
+    if wg:
+        wg_stride, _, max_cin = WG_INSTANCES[name]
+        if ks != 3 or stride != wg_stride or cout != WG_COUT or cin > max_cin:
+            raise ValueError(f"{name}: a {ks}x{ks} stride-{stride} {cin}->"
+                             f"{cout} conv; its bf16 kernel takes 3x3 stride "
+                             f"{wg_stride}, Cin <= {max_cin}, Cout "
+                             f"{WG_COUT}")
+        ho, wo, nb = wg_geometry(h, wd, name)
+        w = wg_pack(weight, None if proj is None else proj[0])
+    elif tc:
         inst, inst_stride = TC_INSTANCES[name][:2]
         if ks != 3 or stride != inst_stride:
             raise ValueError(f"{name}: a {ks}x{ks} stride-{stride} kernel; "
                              f"this conv is 3x3 stride {inst_stride}")
         ho, wo, _, bn, nb = tc_geometry(h, wd, name)
-        w = (tc_pack_bf16 if bf else tc_pack)(
-            weight, None if proj is None else proj[0], bn)
+        w = (tc_pack_bf16(weight, bn) if bf else
+             tc_pack(weight, None if proj is None else proj[0], bn))
     else:
         if tuple(weight.shape) != STEM_WEIGHT or stride != STEMS[name]:
             raise ValueError(f"{name}: weight {tuple(weight.shape)}, stride "
@@ -309,7 +356,12 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
         partials = torch.empty((b, nb, 2, ch), dtype=torch.float32,
                                device=dev)
         stats = torch.empty((b, 2, ch), dtype=torch.float32, device=dev)
-    if tc:
+    if wg:
+        fn = _build.load("enc_conv_wg").enc_conv_wg_forward
+        ptrs = [_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
+                _ptr(w), _ptr(bias), _ptr(bp), _ptr(y), _ptr(yp)]
+        ints = [b, cin, h, wd, cout, stride, mode, nb]
+    elif tc:
         fn = _build.load("enc_conv_tc").enc_conv_tc_forward
         ptrs = [_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
                 _ptr(w), _ptr(bias), _ptr(bp), _ptr(y), _ptr(yp)]

@@ -26,6 +26,18 @@ same shapes, with their digests.  ``--report`` prints the ptxas report
 stems alone (a tree whose ``csrc`` holds only ``enc_conv.cu``: a stem
 form being tried).  Run parent, change, change, parent in one call and
 compare within it.
+
+    python3 scripts/ab_enc_conv.py ROOT --bf16 [--report]
+
+times the bf16 forms instead: rows 15 and 16 in every form (row 15's
+conv and projection; row 16's prep and res_proj forms), each with and
+without sums at the same batch, and row 9's prep form as a control, at
+the fused serving shapes (2x64x576x960; layer2 2x96x288x480) and the
+fused training shapes (12x64x320x720; 12x96x160x360), each with its
+largest difference from its bf16 plain version in bf16 ulps of max(1,
+|plain|), the share of equal elements and a SHA-256 digest of its
+outputs, beside one ``F.conv2d`` on bf16 tensors (cuDNN) of the same
+conv.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ def main() -> int:
     ap.add_argument("--report", action="store_true")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--stems", action="store_true")
+    ap.add_argument("--bf16", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -76,7 +89,7 @@ def main() -> int:
     fp32_numerics()  # the plain versions' cuDNN convs in fp32, not TF32
     libs = _build.build_all()
     if args.report:
-        for name in ("enc_conv_tc", "enc_conv"):
+        for name in ("enc_conv_tc", "enc_conv", "enc_conv_wg"):
             if name not in libs:
                 continue
             log = libs[name].with_suffix(".log").read_text()
@@ -84,6 +97,8 @@ def main() -> int:
                 if ("Function properties" in line or "registers" in line
                         or "spill" in line):
                     print(f"  {name}: {line.strip()}")
+    if args.bf16:
+        return bf16_main(root, torch, chip_smoke, ce, F)
     g = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
 
@@ -218,6 +233,93 @@ def main() -> int:
                     for ev in prof.events()
                     if ev.device_type == torch.autograd.DeviceType.CUDA))
         del x, r, t, x1, t1, y, yp, y1, q
+        torch.cuda.empty_cache()
+    print(f"{root} [{torch.cuda.get_device_name(0)}] " + " | ".join(out),
+          flush=True)
+    return 0
+
+
+def bf16_main(root, torch, chip_smoke, ce, F) -> int:
+    """``--bf16``: rows 15 and 16's bf16 forms (and row 9's as a control)
+    at the fused serving and training shapes, one line per tree."""
+    import hashlib
+
+    bf = torch.bfloat16
+    g = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g)).to(dev)
+
+    def aff(b, c):  # shifts > 0: padding before the prep would show
+        return ((0.5 + torch.rand((b, c), generator=g)).to(dev),
+                (0.5 * torch.rand((b, c), generator=g)).to(dev))
+
+    def sha(outs):
+        hs = hashlib.sha256()
+        for t in outs:
+            hs.update(t.detach().cpu().contiguous().view(torch.uint8)
+                      .numpy().tobytes())
+        return hs.hexdigest()[:16]
+
+    wc, bc = randn(64, 64, 3, 3, scale=(2 / 576) ** 0.5), randn(64, scale=0.1)
+    we, be = randn(96, 64, 3, 3, scale=(2 / 576) ** 0.5), randn(96, scale=0.1)
+    wp, bp = randn(96, 64, 1, 1, scale=(2 / 64) ** 0.5), randn(96, scale=0.1)
+    wl, bl = randn(96, 96, 3, 3, scale=(2 / 864) ** 0.5), randn(96, scale=0.1)
+    out = []
+    for path, b, (h, w) in (("serve", 2, (576, 960)),
+                            ("train", 12, (320, 720))):
+        x = (randn(b, 64, h, w) * 2 + 0.3).to(bf)
+        a = aff(b, 64)
+        t = torch.relu(randn(b, 64, h, w)).to(bf)
+        h2, w2 = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        y = (randn(b, 96, h2, w2) * 2 + 0.3).to(bf)
+        p = (randn(b, 96, h2, w2) * 2 - 0.3).to(bf)
+        ay, ap = aff(b, 96), aff(b, 96)
+        n, n2 = float(h * w), float(h2 * w2)
+        cases = [(f"row9 {b}x64x{h}x{w}", n,
+                  lambda: ce.stage_conv(x, a, wc, bc),
+                  lambda: ce.conv_plain(x, wc, bc, 1, a),
+                  lambda: F.conv2d(x, wc.to(bf), bc.to(bf), 1, 1))]
+        for ws in (True, False):
+            tag = "" if ws else " no sums"
+            cases += [
+                (f"row15 {b}x64x{h}x{w}{tag}", n2,
+                 lambda ws=ws: ce.l2_entry(t, we, be, wp, bp, want_stats=ws),
+                 lambda ws=ws: ce.entry_plain(t, we, be, wp, bp, ws),
+                 lambda: F.conv2d(t, we.to(bf), be.to(bf), 2, 1)),
+                (f"row16 {b}x96x{h2}x{w2}{tag}", n2,
+                 lambda ws=ws: ce.l2_conv(y, ay, wl, bl, want_stats=ws),
+                 lambda ws=ws: ce.conv_plain(y, wl, bl, 1, ay,
+                                             want_stats=ws),
+                 lambda: F.conv2d(y, wl.to(bf), bl.to(bf), 1, 1)),
+                (f"row16 res {b}x96x{h2}x{w2}{tag}", n2,
+                 lambda ws=ws: ce.l2_conv(y, ay, wl, bl, res=p, res_aff=ap,
+                                          want_stats=ws),
+                 lambda ws=ws: ce.conv_plain(y, wl, bl, 1, ay, p, ap,
+                                             res_relu=False, want_stats=ws),
+                 None)]
+        for label, npix, kern, plain, lib in cases:
+            got, want = _leaves(kern()), _leaves(plain())
+            torch.cuda.synchronize()
+            ulps, eq, err = 0.0, 1.0, 0.0
+            for k, q in zip(got, want):
+                if k.dtype == bf:
+                    k, q = k.float(), q.float()
+                    ulps = max(ulps, float(((k - q).abs() / q.abs()
+                                            .clamp_min(1.0)).max()) * 128)
+                    eq = min(eq, float((k == q).float().mean()))
+                else:
+                    err = max(err, float(((k - q) / npix).abs().max())
+                              / max(1.0, float((q / npix).abs().max())))
+            ms = chip_smoke.time_ms(kern, 5)
+            line = (f"{label} ms {ms:.4f} ulps {ulps:.2f} equal {eq:.5f} "
+                    f"sums {err:.2e} sha {sha(got)}")
+            if lib is not None:
+                line += f" F.conv2d ms {chip_smoke.time_ms(lib, 5):.4f}"
+            out.append(line)
+            del got, want
+        del x, t, y, p
         torch.cuda.empty_cache()
     print(f"{root} [{torch.cuda.get_device_name(0)}] " + " | ".join(out),
           flush=True)

@@ -855,6 +855,88 @@ def test_encoder_convs_bf16_match_plain(dev, monkeypatch, b, h, w):
             _assert_bf16(k1, k2, want, nn)
 
 
+# Rows 15 and 16's bf16 forms on enc_conv_wg.cu: ragged shapes (2-byte
+# loads and stores: W not a multiple of 8; H and W not multiples of the
+# tile) and shapes whose rows are whole 16-byte vectors (W a multiple of 8
+# but not of the 64-column tile, so the last tile overhangs).
+WG_CASES = [(1, 37, 53), (3, 41, 70), (2, 19, 136), (1, 9, 8), (2, 30, 72)]
+
+
+@pytest.mark.parametrize("b,h,w", WG_CASES)
+def test_l2_wgmma_bf16_kernel_matches_plain(dev, monkeypatch, b, h, w):
+    """Row 16 (prep and res_proj forms, 96 -> 96) and row 15 (conv and
+    projection, 64 -> 96, stride 2) in bf16 on the wgmma kernel, with and
+    without sums: one launch each, two calls bitwise equal, within 1 bf16
+    ulp of the plain version with at least 99% equal, sums within 1e-4
+    per pixel; the plain versions patched to raise."""
+    rng = np.random.default_rng(500 + w)
+    y, p = _bf16_case(rng, dev, b, 96, h, w)
+    t = torch.relu(_bf16_case(rng, dev, b, 64, h, w)[1])
+    a96, p96 = _aff(rng, dev, b, 96, const=True), _aff(rng, dev, b, 96)
+    wl, bl = _wb(rng, dev, 96, 96, 3)
+    we, be = _wb(rng, dev, 96, 64, 3)
+    wp, bp = _wb(rng, dev, 96, 64, 1)
+    n, n2 = float(h * w), float(((h + 1) // 2) * ((w + 1) // 2))
+    ce = cuda_encoder
+    for fn, args, kw, nn in (
+            (ce.l2_conv, (y, a96, wl, bl), {}, n),
+            (ce.l2_conv, (y, a96, wl, bl), dict(res=p, res_aff=p96), n),
+            (ce.l2_entry, (t, we, be, wp, bp), {}, n2)):
+        for ws in (True, False):
+            k1, k2, want = _twice_bf16(fn, args, dict(kw, want_stats=ws),
+                                       monkeypatch)
+            assert k1[0].dtype == BF
+            assert len(_leaves(k1)) == len(_leaves(want))
+            _assert_bf16(k1, k2, want, nn)
+
+
+def test_l2_wgmma_bf16_kernel_refuses(dev):
+    """The wgmma kernel takes 3x3 convs to 96 outputs from at most 96
+    (row 16) or 64 (row 15) channels: anything else raises, no
+    fallback."""
+    rng = np.random.default_rng(7)
+    y = _bf16_case(rng, dev, 1, 112, 8, 16)[0]
+    a = _aff(rng, dev, 1, 112)
+    wl, bl = _wb(rng, dev, 96, 112, 3)
+    with pytest.raises(ValueError):
+        cuda_encoder.l2_conv(y, a, wl, bl)
+    y = _bf16_case(rng, dev, 1, 96, 8, 16)[0]
+    w64, b64 = _wb(rng, dev, 64, 96, 3)
+    with pytest.raises(ValueError):
+        cuda_encoder.l2_conv(y, _aff(rng, dev, 1, 96), w64, b64)
+
+
+@pytest.mark.parametrize("shift", [0, 1, 3, 7, 8, 13, 66])
+def test_wgmma_shifted_window_descriptor(dev, shift):
+    """``enc_conv_wg.cu``'s A descriptors start a tap's window at any
+    pixel: one m64n96k16 ``wgmma`` whose A starts ``shift`` 16-byte rows
+    into two planes of 8 channels (LBO the plane, SBO 128 bytes) and
+    whose B is a (k-step, tap) block of ``wg_pack`` gives the product of
+    pixels shift .. shift + 63 with that tap's weights (exact bf16
+    products, fp32 sums of 16)."""
+    rng = np.random.default_rng(20 + shift)
+    npix = 136
+    a = torch.from_numpy(rng.normal(size=(npix, 16)).astype(np.float32)
+                         ).to(BF)
+    img = torch.cat([a[:, :8].reshape(-1), a[:, 8:].reshape(-1)]).to(dev)
+    wt = _randn(rng, 96, 16, 3, 3)
+    tap = shift % 9
+    blk = cuda_encoder.wg_pack(wt)[0, tap].contiguous().to(dev)
+    out = torch.empty((64, 96), dtype=torch.float32, device=dev)
+    fn = _build.load("enc_conv_wg").enc_conv_wg_probe
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    rc = fn(img.data_ptr(), blk.data_ptr(), out.data_ptr(), npix * 16,
+            shift, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    want = (a[shift:shift + 64].double()
+            @ wt[:, :, tap // 3, tap % 3].to(BF).double().T)
+    torch.testing.assert_close(out.cpu().double(), want, rtol=1e-6,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("shape", [(2, 64, 13, 7), (1, 96, 7, 9),
                                    (6, 64, 24, 40)])
 def test_stats_and_finish_bf16_match_plain(dev, monkeypatch, shape):

@@ -564,37 +564,29 @@ def _unswizzle16(pack):
     return torch.where(swap[:, None], pack.roll(8, -1), pack)
 
 
-@pytest.mark.parametrize("cout,cin,inst", [(64, 64, "stage_conv"),
-                                           (96, 64, "l2_entry"),
-                                           (96, 96, "l2_conv"),
-                                           (32, 20, "l2_entry")],
-                         ids=["row9", "row15", "row16", "ragged"])
-def test_bf16_pack_unpacks_to_bf16_weights(cout, cin, inst):
-    """``tc_pack_bf16``: (tiles of bn outputs, stages of 16 channels (the
-    source's ``kKCB``), 9 taps (a tenth for the projection), bn, 16) bf16;
-    every weight rounded to bf16 once at its place, zero past Cout and
-    Cin."""
+@pytest.mark.parametrize("cout,cin", [(64, 64), (64, 20), (32, 64),
+                                      (96, 33)],
+                         ids=["row9", "ragged_cin", "ragged_cout", "ragged"])
+def test_bf16_pack_unpacks_to_bf16_weights(cout, cin):
+    """``tc_pack_bf16`` (row 9's bf16 form): (tiles of bn outputs, stages
+    of 16 channels (the source's ``kKCB``), 9 taps, bn, 16) bf16; every
+    weight rounded to bf16 once at its place, zero past Cout and Cin."""
     src = _src("enc_conv_tc")
     assert f"kKCB = {ce.TC_STAGE_BF16};" in src
-    assert "kTaps = 9 + (PROJ ? 1 : 0)" in src
-    proj = inst == "l2_entry"
+    assert "kBBytes = 9 * kTapBytes; // a stage's weights" in src
     rng = np.random.default_rng(cout + cin)
     w = torch.from_numpy(rng.normal(size=(cout, cin, 3, 3))
                          .astype(np.float32))
-    wp = torch.from_numpy(rng.normal(size=(cout, cin, 1, 1))
-                          .astype(np.float32)) if proj else None
-    bn = ce.TC_INSTANCES[inst][3]
-    pack = ce.tc_pack_bf16(w, wp, bn)
+    bn = ce.TC_INSTANCES["stage_conv"][3]
+    pack = ce.tc_pack_bf16(w, bn)
     nt, nk, taps, pbn, kc = pack.shape
-    assert pack.dtype == BF and (pbn, kc, taps) == (bn, 16, 9 + proj)
+    assert pack.dtype == BF and (pbn, kc, taps) == (bn, 16, 9)
     assert (nt, nk) == (-(-cout // bn), -(-cin // 16))
     u = _unswizzle16(pack).permute(0, 3, 2, 1, 4).reshape(
         nt * bn, taps, nk * 16)                       # (o, tap, c)
     assert not u[cout:].any() and not u[:, :, cin:].any()
-    got = u[:cout, :9, :cin].reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
+    got = u[:cout, :, :cin].reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
     assert torch.equal(got, w.to(BF))
-    if proj:
-        assert torch.equal(u[:cout, 9, :cin], wp[:, :, 0, 0].to(BF))
 
 
 def _row_off(p, u):
@@ -648,13 +640,13 @@ def test_bf16_fragments_are_the_mma_operands():
             for m, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
                 np.testing.assert_array_equal(
                     regs[lane, m], vals[p0 + g + dr, 2 * t + dk:2 * t + dk + 2])
-    w = torch.from_numpy(rng.normal(size=(96, 16, 3, 3)).astype(np.float32))
-    pack = ce.tc_pack_bf16(w, None, 96)
+    w = torch.from_numpy(rng.normal(size=(64, 16, 3, 3)).astype(np.float32))
+    pack = ce.tc_pack_bf16(w, 64)
     for tap in (0, 4, 8):
         block = pack[0, 0, tap].contiguous().view(torch.int16).numpy()
         block = block.reshape(-1).view(np.uint16)
         wt = w[:, :, tap // 3, tap % 3].to(BF).view(torch.int16).numpy()
-        nt = 6  # row 16: 2 warps x 6 n-tiles of 8 outputs
+        nt = 4  # row 9: 2 warps x 4 n-tiles of 8 outputs
         for wn in range(2):
             for jp in range(nt // 2):
                 regs = _ldmatrix_x4(block, [

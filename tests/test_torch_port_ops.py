@@ -227,6 +227,8 @@ def test_kernel_sources_carry_their_notes():
                 "enc_conv_tc": ("_enc_conv_kernel", "_enc_conv_res_kernel",
                                 "_l2_entry_kernel", "_l2_conv_kernel",
                                 "_l2_conv_res_kernel"),
+                "enc_conv_wg": ("_l2_entry_kernel", "_l2_conv_kernel",
+                                "_l2_conv_res_kernel"),
                 "enc_stats": ("_in_stats_kernel", "_packed_stats",
                               "_dual_sum_kernel"),
                 "enc_finish": ("_enc_finish_kernel", "_l2_finish_kernel"),
