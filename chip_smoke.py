@@ -7,10 +7,11 @@ Phases, none caught: (1) print the card's name and power limit; (2) build
 the CUDA kernels from ``raftstereo_tpu_torch/csrc``, printing ptxas's
 registers, shared memory and spills of each tensor-core kernel (row 2's
 fused update, ``gru_update.cu``; rows 9, 15 and 16's encoder convs,
-``enc_conv_tc.cu``; rows 13 and 12's stems, ``enc_conv.cu``; rows 15 and
-16's bf16 forms, ``enc_conv_wg.cu``, which must spill nothing) and, where
-``cuobjdump`` exists, the count of tensor-core instructions (HMMA/HGMMA)
-in each library, which must not be 0 (``enc_conv_wg``: HGMMA only); (3)
+``enc_conv_tc.cu``, fp32 only; rows 13 and 12's stems, ``enc_conv.cu``;
+rows 9, 15 and 16's bf16 forms, ``enc_conv_wg.cu``, which must spill
+nothing) and, where ``cuobjdump`` exists, the count of tensor-core
+instructions (HMMA/HGMMA) in each library, which must not be 0
+(``enc_conv_wg``: HGMMA only, so the bf16 3x3 convs run no HMMA); (3)
 hold each kernel against its
 plain PyTorch version on the card at the shapes its main path gives it,
 and time both (the tensor-core
@@ -156,10 +157,11 @@ compute and feature maps: the fast and turbo tiers on a fused base):
 (29) hold the bf16 forms of rows 13, 9, 11, 15, 16 and 17 at the fused
 serving shapes (fnet's 2 images with sums, cnet's 1 without; row 9 in
 its prep and residual forms, row 16 in its prep and residual-projection
-forms; rows 15 and 16 on ``enc_conv_wg.cu``), row 12 at the ``n_downsample=3`` shapes and row 10 at a batch-3
-fnet against their bf16 plain versions (within 1 bf16 ulp with 99% of
-the elements equal, the sums within ENC_TOL, the finishes bitwise; two
-calls bitwise equal), timed beside the plain versions, ``F.conv2d`` on
+forms; rows 9, 15 and 16 on ``enc_conv_wg.cu``), rows 12 and 9 at the
+``n_downsample=3`` shapes and row 10 at a batch-3 fnet against their
+bf16 plain versions (within 1 bf16 ulp with 99.5% of the elements equal,
+the sums within ENC_TOL, the finishes bitwise; two calls bitwise
+equal), timed beside the plain versions, ``F.conv2d`` on
 bf16 tensors and ``torch.var_mean``; (30) serve three requests on each of
 ``serve_fused_bf16`` and ``serve_fused_ds3_bf16``: launches exact (the
 encoder kernels' ``FUSED_PER_REQUEST`` or ``_DS3`` plus 32 lookups and 32
@@ -584,8 +586,7 @@ def _ptxas_label(mangled: str) -> str:
     name = re.search(r"(gru_mma_conv_kernel|gru_simt_conv_kernel|"
                      r"conv3x3_few_out_kernel|pad_rows_kernel|"
                      r"enc_conv_tc_kernel|stem7_tc_kernel|"
-                     r"enc_conv_tc_bf16_kernel|stem7_bf16_kernel|"
-                     r"enc_conv_wg_kernel)I(.*?)EEv",
+                     r"stem7_bf16_kernel|enc_conv_wg_kernel)I(.*?)EEv",
                      mangled)
     if not name:  # _ZN <namespace> <name> E...: lengths, then characters
         ns = re.match(r"_ZN(\d+)", mangled)
@@ -603,14 +604,15 @@ def build_report(name, lib) -> None:
     static shared memory, spills; row 2's mma kernel's dynamic shared
     memory is its TMA ring of 128-byte rows, BM = 32*MT pixel rows and BN
     = 16*NT weight rows per plane, 4 stages where one is at most 28 KB,
-    else 3, and a barrier per stage; rows 9, 15 and 16's
+    else 3, and a barrier per stage; rows 9, 15 and 16's fp32
     ``enc_conv_tc_kernel<stride,mode,projection,MT,NT>``'s and rows 13
-    and 12's ``stem7_tc_kernel<stride>``'s, and their bf16 forms'
-    ``enc_conv_tc_bf16_kernel`` and ``stem7_bf16_kernel``, and rows 15
-    and 16's bf16 ``enc_conv_wg_kernel<stride,mode,projection,k-steps>``,
-    are set at launch), and the tensor-core instructions in the library,
-    which must not be 0.  ``enc_conv_wg``, the `wgmma` conv, must spill
-    nothing and hold HGMMA and no HMMA instructions."""
+    and 12's ``stem7_tc_kernel<stride>``'s and ``stem7_bf16_kernel``'s,
+    and rows 9, 15 and 16's bf16
+    ``enc_conv_wg_kernel<stride,mode,projection,k-steps,N,MR>``'s are set
+    at launch), and the tensor-core instructions in the library, which
+    must not be 0.  ``enc_conv_tc`` must hold fp32 kernels only;
+    ``enc_conv_wg``, the `wgmma` conv, must spill nothing and hold HGMMA
+    and no HMMA instructions."""
     entry = spill = None
     for line in lib.with_suffix(".log").read_text().splitlines():
         props = re.search(r"Function properties for (\S+)", line)
@@ -636,6 +638,8 @@ def build_report(name, lib) -> None:
                 check(re.search(r"\b0 bytes spill stores, 0 bytes spill "
                                 r"loads", spill or "") is not None,
                       f"{entry} spills: {spill}")
+            if name == "enc_conv_tc":
+                check("bf16" not in entry, f"{name}: a bf16 kernel {entry}")
             entry = None
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -901,13 +905,14 @@ def conv_cost(x, wt, out_numel, n_in=1, proj_flops=0):
 
 
 # The source of each encoder row under csrc/ (enc_conv where not listed),
-# and of its bf16 form where that differs (rows 15 and 16: the wgmma conv).
+# and of its bf16 form where that differs (rows 9, 15 and 16: the wgmma
+# conv).
 ENCODER_SOURCES = {"stage_conv": "enc_conv_tc", "l2_entry": "enc_conv_tc",
                    "l2_conv": "enc_conv_tc",
                    "stage_finish": "enc_finish", "l2_finish": "enc_finish",
                    "plane_stats": "enc_stats", "dual_sums": "enc_stats"}
-ENCODER_BF16_SOURCES = {**ENCODER_SOURCES, "l2_entry": "enc_conv_wg",
-                        "l2_conv": "enc_conv_wg"}
+ENCODER_BF16_SOURCES = {**ENCODER_SOURCES, "stage_conv": "enc_conv_wg",
+                        "l2_entry": "enc_conv_wg", "l2_conv": "enc_conv_wg"}
 
 
 def enc_row(rows, path, name, replaces, path_shape, kern, plain, n, tol,
@@ -1107,9 +1112,9 @@ def encoder_kernel_phase(model, bucket, torch):
 # The fused encoder's bf16 forms against their bf16 plain versions: a
 # convolution's exact bf16 products summed in fp32 in another order round
 # to the other bf16 neighbour at a boundary (1 ulp of max(1, |plain|), at
-# least 99% of the elements equal; the fp32 output sums within ENC_TOL
+# least 99.5% of the elements equal; the fp32 output sums within ENC_TOL
 # per pixel); the finishes round each op as plain does (bitwise).
-ENC_BF16_ULPS, ENC_BF16_EQUAL = 1.0, 0.99
+ENC_BF16_ULPS, ENC_BF16_EQUAL = 1.0, 0.995
 
 
 def enc_bf16_row(rows, path, name, replaces, path_shape, kern, plain, n,
@@ -1333,6 +1338,12 @@ def encoder_bf16_kernel_phase(model, bucket, torch):
         lambda: ce.stem_conv7_s2(img1, w1, b1, want_stats=False),
         lambda: ce.conv_plain(img1, w1, b1, 2, want_stats=False), 1.0, None,
         0)
+    # layer1 at the stride-2 stem's output size (n_downsample=3)
+    xd = x[:, :, :h2, :w2].contiguous()
+    row("stage_conv", "", f"{dims(xd)} (n_downsample=3)",
+        lambda: ce.stage_conv(xd, a, wc, bc),
+        lambda: ce.conv_plain(xd, wc, bc, 1, a), n2, None, 0)
+    del xd
     # -- off the batch-1 path: row 10 at a batch-3 fnet
     path = "serve_fused_bf16"
     big = randn(6, 64, h, w).to(bf)

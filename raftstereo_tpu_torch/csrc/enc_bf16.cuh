@@ -1,5 +1,5 @@
 // bf16 arithmetic shared by the fused encoder's kernels (enc_conv.cu,
-// enc_conv_tc.cu, enc_finish.cu, enc_stats.cu): the tensor cores' bf16
+// enc_conv_wg.cu, enc_finish.cu, enc_stats.cu): the tensor cores' bf16
 // product, and the per-op rounding of the TPU kernels' bf16 prep
 // (raftstereo_tpu/ops/pallas_encoder.py `_prep`, pallas_layer2.py
 // `_prep_f`).
@@ -29,12 +29,9 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// v rounded to bf16, as a float; a bf16's bits as a float.
+// v rounded to bf16, as a float.
 __device__ __forceinline__ float rbf(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ float bf_bits(unsigned short u) {
-  return __uint_as_float((uint32_t)u << 16);
 }
 
 // x*s + t, the fp32 affine cast to bf16, each op rounded to bf16: never

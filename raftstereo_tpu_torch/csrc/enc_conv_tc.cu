@@ -105,39 +105,10 @@
 // hides little latency; every block copies the whole weight pack from L2
 // (295 KB at 64->64, 664 KB at 96->96), and rows 15 and 16's 8x16 tiles
 // take it twice as often per pixel as row 9's 8x32.
-//
-// The bf16 form of row 9 (`enc_conv_tc_forward` with `bf16` set: the JAX
-// kernels at dt=bfloat16, the fast and turbo tiers on a fused base; rows
-// 15 and 16's bf16 forms are enc_conv_wg.cu's) is
-// `enc_conv_tc_bf16_kernel`, on instance 0's geometry (kInst).  Function:
-// the same, over bf16 x, r, w and biases with fp32 affines, rounded where
-// the TPU kernels round (pallas_encoder.py `_prep` :257,
-// `_enc_conv_res_kernel` :348): each affine cast to bf16, each product and
-// each sum of the prep rounded to bf16 (`__fmul_rn`/`__fadd_rn` then a
-// rounding: nvcc would contract a*b + c into one FMA, one rounding too
-// few); the convolution's products of bf16 values exact, summed in fp32
-// with the bf16 bias added in fp32; the sums of that fp32 output, which is
-// then stored rounded to bf16 once.
-// Design: the fp32 kernel's, with a stage of 16 input channels (kKCB),
-// one bf16 plane (a pixel's 16 channels are again one 32-byte row, its
-// two 8-channel halves swapped where bit 2 of the pixel index is set),
-// and one `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` per
-// 16-channel k-step in place of three TF32 products per 8 channels; the
-// fragments load by `ldmatrix` at the fp32 kernel's addresses.  The raw
-// values are 2 bytes, below `cp.async`'s 4, so each thread loads its
-// items' next-stage values into registers before a stage's products and
-// preps them into shared memory after.
-// Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): row 9's
-// 64->64 conv over a 576x960 image is 40.8 GFLOP against 142 MB moved,
-// 0.042 ms per image by bytes.  Counted per call by chip_smoke.py.  This
-// first form is simple and correct, not fast: `mma.sync` at a fraction of
-// `wgmma`'s rate, the fill between two barriers, the weights re-read from
-// L2 per block.
+// The bf16 forms of all three are enc_conv_wg.cu's `wgmma` conv.
 
-#include "enc_bf16.cuh"
 #include "enc_partials.cuh"
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -196,28 +167,21 @@ struct Geo {
                 "the epilogue reuses the stages' shared memory");
 };
 
-// In: the inputs' and packed weights' element (float, or a bf16's bits as
-// unsigned short); Out: the biases' and outputs' (float or __nv_bfloat16).
-// The affines and sums are fp32 in both.
-template <typename In, typename Out>
-struct ArgsT {
-  const In* x;        // (B, Cin, H, W)
+struct Args {
+  const float* x;     // (B, Cin, H, W)
   const float* xs;    // (B, Cin) prep scale (all modes but kNone)
   const float* xt;    // (B, Cin) prep shift
-  const In* r;        // (B, Cin, H, W) residual input (kRes, kResProj)
+  const float* r;     // (B, Cin, H, W) residual input (kRes, kResProj)
   const float* rs;
   const float* rt;
-  const In* w;        // pack (n tiles, stages, taps, 2, BN, 8), see tc_pack;
-                      // bf16: (n tiles, stages, taps, BN, 16), tc_pack_bf16
-  const Out* bias;    // (Cout)
-  const Out* bp;      // (Cout) projection bias (row 15)
-  Out* y;             // (B, Cout, Ho, Wo)
-  Out* yp;            // (B, Cout, Ho, Wo) projection output (row 15)
+  const float* w;     // pack (n tiles, stages, taps, 2, BN, 8), see tc_pack
+  const float* bias;  // (Cout)
+  const float* bp;    // (Cout) projection bias (row 15)
+  float* y;           // (B, Cout, Ho, Wo)
+  float* yp;          // (B, Cout, Ho, Wo) projection output (row 15)
   float* partials;    // (B, nb, 2, CH) per-block sums, or null
   int cin, h, win, cout, ho, wo, tiles_w, nb, nchunk;
 };
-using Args = ArgsT<float, float>;
-using ArgsB = ArgsT<unsigned short, __nv_bfloat16>;
 
 // ---------------------------------------------------------------- PTX
 
@@ -668,9 +632,8 @@ enc_conv_tc_kernel(const Args a) {
 
 // A conv kernel over the grid (tiles, Cout tiles of `bn`, images), then
 // the sums' reduction.
-template <typename A>
-int launch_conv(void (*kernel)(A), int smem, int bn, bool proj,
-                const A& a, int batch, float* stats, cudaStream_t st) {
+int launch_conv(void (*kernel)(Args), int smem, int bn, bool proj,
+                const Args& a, int batch, float* stats, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -705,264 +668,6 @@ int launch_inst(const Args& a, int batch, float* stats, cudaStream_t st) {
                      PROJ, a, batch, stats, st);
 }
 
-// ---------------------------------------------------------------- bf16
-
-constexpr int kKCB = 16;  // input channels per bf16 stage: one k16 step a tap
-
-template <int MT, int NT>
-struct GeoB {
-  static constexpr int TW = 8 * MT;
-  static constexpr int BN = kWarpsN * 8 * NT;
-  static constexpr int RH = kTH + 2;  // raw input tile (stride 1)
-  static constexpr int RW = TW + 2;
-  static constexpr int kABytes = RH * RW * kRow;   // one bf16 plane
-  static constexpr int kTapBytes = BN * kRow;      // a tap's BN rows
-  static constexpr int kBBytes = 9 * kTapBytes;    // a stage's weights
-  static constexpr int kPackElems = kBBytes / 2;
-  static constexpr int kStageBytes = kABytes + kBBytes;
-  // fill items: (channel octet q, raw tile pixel)
-  static constexpr int kItems = 2 * RH * RW;
-  static constexpr int kIPT = (kItems + kThreads - 1) / kThreads;
-  static constexpr int kRed = kWarpsM * 2 * BN * 4;
-  static constexpr int kSmem =
-      2 * kStageBytes > kRed ? 2 * kStageBytes : kRed;
-  static_assert(kStageBytes % 16 == 0, "16-byte copies");
-  static_assert(TW % 16 == 0, "m16 tiles lie within one output row");
-  static_assert(kSmem <= 232448, "the block's shared memory fits an SM");
-};
-
-template <int MODE, int MT, int NT>
-__global__ void __launch_bounds__(kThreads, 1)
-enc_conv_tc_bf16_kernel(const ArgsB a) {
-  using G = GeoB<MT, NT>;
-  static_assert(NT % 2 == 0, "B fragments load in pairs of n-tiles");
-  static_assert(MODE == kPrep || MODE == kRes, "row 9's modes");
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int b = blockIdx.z, n0 = blockIdx.y * G::BN;
-  const int oy0 = (blockIdx.x / a.tiles_w) * kTH;
-  const int ox0 = (blockIdx.x % a.tiles_w) * G::TW;
-  const int iy0 = oy0 - 1, ix0 = ox0 - 1;
-  const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem);
-  const unsigned short* wsrc =
-      a.w + (long)blockIdx.y * a.nchunk * G::kPackElems;
-
-  // ---- stage fill: item it = (channel octet q, raw tile pixel p).  Each
-  // thread loads its items' 8 raw values (x, and r with a residual) into
-  // registers before a stage's products (zero past the image or Cin) and
-  // after them preps, masks and stores them as one 16-byte half of the
-  // pixel's row; the item index is opaque, as in the fp32 kernel.
-  unsigned short rx[G::kIPT][8];
-  unsigned short rr[has_res(MODE) ? G::kIPT : 1][8];
-  auto item = [&](int s, int& q, int& lr, int& lc, bool& inside) {
-    int it = tid + s * kThreads;
-    asm volatile("" : "+r"(it));
-    if (it >= G::kItems) return false;
-    q = it / (G::RH * G::RW);
-    const int p = it - q * (G::RH * G::RW);
-    lr = p / G::RW;
-    lc = p - lr * G::RW;
-    const int gy = iy0 + lr, gx = ix0 + lc;
-    inside = gy >= 0 && gy < a.h && gx >= 0 && gx < a.win;
-    return true;
-  };
-  auto load = [&](int k) {
-#pragma unroll
-    for (int s = 0; s < G::kIPT; ++s) {
-      int q, lr, lc;
-      bool inside;
-      if (!item(s, q, lr, lc, inside)) break;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int c = k * kKCB + q * 8 + e;
-        const bool ok = inside && c < a.cin;
-        const long off =
-            ok ? (((long)b * a.cin + c) * a.h + iy0 + lr) * a.win + ix0 + lc
-               : 0;
-        rx[s][e] = ok ? __ldg(a.x + off) : (unsigned short)0;
-        if constexpr (has_res(MODE))
-          rr[s][e] = ok ? __ldg(a.r + off) : (unsigned short)0;
-      }
-    }
-  };
-  // Preps, masks and stores the loaded values into stage `buf`.
-  auto store = [&](int k, int buf) {
-    const uint32_t sa = sbase + buf * G::kStageBytes;
-#pragma unroll
-    for (int s = 0; s < G::kIPT; ++s) {
-      int q, lr, lc;
-      bool inside;
-      if (!item(s, q, lr, lc, inside)) break;
-      uint32_t o[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int c = k * kKCB + q * 8 + e;
-        float v = 0.f;  // outside the image or past Cin: zero AFTER prep
-        if (inside && c < a.cin) {
-          const int plane = b * a.cin + c;
-          v = relu(prep_bf16(bf_bits(rx[s][e]), __ldg(a.xs + plane),
-                             __ldg(a.xt + plane)));
-          if constexpr (MODE == kRes) {
-            const float u = relu(prep_bf16(bf_bits(rr[s][e]),
-                                           __ldg(a.rs + plane),
-                                           __ldg(a.rt + plane)));
-            v = relu(rbf(__fadd_rn(u, v)));
-          }
-        }
-        // v is bf16-valued: its high 16 bits are the bf16
-        o[e / 2] |= (__float_as_uint(v) >> 16) << (16 * (e & 1));
-      }
-      const int sp = lr * G::RW + lc;
-      st_shared_v4(sa + row_off(sp, q), o[0], o[1], o[2], o[3]);
-    }
-  };
-  // `bytes` of the pack from element offset `from` to `dst`, 16 at a time.
-  auto copy = [&](uint32_t dst, long from, int bytes) {
-    const char* src = reinterpret_cast<const char*>(wsrc + from);
-    int i0 = tid;  // opaque, as the fill's items
-    asm volatile("" : "+r"(i0));
-    for (int i = i0; i < bytes / 16; i += kThreads)
-      cp_async16(dst + 16 * i, src + 16 * i);
-  };
-
-  // ---- fragment geometry: the fp32 kernel's (m16n8k16's A and B
-  // fragments take the same ldmatrix addresses, a 16-byte half being
-  // channels 0-7 | 8-15 of the step).
-  const int a_u = lane >> 4;
-  const int r16 = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int b_row = wn * 8 * NT + (lane & 7) + ((lane >> 4) << 3);
-  const uint32_t b_off = row_off(b_row, (lane >> 3) & 1);
-  auto m_row = [&](int i) { return (wm * MT + i) / (G::TW / 16); };
-  auto m_col = [&](int i) { return (wm * MT + i) % (G::TW / 16) * 16; };
-  int pbase[MT];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) pbase[i] = m_row(i) * G::RW + m_col(i) + r16;
-  auto b_pair = [&](uint32_t blk, int jp, uint32_t(&h)[2][2]) {
-    ldmatrix_x4(h[0][0], h[0][1], h[1][0], h[1][1],
-                blk + b_off + 16 * jp * kRow);
-  };
-  auto a_frag = [&](uint32_t plane, int p, uint32_t(&h)[4]) {
-    ldmatrix_x4(h[0], h[1], h[2], h[3], plane + row_off(p, a_u));
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  copy(sbase + G::kABytes, 0, G::kBBytes);
-  load(0);
-  cp_async_wait_all();
-  store(0, 0);
-  __syncthreads();
-
-  for (int k = 0; k < a.nchunk; ++k) {
-    const int cur = k & 1;
-    const bool more = k + 1 < a.nchunk;
-    if (more) {  // the next stage's weights by cp.async, its inputs to regs
-      copy(sbase + (cur ^ 1) * G::kStageBytes + G::kABytes,
-           (long)(k + 1) * G::kPackElems, G::kBBytes);
-      load(k + 1);
-    }
-    const uint32_t sa = sbase + cur * G::kStageBytes;
-    const uint32_t sb = sa + G::kABytes;
-    float t[MT][NT][4];  // this stage's fresh partial sums
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int toff = tap / 3 * G::RW + tap % 3;
-      uint32_t bq[NT / 2][2][2];
-#pragma unroll
-      for (int jp = 0; jp < NT / 2; ++jp)
-        b_pair(sb + tap * G::kTapBytes, jp, bq[jp]);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        uint32_t af[4];
-        a_frag(sa, pbase[i] + toff, af);
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_bf16(t[i][j], af, bq[j / 2][j % 2][0], bq[j / 2][j % 2][1],
-                   tap == 0);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += t[i][j][e];
-    cp_async_wait_all();
-    if (more) store(k + 1, cur ^ 1);
-    __syncthreads();  // stage cur is free, stage cur^1 is complete
-  }
-
-  // ---- epilogue: + the bf16 bias in fp32, the bf16 store, and this
-  // lane's fp32 sums of the unrounded values; reduced as in the fp32
-  // kernel (fixed order).
-  const int g = lane >> 2, tq = lane & 3;
-  const bool sums = a.partials != nullptr;
-  float* red = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = wn * 8 * NT + 8 * j + 2 * tq + e, n = n0 + col;
-      float s1 = 0.f, s2 = 0.f;
-      if (n < a.cout) {
-        const float bv = __bfloat162float(a.bias[n]);
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int oy = oy0 + m_row(i);
-            const int ox = ox0 + m_col(i) + g + 8 * half;
-            if (oy >= a.ho || ox >= a.wo) continue;
-            const float v = acc[i][j][2 * half + e] + bv;
-            a.y[(((long)b * a.cout + n) * a.ho + oy) * a.wo + ox] =
-                __float2bfloat16_rn(v);
-            s1 += v;
-            s2 = fmaf(v, v, s2);
-          }
-      }
-      if (sums) {
-#pragma unroll
-        for (int m = 4; m < 32; m <<= 1) {
-          s1 += __shfl_xor_sync(0xffffffffu, s1, m);
-          s2 += __shfl_xor_sync(0xffffffffu, s2, m);
-        }
-        if (g == 0) {
-          red[(wm * 2 + 0) * G::BN + col] = s1;
-          red[(wm * 2 + 1) * G::BN + col] = s2;
-        }
-      }
-    }
-  if (!sums) return;
-  __syncthreads();
-  for (int idx = tid; idx < 2 * G::BN; idx += kThreads) {
-    const int col = idx % G::BN, kind = idx / G::BN;
-    if (n0 + col >= a.cout) continue;
-    float s = red[kind * G::BN + col];
-#pragma unroll
-    for (int w = 1; w < kWarpsM; ++w) s += red[(w * 2 + kind) * G::BN + col];
-    a.partials[(((long)b * a.nb + blockIdx.x) * 2 + kind) * a.cout + n0 +
-               col] = s;
-  }
-}
-
-// Row 9's instance in bf16 (rows 15 and 16's bf16 forms are
-// enc_conv_wg.cu's).
-template <int MODE>
-int launch_bf16(const ArgsB& a, int batch, float* stats, cudaStream_t st) {
-  constexpr Inst in = kInst[0];
-  using G = GeoB<in.mt, in.nt>;
-  static_assert(in.stride == 1, "the bf16 kernel is stride 1");
-  return launch_conv(enc_conv_tc_bf16_kernel<MODE, in.mt, in.nt>, G::kSmem,
-                     G::BN, false, a, batch, stats, st);
-}
-
 // The supported (instance, mode) pairs.
 int dispatch(const Args& a, int inst, int mode, int batch, float* stats,
              cudaStream_t s) {
@@ -978,27 +683,6 @@ int dispatch(const Args& a, int inst, int mode, int batch, float* stats,
     return launch_inst<2, kResProj, false>(a, batch, stats, s);
   return (int)cudaErrorInvalidValue;
 }
-int dispatch(const ArgsB& a, int inst, int mode, int batch, float* stats,
-             cudaStream_t s) {
-  if (inst == 0 && mode == kPrep)
-    return launch_bf16<kPrep>(a, batch, stats, s);
-  if (inst == 0 && mode == kRes) return launch_bf16<kRes>(a, batch, stats, s);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <typename In, typename Out>
-int forward(const void* x, const float* xs, const float* xt, const void* r,
-            const float* rs, const float* rt, const void* w, const void* bias,
-            const void* bp, void* y, void* yp, float* partials, float* stats,
-            int batch, int cin, int h, int win, int cout, int ho, int wo,
-            int tiles_w, int inst, int mode, int nb, int kc, cudaStream_t s) {
-  const ArgsT<In, Out> a{
-      static_cast<const In*>(x), xs, xt, static_cast<const In*>(r), rs, rt,
-      static_cast<const In*>(w), static_cast<const Out*>(bias),
-      static_cast<const Out*>(bp), static_cast<Out*>(y), static_cast<Out*>(yp),
-      partials, cin, h, win, cout, ho, wo, tiles_w, nb, (cin + kc - 1) / kc};
-  return dispatch(a, inst, mode, batch, stats, s);
-}
 
 }  // namespace
 
@@ -1007,20 +691,18 @@ int forward(const void* x, const float* xs, const float* xt, const void* r,
 // (Cout); y, yp (B, Cout, Ho, Wo), Ho = (H - 1)/stride + 1 (and Wo alike);
 // partials (B, nb, 2, CH) scratch and stats (B, 2, CH), both null without
 // statistics, CH = Cout (2*Cout with the projection, its channels last),
-// nb = ceil(Ho/8) * ceil(Wo/tile width).  All fp32 and contiguous; with
-// `bf16` set x, r, y, yp, bias and bp are bf16 and w is the pack of
-// `tc_pack_bf16` (the affines, partials and stats stay fp32).  Cout a
-// multiple of 32, any Cin.  `inst` picks the instance of kInst (its
-// stride, tile width and bn, which must match `bn`); supported (instance,
-// mode): (0, prep|res), (1, none) with the projection, (2, prep|res_proj);
-// with `bf16`, (0, prep|res) only.
+// nb = ceil(Ho/8) * ceil(Wo/tile width).  All fp32 and contiguous.  Cout
+// a multiple of 32, any Cin.
+// `inst` picks the instance of kInst (its stride, tile width and bn, which
+// must match `bn`); supported (instance, mode): (0, prep|res), (1, none)
+// with the projection, (2, prep|res_proj).
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int enc_conv_tc_forward(
-    const void* x, const float* xs, const float* xt, const void* r,
-    const float* rs, const float* rt, const void* w, const void* bias,
-    const void* bp, void* y, void* yp, float* partials, float* stats,
+    const float* x, const float* xs, const float* xt, const float* r,
+    const float* rs, const float* rt, const float* w, const float* bias,
+    const float* bp, float* y, float* yp, float* partials, float* stats,
     int batch, int cin, int h, int win, int cout, int inst, int mode,
-    int nb, int bn, int bf16, void* stream) {
+    int nb, int bn, void* stream) {
   if (inst < 0 || inst > 2) return (int)cudaErrorInvalidValue;
   const Inst in = kInst[inst];
   const int ho = (h - 1) / in.stride + 1, wo = (win - 1) / in.stride + 1;
@@ -1031,12 +713,9 @@ extern "C" int enc_conv_tc_forward(
       (stats == nullptr) != (partials == nullptr) ||
       bn != kWarpsN * 8 * in.nt || proj != (inst == 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return forward<unsigned short, __nv_bfloat16>(
-        x, xs, xt, r, rs, rt, w, bias, bp, y, yp, partials, stats, batch, cin,
-        h, win, cout, ho, wo, tiles_w, inst, mode, nb, kKCB, s);
-  return forward<float, float>(x, xs, xt, r, rs, rt, w, bias, bp, y, yp,
-                               partials, stats, batch, cin, h, win, cout, ho,
-                               wo, tiles_w, inst, mode, nb, kKC, s);
+  const Args a{x,   xs,  xt, r,    rs, rt, w,       bias,
+               bp,  y,   yp, partials, cin, h, win, cout,
+               ho,  wo,  tiles_w, nb, (cin + kKC - 1) / kKC};
+  return dispatch(a, inst, mode, batch, stats,
+                  static_cast<cudaStream_t>(stream));
 }

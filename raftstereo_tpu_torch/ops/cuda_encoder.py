@@ -16,7 +16,8 @@ wrapper                TPU kernel (``raftstereo_tpu/ops/...``)
 ``stem_conv7_s2``      row 12, ``pallas_encoder.py`` ``_stem7s2_kernel``
                        (``enc_conv.cu``, tensor cores)
 ``stage_conv``         row 9, ``pallas_encoder.py`` ``_enc_conv_kernel``,
-                       ``_enc_conv_res_kernel`` (``enc_conv_tc.cu``)
+                       ``_enc_conv_res_kernel`` (``enc_conv_tc.cu``; bf16
+                       ``enc_conv_wg.cu``)
 ``plane_stats``        row 10, ``pallas_norm.py`` ``_in_stats_kernel`` as
                        ``pallas_encoder.py`` ``_packed_stats`` reaches it
 ``stage_finish``       row 11, ``pallas_encoder.py`` ``_enc_finish_kernel``
@@ -40,22 +41,25 @@ convolutions are bound by operations, the stats and finish by bytes.
 Each wrapper runs the plain version for CPU tensors and its kernel for
 CUDA tensors (counted in ``<wrapper>.launches``); it never falls back from
 one to the other.  The convolution wrappers repack the OIHW weights on
-every call (``tc_pack`` for the tensor-core kernel: 295 KB at 64->64), so
-nothing goes stale after ``load_state_dict``.
+every call (``tc_pack`` for the fp32 tensor-core kernel: 295 KB at
+64->64; ``wg_pack`` in bf16: 72 KB), so nothing goes stale after
+``load_state_dict``.
 
 Every wrapper takes float32 or bfloat16 activations and dispatches on
 their dtype: float32 to the fp32 kernels, bfloat16 to their bf16 forms
 (the JAX kernels at ``dt=bfloat16``: the fast and turbo tiers of a fused
-base, and ``dual_sums`` in the stages' bf16 backward); the bf16 forms of
-``l2_entry`` and ``l2_conv`` are ``enc_conv_wg.cu``'s persistent
-``wgmma`` conv (weights as ``wg_pack``), which takes 3x3 convs to 96
-outputs only.  Affines and sums
-stay float32; any other dtype or mix raises.  The bf16 forms round where
-the JAX kernels round: the prep casts the fp32 affine to bf16 and rounds
-after each product and each sum (never one fused multiply-add); a
-convolution takes bf16 operands (the weights and bias cast at use), sums
-its exact products in fp32, adds the bias in fp32, takes the output sums
-of that fp32 result and rounds it to bf16 once.
+base, and ``dual_sums`` in the stages' bf16 backward).  Only the fp32
+forms of ``stage_conv``, ``l2_entry`` and ``l2_conv`` stay on
+``enc_conv_tc.cu``; their bf16 forms are ``enc_conv_wg.cu``'s persistent
+``wgmma`` conv (weights as ``wg_pack``), whose instances
+(``WG_INSTANCES``) take only their own stride, Cout and Cin at most their
+largest.  Affines and sums stay float32; any other dtype or mix raises.
+The bf16 forms round where the JAX kernels round: the prep casts the
+fp32 affine to bf16 and rounds after each product and each sum (never
+one fused multiply-add); a convolution takes bf16 operands (the weights
+and bias cast at use), sums its exact products in fp32, adds the bias in
+fp32, takes the output sums of that fp32 result and rounds it to bf16
+once.
 """
 
 from __future__ import annotations
@@ -79,11 +83,11 @@ _TILE_H, _TILE_W, _COUT_TILE = 8, 32, 32
 STEM_WEIGHT = (64, 3, 7, 7)
 STEMS = {"stem_conv7": 1, "stem_conv7_s2": 2}  # wrapper -> stride
 _NONE, _PREP, _RES, _RES_PROJ = 0, 1, 2, 3
-# enc_conv_tc.cu's geometry: output rows per block (kTH), input channels
-# per stage (kKC), and its instances (kInst) by wrapper: (instance id,
-# stride, output columns per block 8*MT, outputs per block 16*NT).
+# enc_conv_tc.cu's geometry (the fp32 3x3 convs): output rows per block
+# (kTH), input channels per stage (kKC), and its instances (kInst) by
+# wrapper: (instance id, stride, output columns per block 8*MT, outputs per
+# block 16*NT).
 TC_TILE_H, TC_STAGE = 8, 8
-TC_STAGE_BF16 = 16  # enc_conv_tc.cu's kKCB: one k16 step a tap
 TC_INSTANCES = {"stage_conv": (0, 1, 32, 64), "l2_entry": (1, 2, 16, 96),
                 "l2_conv": (2, 1, 16, 96)}
 
@@ -128,37 +132,20 @@ def tc_pack(weight: torch.Tensor, proj_weight: Optional[torch.Tensor],
     return torch.stack([hi, tf32_round(w - hi)], 3).contiguous()
 
 
-def tc_pack_bf16(weight: torch.Tensor, bn: int) -> torch.Tensor:
-    """Row 9's bf16 tensor-core conv's weights, each stage's tap blocks as
-    they lie in shared memory: (Cout tiles of ``bn``, stages of 16 input
-    channels, 9 taps (ky*3 + kx), bn outputs, 16 channels), bf16
-    (``weight`` rounded once), zero past Cout and Cin.  In rows whose
-    output index has bit 2 set the two 8-channel halves are swapped, as
-    ``tc_pack`` swaps its 4-channel halves: a row is 32 bytes in both."""
-    o, i = weight.shape[:2]
-    w = weight.detach().to(BF16).permute(0, 2, 3, 1).reshape(o, 9, i)
-    nt, nk = -(-o // bn), -(-i // TC_STAGE_BF16)
-    w = F.pad(w, (0, nk * TC_STAGE_BF16 - i, 0, 0, 0, nt * bn - o))
-    w = w.reshape(nt, bn, w.shape[1], nk, TC_STAGE_BF16).permute(0, 3, 2, 1,
-                                                                  4)
-    swap = ((torch.arange(bn, device=w.device) >> 2) & 1).bool()
-    w = torch.where(swap[:, None], w.roll(TC_STAGE_BF16 // 2, -1), w)
-    return w.contiguous()
-
-
-# enc_conv_wg.cu's geometry (the bf16 forms of rows 15 and 16): input
-# channels a k-step (kKC), outputs (kN: all of Cout in one wgmma N),
-# output columns a tile (kTW), and by wrapper (stride, output rows a tile,
-# largest Cin).
-WG_STAGE, WG_COUT, WG_TILE_W = 16, 96, 64
-WG_INSTANCES = {"l2_entry": (2, 2, 64), "l2_conv": (1, 4, 96)}
+# enc_conv_wg.cu's geometry (the bf16 3x3 convs of rows 9, 15 and 16):
+# input channels a k-step (kKC), output columns a tile (kTW), and its
+# instances (kInst) by wrapper: (stride, output rows a tile 2*MR, largest
+# Cin 16*NK, Cout: all of it in one wgmma N).
+WG_STAGE, WG_TILE_W = 16, 64
+WG_INSTANCES = {"stage_conv": (1, 4, 64, 64), "l2_entry": (2, 2, 64, 96),
+                "l2_conv": (1, 4, 96, 96)}
 
 
 def wg_geometry(h: int, w: int, instance: str):
     """The wgmma conv's output (ho, wo) for an (h, w) input to wrapper
     ``instance``'s bf16 form and its tiles per image ``nb`` (TH x 64
     pixels; the last tile of each axis overhangs the output)."""
-    stride, th, _ = WG_INSTANCES[instance]
+    stride, th = WG_INSTANCES[instance][:2]
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     return ho, wo, -(-ho // th) * -(-wo // WG_TILE_W)
 
@@ -296,14 +283,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
                res_aff=None, proj=None, want_stats=True):
-    """One launch of wrapper ``name``'s kernel: ``enc_conv_wg_forward``
-    for rows 15 and 16 in bf16 (``WG_INSTANCES``, weights as ``wg_pack``),
-    else ``enc_conv_tc_forward`` for the tensor-core instances
-    (``TC_INSTANCES``: the 3x3 convs of rows 9, 15 and 16, weights as
-    ``tc_pack`` or in bf16 ``tc_pack_bf16``), else ``enc_stem7_tc_forward``
-    for the stems (``STEMS``: rows 13 and 12 on the tensor cores, the raw
-    image, OIHW weights split in the kernel); ``proj`` the projection's
-    (weight, bias).  Returns (y, yp or None, stats (B, 2, CH) or None)."""
+    """One launch of wrapper ``name``'s kernel: for the 3x3 convs of rows
+    9, 15 and 16, ``enc_conv_wg_forward`` in bf16 (``WG_INSTANCES``,
+    weights as ``wg_pack``) and ``enc_conv_tc_forward`` in fp32
+    (``TC_INSTANCES``, weights as ``tc_pack``); for the stems
+    ``enc_stem7_tc_forward`` (``STEMS``: rows 13 and 12 on the tensor
+    cores, the raw image, OIHW weights split in the kernel); ``proj`` the
+    projection's (weight, bias).  Returns (y, yp or None, stats (B, 2, CH)
+    or None)."""
     cout, cin, ks, _ = weight.shape
     b, c, h, wd = x.shape
     if c != cin or cout % _COUT_TILE:
@@ -324,12 +311,12 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
     wg = bf and name in WG_INSTANCES
     tc = name in TC_INSTANCES and not wg
     if wg:
-        wg_stride, _, max_cin = WG_INSTANCES[name]
-        if ks != 3 or stride != wg_stride or cout != WG_COUT or cin > max_cin:
+        wg_stride, _, max_cin, wg_cout = WG_INSTANCES[name]
+        if ks != 3 or stride != wg_stride or cout != wg_cout or cin > max_cin:
             raise ValueError(f"{name}: a {ks}x{ks} stride-{stride} {cin}->"
                              f"{cout} conv; its bf16 kernel takes 3x3 stride "
                              f"{wg_stride}, Cin <= {max_cin}, Cout "
-                             f"{WG_COUT}")
+                             f"{wg_cout}")
         ho, wo, nb = wg_geometry(h, wd, name)
         w = wg_pack(weight, None if proj is None else proj[0])
     elif tc:
@@ -338,8 +325,7 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
             raise ValueError(f"{name}: a {ks}x{ks} stride-{stride} kernel; "
                              f"this conv is 3x3 stride {inst_stride}")
         ho, wo, _, bn, nb = tc_geometry(h, wd, name)
-        w = (tc_pack_bf16(weight, bn) if bf else
-             tc_pack(weight, None if proj is None else proj[0], bn))
+        w = tc_pack(weight, None if proj is None else proj[0], bn)
     else:
         if tuple(weight.shape) != STEM_WEIGHT or stride != STEMS[name]:
             raise ValueError(f"{name}: weight {tuple(weight.shape)}, stride "
@@ -365,7 +351,7 @@ def _conv_cuda(name, x, weight, bias, stride, mode=_NONE, aff=None, res=None,
         fn = _build.load("enc_conv_tc").enc_conv_tc_forward
         ptrs = [_ptr(x), _ptr(s), _ptr(t), _ptr(res), _ptr(rs), _ptr(rt),
                 _ptr(w), _ptr(bias), _ptr(bp), _ptr(y), _ptr(yp)]
-        ints = [b, cin, h, wd, cout, inst, mode, nb, bn, int(bf)]
+        ints = [b, cin, h, wd, cout, inst, mode, nb, bn]
     else:
         fn = _build.load("enc_conv").enc_stem7_tc_forward
         ptrs = [_ptr(x), _ptr(w), _ptr(bias), _ptr(y)]

@@ -29,15 +29,15 @@ compare within it.
 
     python3 scripts/ab_enc_conv.py ROOT --bf16 [--report]
 
-times the bf16 forms instead: rows 15 and 16 in every form (row 15's
-conv and projection; row 16's prep and res_proj forms), each with and
-without sums at the same batch, and row 9's prep form as a control, at
-the fused serving shapes (2x64x576x960; layer2 2x96x288x480) and the
-fused training shapes (12x64x320x720; 12x96x160x360), each with its
-largest difference from its bf16 plain version in bf16 ulps of max(1,
-|plain|), the share of equal elements and a SHA-256 digest of its
-outputs, beside one ``F.conv2d`` on bf16 tensors (cuDNN) of the same
-conv.
+times the bf16 forms instead: rows 9, 15 and 16 in every form (row 9's
+prep form with sums, without them on cnet's half batch, and its residual
+form; row 15's conv and projection; row 16's prep and res_proj forms,
+each with and without sums at the same batch), at the fused serving
+shapes (2x64x576x960; layer2 2x96x288x480) and the fused training shapes
+(12x64x320x720; 12x96x160x360), each with its largest difference from
+its bf16 plain version in bf16 ulps of max(1, |plain|), the share of
+equal elements and a SHA-256 digest of its outputs, beside one
+``F.conv2d`` on bf16 tensors (cuDNN) of the same conv.
 """
 
 from __future__ import annotations
@@ -240,8 +240,8 @@ def main() -> int:
 
 
 def bf16_main(root, torch, chip_smoke, ce, F) -> int:
-    """``--bf16``: rows 15 and 16's bf16 forms (and row 9's as a control)
-    at the fused serving and training shapes, one line per tree."""
+    """``--bf16``: rows 9, 15 and 16's bf16 forms at the fused serving
+    and training shapes, one line per tree."""
     import hashlib
 
     bf = torch.bfloat16
@@ -276,11 +276,24 @@ def bf16_main(root, torch, chip_smoke, ce, F) -> int:
         y = (randn(b, 96, h2, w2) * 2 + 0.3).to(bf)
         p = (randn(b, 96, h2, w2) * 2 - 0.3).to(bf)
         ay, ap = aff(b, 96), aff(b, 96)
+        r = (randn(b, 64, h, w) * 2 - 0.3).to(bf)
+        ra = aff(b, 64)
+        half = b // 2
+        x1 = x[:half].contiguous()
+        a1 = (a[0][:half].contiguous(), a[1][:half].contiguous())
         n, n2 = float(h * w), float(h2 * w2)
         cases = [(f"row9 {b}x64x{h}x{w}", n,
                   lambda: ce.stage_conv(x, a, wc, bc),
                   lambda: ce.conv_plain(x, wc, bc, 1, a),
-                  lambda: F.conv2d(x, wc.to(bf), bc.to(bf), 1, 1))]
+                  lambda: F.conv2d(x, wc.to(bf), bc.to(bf), 1, 1)),
+                 (f"row9 {half}x64x{h}x{w} no sums", n,
+                  lambda: ce.stage_conv(x1, a1, wc, bc, want_stats=False),
+                  lambda: ce.conv_plain(x1, wc, bc, 1, a1,
+                                        want_stats=False),
+                  lambda: F.conv2d(x1, wc.to(bf), bc.to(bf), 1, 1)),
+                 (f"row9 res {b}x64x{h}x{w}", n,
+                  lambda: ce.stage_conv(x, a, wc, bc, res=r, res_aff=ra),
+                  lambda: ce.conv_plain(x, wc, bc, 1, a, r, ra), None)]
         for ws in (True, False):
             tag = "" if ws else " no sums"
             cases += [
@@ -319,7 +332,7 @@ def bf16_main(root, torch, chip_smoke, ce, F) -> int:
                 line += f" F.conv2d ms {chip_smoke.time_ms(lib, 5):.4f}"
             out.append(line)
             del got, want
-        del x, t, y, p
+        del x, t, y, p, r, x1
         torch.cuda.empty_cache()
     print(f"{root} [{torch.cuda.get_device_name(0)}] " + " | ".join(out),
           flush=True)

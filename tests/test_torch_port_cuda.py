@@ -855,7 +855,7 @@ def test_encoder_convs_bf16_match_plain(dev, monkeypatch, b, h, w):
             _assert_bf16(k1, k2, want, nn)
 
 
-# Rows 15 and 16's bf16 forms on enc_conv_wg.cu: ragged shapes (2-byte
+# Rows 9, 15 and 16's bf16 forms on enc_conv_wg.cu: ragged shapes (2-byte
 # loads and stores: W not a multiple of 8; H and W not multiples of the
 # tile) and shapes whose rows are whole 16-byte vectors (W a multiple of 8
 # but not of the 64-column tile, so the last tile overhangs).
@@ -888,6 +888,42 @@ def test_l2_wgmma_bf16_kernel_matches_plain(dev, monkeypatch, b, h, w):
             assert k1[0].dtype == BF
             assert len(_leaves(k1)) == len(_leaves(want))
             _assert_bf16(k1, k2, want, nn)
+
+
+@pytest.mark.parametrize("b,h,w", WG_CASES)
+def test_stage_wgmma_bf16_kernel_matches_plain(dev, monkeypatch, b, h, w):
+    """Row 9 (64 -> 64, stride 1) in bf16 on the wgmma kernel's N = 64
+    instance, in its prep form and its residual form (a relu on both
+    terms), with and without sums: one launch each, two calls bitwise
+    equal, within 1 bf16 ulp of the plain version with at least 99%
+    equal, sums within 1e-4 per pixel; the plain versions patched to
+    raise."""
+    rng = np.random.default_rng(700 + w)
+    x, r = _bf16_case(rng, dev, b, 64, h, w)
+    aff, raff = _aff(rng, dev, b, 64, const=True), _aff(rng, dev, b, 64)
+    wt, bias = _wb(rng, dev, 64, 64, 3)
+    for kw in ({}, dict(res=r, res_aff=raff)):
+        for ws in (True, False):
+            k1, k2, want = _twice_bf16(cuda_encoder.stage_conv,
+                                       (x, aff, wt, bias),
+                                       dict(kw, want_stats=ws), monkeypatch)
+            assert k1[0].dtype == BF
+            assert len(_leaves(k1)) == len(_leaves(want))
+            _assert_bf16(k1, k2, want, float(h * w))
+
+
+def test_stage_wgmma_bf16_kernel_refuses(dev):
+    """Row 9's wgmma instance takes 3x3 stride-1 convs to 64 outputs from
+    at most 64 channels: more channels in or out raise, no fallback."""
+    rng = np.random.default_rng(8)
+    x = _bf16_case(rng, dev, 1, 80, 8, 16)[0]
+    w80, b80 = _wb(rng, dev, 64, 80, 3)
+    with pytest.raises(ValueError):
+        cuda_encoder.stage_conv(x, _aff(rng, dev, 1, 80), w80, b80)
+    x = _bf16_case(rng, dev, 1, 64, 8, 16)[0]
+    w96, b96 = _wb(rng, dev, 96, 64, 3)
+    with pytest.raises(ValueError):
+        cuda_encoder.stage_conv(x, _aff(rng, dev, 1, 64), w96, b96)
 
 
 def test_l2_wgmma_bf16_kernel_refuses(dev):

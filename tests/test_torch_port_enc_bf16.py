@@ -18,8 +18,9 @@ other side of a bf16 rounding boundary: one kernel's output is held
 within 1 ulp with at least 99% of the elements equal.  Through a stage a
 flip spreads (a 3x3 conv to its neighbours, an instance norm's mean to
 its channel), so stages and encoders are held to measured bounds stated
-beside each test.  The kernels' own arithmetic (the bf16 fragment pack,
-the stem's K padding, per-op rounding) is emulated in part (e).
+beside each test.  The kernels' own arithmetic (the stem's K padding,
+per-op rounding) is emulated in part (e); the ``wgmma`` conv's in
+tests/test_torch_port_enc_wg.py.
 """
 
 import jax
@@ -514,7 +515,8 @@ def _rbf(v) -> np.ndarray:
 
 
 def kernel_prep(x, s, t, relu=True):
-    """``prep_bf16`` of ``enc_conv_tc.cu`` and ``enc_finish.cu`` in numpy:
+    """``prep_bf16`` of ``enc_bf16.cuh`` (``enc_finish.cu``'s prep; the
+    ``wgmma`` conv's bf16x2 prep gives the same bits) in numpy:
     the fp32 affine cast to bf16, then ``__fmul_rn`` and ``__fadd_rn``
     (fp32), each result rounded to bf16."""
     v = _rbf(_rbf(np.float32(x) * _rbf(s)) + _rbf(t))
@@ -535,9 +537,10 @@ def test_source_rounds_after_each_prep_op():
     more; the emulation of that prep is bitwise the plain version's, and
     an FMA-contracted prep is not, on seeded data: so the comparison would
     catch a kernel that nvcc let contract."""
-    for name in ("enc_conv_tc", "enc_finish"):
+    for name in ("enc_conv_wg", "enc_finish"):
         assert "rbf(__fadd_rn(rbf(__fmul_rn(x, " in _src(name), name
-    assert "v = relu(rbf(__fadd_rn(u, v)));" in _src("enc_conv_tc")
+    assert ("relu2(add2(relu2(add2(mul2(r, rs), rt)), v))"
+            in _src("enc_conv_wg"))
     rng = np.random.default_rng(12)
     x = _rbf(rng.normal(size=(B, C, H, W)) * 3)
     r = _rbf(rng.normal(size=(B, C, H, W)) * 3)
@@ -554,39 +557,6 @@ def test_source_rounds_after_each_prep_op():
                               + kernel_prep(x, s, t)), 0)
         plain = torch.relu(ce.prep(rtt, tr, relu=res_relu) + ce.prep(xt, ta))
         np.testing.assert_array_equal(got, _np(plain))
-
-
-def _unswizzle16(pack):
-    """Undo the bf16 pack's half swap: in rows whose output index has bit
-    2 set, the two 8-channel halves trade places."""
-    bn = pack.shape[-2]
-    swap = ((torch.arange(bn) >> 2) & 1).bool()
-    return torch.where(swap[:, None], pack.roll(8, -1), pack)
-
-
-@pytest.mark.parametrize("cout,cin", [(64, 64), (64, 20), (32, 64),
-                                      (96, 33)],
-                         ids=["row9", "ragged_cin", "ragged_cout", "ragged"])
-def test_bf16_pack_unpacks_to_bf16_weights(cout, cin):
-    """``tc_pack_bf16`` (row 9's bf16 form): (tiles of bn outputs, stages
-    of 16 channels (the source's ``kKCB``), 9 taps, bn, 16) bf16; every
-    weight rounded to bf16 once at its place, zero past Cout and Cin."""
-    src = _src("enc_conv_tc")
-    assert f"kKCB = {ce.TC_STAGE_BF16};" in src
-    assert "kBBytes = 9 * kTapBytes; // a stage's weights" in src
-    rng = np.random.default_rng(cout + cin)
-    w = torch.from_numpy(rng.normal(size=(cout, cin, 3, 3))
-                         .astype(np.float32))
-    bn = ce.TC_INSTANCES["stage_conv"][3]
-    pack = ce.tc_pack_bf16(w, bn)
-    nt, nk, taps, pbn, kc = pack.shape
-    assert pack.dtype == BF and (pbn, kc, taps) == (bn, 16, 9)
-    assert (nt, nk) == (-(-cout // bn), -(-cin // 16))
-    u = _unswizzle16(pack).permute(0, 3, 2, 1, 4).reshape(
-        nt * bn, taps, nk * 16)                       # (o, tap, c)
-    assert not u[cout:].any() and not u[:, :, cin:].any()
-    got = u[:cout, :, :cin].reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
-    assert torch.equal(got, w.to(BF))
 
 
 def _row_off(p, u):
@@ -606,60 +576,6 @@ def _ldmatrix_x4(image, addrs):
             a = addrs[8 * m + lane // 4] // 2 + 2 * (lane % 4)
             out[lane, m] = image[a:a + 2]
     return out
-
-
-def test_bf16_fragments_are_the_mma_operands():
-    """The m16n8k16 operands the kernels' ``ldmatrix`` addressing gives
-    (the fp32 kernels' addresses, a 16-byte half being channels 0-7 or
-    8-15 of a k-step): A from a stage's tile as the fill stores it (pixel
-    p's channel octet q at ``row_off(p, q)``): a0..a3 = rows g, g + 8 at
-    k 2t, 2t+1 and + 8; B from a tap block of the bf16 pack copied
-    verbatim: per n-tile b0 = k 2t, 2t+1 and b1 = k + 8 of column g."""
-    src = _src("enc_conv_tc")
-    for text in ("const int r16 = (lane & 7) + (((lane >> 3) & 1) << 3);",
-                 "const int a_u = lane >> 4;",
-                 "const int b_row = wn * 8 * NT + (lane & 7) + "
-                 "((lane >> 4) << 3);",
-                 "row_off(b_row, (lane >> 3) & 1)", "plane + row_off(p, a_u)",
-                 "blk + b_off + 16 * jp * kRow", "row_off(sp, q)"):
-        assert text in src, text
-    rng = np.random.default_rng(3)
-    npix = 40
-    vals = rng.integers(0, 2 ** 16, (npix, 16)).astype(np.uint16)
-    image = np.zeros(npix * 16, np.uint16)
-    for p in range(npix):
-        for q in range(2):
-            o = _row_off(p, q) // 2
-            image[o:o + 8] = vals[p, 8 * q:8 * q + 8]
-    for p0 in (0, 5, 24):
-        regs = _ldmatrix_x4(image, [
-            _row_off(p0 + (lane & 7) + (((lane >> 3) & 1) << 3), lane >> 4)
-            for lane in range(32)])
-        for lane in range(32):
-            g, t = divmod(lane, 4)
-            for m, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 8), (8, 8))):
-                np.testing.assert_array_equal(
-                    regs[lane, m], vals[p0 + g + dr, 2 * t + dk:2 * t + dk + 2])
-    w = torch.from_numpy(rng.normal(size=(64, 16, 3, 3)).astype(np.float32))
-    pack = ce.tc_pack_bf16(w, 64)
-    for tap in (0, 4, 8):
-        block = pack[0, 0, tap].contiguous().view(torch.int16).numpy()
-        block = block.reshape(-1).view(np.uint16)
-        wt = w[:, :, tap // 3, tap % 3].to(BF).view(torch.int16).numpy()
-        nt = 4  # row 9: 2 warps x 4 n-tiles of 8 outputs
-        for wn in range(2):
-            for jp in range(nt // 2):
-                regs = _ldmatrix_x4(block, [
-                    _row_off(wn * 8 * nt + (lane & 7) + ((lane >> 4) << 3),
-                             (lane >> 3) & 1) + 16 * jp * 32
-                    for lane in range(32)])
-                for lane in range(32):
-                    g, t = divmod(lane, 4)
-                    for m in range(4):  # (n-tile 2jp, 2jp+1) x (b0, b1)
-                        n = wn * 8 * nt + 8 * (2 * jp + m // 2) + g
-                        k = 2 * t + 8 * (m % 2)
-                        assert list(regs[lane, m].view(np.int16)) == list(
-                            wt[n, k:k + 2]), (tap, wn, jp, lane, m)
 
 
 @pytest.mark.parametrize("stride", [1, 2])

@@ -1,23 +1,27 @@
-"""Rows 15 and 16's bf16 forms on ``csrc/enc_conv_wg.cu`` (layer2's 3x3
-convs as one persistent ``wgmma`` implicit GEMM), emulated on the CPU.
+"""Rows 9, 15 and 16's bf16 forms on ``csrc/enc_conv_wg.cu`` (layer1's
+and layer2's 3x3 convs as one persistent ``wgmma`` implicit GEMM, the
+output width N a template parameter), emulated on the CPU.
 
 There is no compiler or card here, so the kernel's addressing and
 arithmetic are emulated in numpy from its source's constants:
 
-(a) the geometry (tile, halo planes, stages, shared memory) against the
-    source and the wrappers' Python (``cuda_encoder.WG_INSTANCES``);
+(a) the geometry (instances, tile, halo planes, stages, shared memory)
+    against the source and the wrappers' Python
+    (``cuda_encoder.WG_INSTANCES``);
 (b) the weight pack read back through the kernel's B descriptors (K-major,
     no swizzle: start, LBO, SBO) is the bf16 OIHW weights;
 (c) the producer's stage (16-byte vector loads, prep, mask, registers
     rotated by lane, ``stmatrix.x4.trans``, scalar edge columns) read
     through each tap's A descriptor is the prepped, zero-padded input at
-    the right pixels, at both strides, ragged sizes included;
+    the right pixels, at both strides, in every prep mode, ragged sizes
+    included;
 (d) the persistent tile walk covers every output tile once;
 (e) the kernel's accumulation (all of K in one fp32 chain, each k-step's
     16 products added with truncation, the pessimistic model of the
     tensor cores' add) is within the card's gate of the plain version and
     of the JAX kernels at ``dt=bfloat16`` (interpret mode, as
-    tests/test_torch_port_enc_bf16.py runs them).
+    tests/test_torch_port_enc_bf16.py runs them); the producers' bf16x2
+    prep is the per-op rounding.
 """
 
 import re
@@ -26,8 +30,9 @@ import numpy as np
 import pytest
 import torch
 from test_torch_port_enc_bf16 import (BF, CO, JBF, B, C, H, W, _aff, _bf,
-                                      _check_sums, _conv, _l2_weights, _np,
-                                      _rbf, _t, kernel_prep)
+                                      _check_out, _check_sums, _conv,
+                                      _l2_weights, _np, _rbf, _t,
+                                      _unpack_sums, kernel_prep)
 from test_torch_port_encoder_train import few_threads  # noqa: F401 autouse
 
 from raftstereo_tpu.ops import pallas_encoder as pe
@@ -49,14 +54,22 @@ def const(name: str) -> int:
     return int(re.search(rf"constexpr int {name} = (\d+);", SRC).group(1))
 
 
-KN, KKC, KTW, OUT_PITCH = const("kN"), const("kKC"), const("kTW"), \
-    const("kOutPitch")
-KBLK = 2 * KN * 16
+KKC, KTW, OUT_PITCH = const("kKC"), const("kTW"), const("kOutPitch")
+# The source's instances (kInst): (stride, mode, Cout, NK, MR).
+KINST = [(int(st), mode, int(n), int(nk), int(mr)) for st, mode, n, nk, mr
+         in re.findall(r"\{(\d), k(\w+), (\d+), (\d+), (\d)\},", SRC)]
+# Each wrapper's modes.
+MODES = {"stage_conv": ("Prep", "Res"), "l2_conv": ("Prep", "ResProj"),
+         "l2_entry": ("None",)}
 
 
-def geo(stride: int, proj: bool, nk: int) -> dict:
-    """``WgGeo<S, PROJ, NK>`` of the source."""
-    mr = 1 if proj else 2
+def kblk(n: int) -> int:
+    """Bytes of a (k-step, tap) weight block at N outputs."""
+    return 2 * n * 16
+
+
+def geo(stride: int, proj: bool, nk: int, n: int, mr: int) -> dict:
+    """``WgGeo<S, PROJ, NK, N, MR>`` of the source."""
     th = 2 * mr
     pw = KTW + 2 if stride == 1 else KTW + 1
     ph = th + 2 if stride == 1 else th + 1
@@ -66,8 +79,8 @@ def geo(stride: int, proj: bool, nk: int) -> dict:
     rh = th + 2 if stride == 1 else 2 * th + 1
     upr = stride * KTW // 32
     nside = 2 if stride == 1 else 1
-    kw = nk * taps * KBLK
-    fixed = kw + 2 * KN * OUT_PITCH
+    kw = nk * taps * kblk(n)
+    fixed = kw + 2 * n * OUT_PITCH
     stages = min(4, (232448 - fixed - 128) // (2 * half))
     return dict(mr=mr, th=th, pw=pw, ph=ph, half=half, stage=2 * half,
                 taps=taps, rh=rh, upr=upr, nu=rh * 2 * upr,
@@ -75,42 +88,49 @@ def geo(stride: int, proj: bool, nk: int) -> dict:
                 smem=fixed + stages * 2 * half + 8 * (2 * stages + 1))
 
 
-INSTANCES = {"l2_conv": (1, False), "l2_entry": (2, True)}
+def wrapper_geo(name: str) -> dict:
+    """The geometry of wrapper ``name``'s instance."""
+    stride, _, max_cin, cout = ce.WG_INSTANCES[name]
+    return geo(stride, stride == 2, max_cin // KKC, cout,
+               ce.WG_INSTANCES[name][1] // 2)
 
 
 # ---------------------------------------------------------- (a) geometry
 
 def test_geometry_matches_the_source():
-    """The wrappers' (stride, tile rows, largest Cin) are the source's
-    instances (``launch<S, MODE, PROJ, NK>``: TH = 2 MR, Cin <= 16 NK);
-    the constants and the ``WgGeo`` formulas are the source's; each
-    instance's weights, staging and at least 2 stages fit 227 KB."""
-    assert (KN, KKC, KTW) == (ce.WG_COUT, ce.WG_STAGE, ce.WG_TILE_W)
-    for text in ("MR = PROJ ? 1 : 2;", "TH = 2 * MR;",
+    """The wrappers' (stride, tile rows, largest Cin, Cout) are the
+    source's instances (``kInst``: TH = 2 MR, Cin <= 16 NK, N = Cout; the
+    projection at stride 2), one per (stride, mode, Cout); the constants
+    and the ``WgGeo`` formulas are the source's; each instance's weights,
+    staging and at least 2 stages fit 227 KB."""
+    assert (KKC, KTW) == (ce.WG_STAGE, ce.WG_TILE_W)
+    for text in ("MR = MR_;", "TH = 2 * MR;", "kBlk = 2 * N * 16;",
                  "PW = S == 1 ? kTW + 2 : kTW + 1;",
                  "PH = S == 1 ? TH + 2 : TH + 1;",
                  "NPL = S == 1 ? 1 : 4;", "kHalf = NPL * PH * PW * 16;",
                  "kTaps = PROJ ? 10 : 9;", "kW = NK * kTaps * kBlk;",
                  "RH = S == 1 ? TH + 2 : 2 * TH + 1;",
                  "UPR = S * kTW / 32;", "NSIDE = S == 1 ? 2 : 1;",
-                 "kBlk = 2 * kN * 16;", "kFixed = kW + 2 * kOut;",
+                 "kOut = N * kOutPitch;", "kFixed = kW + 2 * kOut;",
                  "kStages = kStages0 > 4 ? 4 : kStages0;",
                  "kSmem = kBar + 8 * (2 * kStages + 1);",
-                 "wg_desc(sst, G::kHalf, 128)", "wg_desc(sw, kN * 16, 128)",
-                 "const int th = stride == 1 ? 4 : 2;"):
+                 "wg_desc(sst, G::kHalf, 128)", "wg_desc(sw, N * 16, 128)",
+                 "constexpr bool PROJ = in.stride == 2;",
+                 "const int th = 2 * kInst[inst].mr;"):
         assert text in TEXT, text
-    launches = re.findall(r"launch<(\d), k(\w+), (true|false), (\d+)>", SRC)
-    by_stride = {int(s): (p == "true", int(nk)) for s, _, p, nk in launches}
-    assert sorted(m for _, m, _, _ in launches) == ["None", "Prep",
-                                                    "ResProj"]
-    for name, (stride, proj) in INSTANCES.items():
-        p, nk = by_stride[stride]
-        assert p == proj
-        g = geo(stride, proj, nk)
-        assert ce.WG_INSTANCES[name] == (stride, g["th"], 16 * nk)
+    assert len({(st, m, n) for st, m, n, _, _ in KINST}) == len(KINST)
+    assert sorted((st, m, n) for st, m, n, _, _ in KINST) == sorted(
+        (ce.WG_INSTANCES[name][0], m, ce.WG_INSTANCES[name][3])
+        for name, modes in MODES.items() for m in modes)
+    for stride, mode, n, nk, mr in KINST:
+        name = next(k for k, v in ce.WG_INSTANCES.items()
+                    if v[0] == stride and v[3] == n)
+        assert ce.WG_INSTANCES[name] == (stride, 2 * mr, 16 * nk, n), name
+        g = geo(stride, stride == 2, nk, n, mr)
         assert g["stages"] >= 2 and g["smem"] <= 232448
         assert g["nu"] % 4 == 0 and g["ne"] <= 128
-    assert geo(1, False, 6)["stages"] == 3 and geo(2, True, 4)["stages"] == 3
+    assert (wrapper_geo("l2_conv")["stages"], wrapper_geo("l2_entry")
+            ["stages"], wrapper_geo("stage_conv")["stages"]) == (3, 3, 4)
 
 
 # ------------------------------------------------------ (b) B descriptors
@@ -132,29 +152,31 @@ def desc_matrix(image: np.ndarray, start: int, lbo: int, sbo: int,
     return image[off // 2]
 
 
-@pytest.mark.parametrize("cin,proj", [(96, False), (64, True), (20, True),
-                                      (40, False)],
-                         ids=["row16", "row15", "ragged15", "ragged16"])
-def test_pack_through_b_descriptors_is_the_weights(cin, proj):
+@pytest.mark.parametrize("cout,cin,proj", [
+    (96, 96, False), (96, 64, True), (96, 20, True), (96, 40, False),
+    (64, 64, False), (64, 36, False)],
+    ids=["row16", "row15", "ragged15", "ragged16", "row9", "ragged9"])
+def test_pack_through_b_descriptors_is_the_weights(cout, cin, proj):
     """``wg_pack`` read through the kernel's B descriptor of each (k-step,
-    tap) (start (k * taps + tap) * 3072, LBO 96 * 16, SBO 128; the
+    tap) (start (k * taps + tap) * 32 Cout, LBO Cout * 16, SBO 128; the
     projection the tenth tap) is the bf16 weights, zero past Cin."""
-    rng = np.random.default_rng(cin)
-    w = torch.from_numpy(rng.normal(size=(KN, cin, 3, 3)).astype(np.float32))
-    wp = (torch.from_numpy(rng.normal(size=(KN, cin, 1, 1))
+    rng = np.random.default_rng(cin + cout)
+    w = torch.from_numpy(rng.normal(size=(cout, cin, 3, 3))
+                         .astype(np.float32))
+    wp = (torch.from_numpy(rng.normal(size=(cout, cin, 1, 1))
                            .astype(np.float32)) if proj else None)
     pack = ce.wg_pack(w, wp)
     nk, taps = -(-cin // KKC), 10 if proj else 9
-    assert pack.dtype == BF and pack.shape == (nk, taps, 2, KN, 8)
+    assert pack.dtype == BF and pack.shape == (nk, taps, 2, cout, 8)
     image = _u16(pack)
-    wb = _u16(w.to(BF)).reshape(KN, cin, 3, 3)
+    wb = _u16(w.to(BF)).reshape(cout, cin, 3, 3)
     for k in range(nk):
         for tap in range(taps):
-            got = desc_matrix(image, (k * taps + tap) * KBLK, KN * 16, 128,
-                              KN)
-            want = np.zeros((KN, 16), np.uint16)
+            got = desc_matrix(image, (k * taps + tap) * kblk(cout),
+                              cout * 16, 128, cout)
+            want = np.zeros((cout, 16), np.uint16)
             c1 = min(cin, 16 * k + 16)
-            src = (_u16(wp.to(BF)).reshape(KN, cin) if tap == 9
+            src = (_u16(wp.to(BF)).reshape(cout, cin) if tap == 9
                    else wb[:, :, tap // 3, tap % 3])
             want[:, :c1 - 16 * k] = src[:, 16 * k:c1]
             np.testing.assert_array_equal(got, want, err_msg=f"{k} {tap}")
@@ -247,17 +269,24 @@ def tap_off(stride, g, oyl, dy, dx):
             + (dx >> 1)) * 16
 
 
-@pytest.mark.parametrize("mode,stride,b,cin,h,w", [
-    ("prep", 1, 2, 20, 9, 70), ("res_proj", 1, 1, 16, 5, 37),
-    ("none", 2, 2, 20, 7, 150), ("none", 2, 1, 16, 3, 9)],
-    ids=["prep", "res_proj", "entry", "entry_small"])
-def test_a_descriptors_read_the_prepped_input(mode, stride, b, cin, h, w):
+@pytest.mark.parametrize("name,mode,stride,b,cin,h,w", [
+    ("l2_conv", "prep", 1, 2, 20, 9, 70),
+    ("l2_conv", "res_proj", 1, 1, 16, 5, 37),
+    ("l2_entry", "none", 2, 2, 20, 7, 150),
+    ("l2_entry", "none", 2, 1, 16, 3, 9),
+    ("stage_conv", "prep", 1, 1, 36, 10, 67),
+    ("stage_conv", "res", 1, 2, 20, 6, 72)],
+    ids=["prep", "res_proj", "entry", "entry_small", "stage_prep",
+         "stage_res"])
+def test_a_descriptors_read_the_prepped_input(name, mode, stride, b, cin, h,
+                                              w):
     """Every tap's A window (64 consecutive pixels of one plane) of every
     output row of each tile, read through its descriptor (start the tap's
     offset, LBO the channel half, SBO 128) from the stage the producer
     stores, is the prepped input at (S oy + dy - 1, S ox + dx - 1), zero
     outside the image AFTER the prep (positive shifts: a zero before the
-    prep would read relu(t) > 0) and past Cin; ragged H, W and Cin."""
+    prep would read relu(t) > 0) and past Cin; ragged H, W and Cin; at
+    each wrapper's tile rows (rows 9 and 16: 4, row 15: 2)."""
     rng = np.random.default_rng(h * w)
     x = (rng.normal(size=(b, cin, h, w)) * 2 + 0.3).astype(np.float32)
     x = _np(torch.from_numpy(x).to(BF))
@@ -268,14 +297,14 @@ def test_a_descriptors_read_the_prepped_input(mode, stride, b, cin, h, w):
     rs, rt = (rng.uniform(0.5, 1.5, (b, cin)).astype(np.float32),
               rng.uniform(-0.5, 0.5, (b, cin)).astype(np.float32))
 
-    def value(bb, c, gy, gx):  # the kernel's prep_one
+    def value(bb, c, gy, gx):  # the kernel's prep2, one element
         v = x[bb, c, gy, gx]
         if mode == "none":
             return v
         v = kernel_prep(v, s[bb, c], t[bb, c])
-        if mode == "res_proj":
+        if mode != "prep":  # kRes: relu on both terms; kResProj: not on r's
             u = kernel_prep(r[bb, c, gy, gx], rs[bb, c], rt[bb, c],
-                            relu=False)
+                            relu=mode == "res")
             v = np.maximum(_rbf(u + v), 0)
         return np.float32(v)
 
@@ -283,17 +312,17 @@ def test_a_descriptors_read_the_prepped_input(mode, stride, b, cin, h, w):
     xt, st = torch.from_numpy(x).to(BF), (torch.from_numpy(s),
                                            torch.from_numpy(t))
     tp = x if mode == "none" else _np(ce.prep(xt, st))
-    if mode == "res_proj":
+    if mode in ("res", "res_proj"):
         tp = _np(torch.relu(ce.prep(torch.from_numpy(r).to(BF),
                                     (torch.from_numpy(rs),
-                                     torch.from_numpy(rt)), relu=False)
+                                     torch.from_numpy(rt)),
+                                    relu=mode == "res")
                             + ce.prep(xt, st)))
     nk = -(-cin // KKC)
     pad = np.zeros((b, nk * KKC, h + 4 * stride + 8,
                     w + 2 * KTW * stride + 8), np.float32)
     pad[:, :cin, 1:h + 1, 1:w + 1] = tp
-    name = "l2_conv" if stride == 1 else "l2_entry"
-    g = geo(stride, stride == 2, ce.WG_INSTANCES[name][2] // KKC)
+    g = wrapper_geo(name)
     ho, wo, nb = ce.wg_geometry(h, w, name)
     tiles_w = -(-wo // KTW)
     for bb in range(b):
@@ -321,9 +350,12 @@ def test_a_descriptors_read_the_prepped_input(mode, stride, b, cin, h, w):
 @pytest.mark.parametrize("name,b,h,w", [
     ("l2_conv", 2, 288, 480), ("l2_conv", 12, 160, 360),
     ("l2_entry", 2, 576, 960), ("l2_entry", 12, 320, 720),
-    ("l2_conv", 1, 37, 53), ("l2_entry", 3, 41, 70), ("l2_conv", 2, 1, 2)],
+    ("l2_conv", 1, 37, 53), ("l2_entry", 3, 41, 70), ("l2_conv", 2, 1, 2),
+    ("stage_conv", 2, 576, 960), ("stage_conv", 1, 576, 960),
+    ("stage_conv", 2, 288, 480), ("stage_conv", 12, 320, 720),
+    ("stage_conv", 3, 45, 131)],
     ids=["serve16", "train16", "serve15", "train15", "ragged16", "ragged15",
-         "tiny"])
+         "tiny", "serve9", "cnet9", "ds3_9", "train9", "ragged9"])
 def test_persistent_walk_covers_each_tile_once(name, b, h, w):
     """Blocks min(tiles, SMs) walk t = block, + grid, ...: every tile of
     every image exactly once, its partials row t = image * nb + tile; the
@@ -406,30 +438,36 @@ def _sums_gate(y32, sums, n):
         assert err <= GATE_SUMS * max(1.0, np.abs(w_).max() / n)
 
 
-@pytest.mark.parametrize("form", ["prep", "res_proj", "entry"])
+@pytest.mark.parametrize("form", ["prep", "res_proj", "entry", "stage_prep",
+                                  "stage_res"])
 def test_one_chain_emulation_within_the_card_gate(form):
     """The one-chain, truncating accumulation at layer2's widths (96 -> 96,
-    64 -> 96) against ``conv_plain`` in bf16: within 1 ulp, at least 99%
-    equal, fp32 sums within 1e-4 per pixel."""
-    rng = np.random.default_rng({"prep": 1, "res_proj": 2, "entry": 3}[form])
+    64 -> 96) and layer1's (64 -> 64, row 9: prep and the residual form
+    with a relu on both terms) against ``conv_plain`` in bf16: within 1
+    ulp, at least 99% equal, fp32 sums within 1e-4 per pixel."""
+    rng = np.random.default_rng({"prep": 1, "res_proj": 2, "entry": 3,
+                                 "stage_prep": 6, "stage_res": 7}[form])
     stride, cin = (2, 64) if form == "entry" else (1, 96)
+    kn = 96
+    if form.startswith("stage"):
+        cin = kn = 64
     b, h, w = 2, 14, 26
     x = torch.from_numpy((rng.normal(size=(b, cin, h, w)) * 2 + 0.3)
                          .astype(np.float32)).to(BF)
     r = torch.from_numpy((rng.normal(size=(b, cin, h, w)) * 2 - 0.3)
                          .astype(np.float32)).to(BF)
-    wt = torch.from_numpy((rng.normal(size=(KN, cin, 3, 3))
+    wt = torch.from_numpy((rng.normal(size=(kn, cin, 3, 3))
                            * np.sqrt(2 / (9 * cin))).astype(np.float32))
-    bias = torch.from_numpy(rng.normal(size=KN).astype(np.float32) * 0.1)
+    bias = torch.from_numpy(rng.normal(size=kn).astype(np.float32) * 0.1)
     aff = (torch.from_numpy(rng.uniform(0.5, 1.5, (b, cin))
                             .astype(np.float32)),
            torch.from_numpy(rng.uniform(0.05, 0.5, (b, cin))
                             .astype(np.float32)))
     if form == "entry":
         t = torch.relu(x)
-        wp = torch.from_numpy((rng.normal(size=(KN, cin, 1, 1))
+        wp = torch.from_numpy((rng.normal(size=(kn, cin, 1, 1))
                                * np.sqrt(2 / cin)).astype(np.float32))
-        bp = torch.from_numpy(rng.normal(size=KN).astype(np.float32) * 0.1)
+        bp = torch.from_numpy(rng.normal(size=kn).astype(np.float32) * 0.1)
         y, y32, yp, yp32 = emulate_wg(_np(t), wt, bias, 2, (wp, bp))
         c1, p, s1, sp = ce.entry_plain(t, wt, bias, wp, bp)
         n = float(c1.shape[2] * c1.shape[3])
@@ -440,10 +478,11 @@ def test_one_chain_emulation_within_the_card_gate(form):
         return
     kw = dict(aff=aff)
     tt = ce.prep(x, aff)
-    if form == "res_proj":
+    if form in ("res_proj", "stage_res"):
+        relu = form == "stage_res"
         raff = (aff[0].flip(1).contiguous(), aff[1].flip(1).contiguous() - .4)
-        kw.update(res=r, res_aff=raff, res_relu=False)
-        tt = torch.relu(ce.prep(r, raff, relu=False) + tt)
+        kw.update(res=r, res_aff=raff, res_relu=relu)
+        tt = torch.relu(ce.prep(r, raff, relu=relu) + tt)
     y, y32 = emulate_wg(_np(tt), wt, bias, 1)
     want, sums = ce.conv_plain(x, wt, bias, 1, **kw)
     _gate(y, want)
@@ -501,6 +540,34 @@ def test_one_chain_emulation_matches_the_jax_conv_kernel(form):
                 [s1[:, 0], s2[:, 0]], float(h2 * w2))
 
 
+@pytest.mark.parametrize("form", ["prep", "res"])
+def test_one_chain_emulation_matches_the_jax_stage_kernel(form):
+    """Row 9's emulated arithmetic against ``_enc_conv_kernel`` /
+    ``_enc_conv_res_kernel`` at ``dt=bfloat16`` (interpret mode, through
+    ``pallas_encoder._enc_conv`` on the packed view, as
+    tests/test_torch_port_enc_bf16.py runs it): within 1 ulp, at least 99%
+    equal, sums within 1e-5 per pixel; shifts > 0, so a zero padded before
+    the prep would show at the border."""
+    rng = np.random.default_rng(8)
+    x = _bf(rng, (B, H, W, C), 2.0, 0.3)
+    r = _bf(rng, (B, H, W, C), 2.0, -0.4)
+    (ta, pa, _), (tr, pr, _) = _aff(rng, B, C), _aff(rng, B, C)
+    jp, (wt, bt) = _conv(rng, 3, C, C)
+    res = form == "res"
+    y, sums = pe._enc_conv(pe.pack_view(x), pa,
+                           pe.pack_weights(jp["kernel"]).astype(JBF),
+                           pe.pack_vec(jp["bias"]).astype(JBF),
+                           res=pe.pack_view(r) if res else None,
+                           res_stats=pr if res else None)
+    tt = ce.prep(_t(x), ta)
+    if res:
+        tt = torch.relu(ce.prep(_t(r), tr) + tt)
+    got, y32 = emulate_wg(_np(tt), wt, bt, 1)
+    _check_out(got, pe.unpack_view(y))
+    _check_sums(ce.stats_plain(torch.from_numpy(y32)),
+                _unpack_sums(sums, C), float(H * W))
+
+
 def _bf16_once(v: np.ndarray) -> np.ndarray:
     """float64 -> the nearest bf16 (ties to even), rounded once."""
     m, e = np.frexp(v)
@@ -532,3 +599,41 @@ def test_bf16x2_prep_is_the_per_op_rounding():
     u = kernel_prep(r.astype(np.float32), rs, rt, relu=False)
     np.testing.assert_array_equal(np.maximum(_rbf(u + got), 0),
                                   res.astype(np.float32))
+
+
+def test_bf16x2_res_prep_is_the_per_op_rounding():
+    """Row 9's residual form in bf16x2 (``kRes``: relu(relu(r*rs + rt) +
+    relu(x*s + t)), a relu on both terms, each op rounded to bf16 once)
+    against ``prep_bf16``'s per-op fp32 rounding and the plain version's
+    bf16 ops, on seeded inputs over a wide range of exponents."""
+    for text in ("if constexpr (MODE == kRes) v = relu2(add2(relu2(add2("
+                 "mul2(r, rs), rt)), v));",
+                 "if constexpr (MODE == kResProj) v = relu2(add2(add2("
+                 "mul2(r, rs), rt), v));"):
+        assert text in TEXT, text
+    rng = np.random.default_rng(21)
+    n = 200_000
+
+    def bf(scale):
+        v = rng.normal(size=n) * np.exp2(rng.integers(-scale, scale, n))
+        return _bf16_once(v)
+
+    x, s, t, r, rs, rt = bf(20), bf(6), bf(20), bf(20), bf(6), bf(20)
+    xp = np.maximum(_bf16_once(_bf16_once(x * s) + t), 0)
+    rp = np.maximum(_bf16_once(_bf16_once(r * rs) + rt), 0)
+    once = np.maximum(_bf16_once(rp + xp), 0).astype(np.float32)
+    got = np.maximum(_rbf(kernel_prep(r.astype(np.float32), rs, rt)
+                          + kernel_prep(x.astype(np.float32), s, t)), 0)
+    np.testing.assert_array_equal(got, once)
+
+    def col(v):
+        return torch.from_numpy(v.astype(np.float32)).to(BF)[None, :, None,
+                                                               None]
+
+    def aff(a, b):
+        return (torch.from_numpy(a.astype(np.float32))[None],
+                torch.from_numpy(b.astype(np.float32))[None])
+
+    plain = torch.relu(ce.prep(col(r), aff(rs, rt)) + ce.prep(col(x),
+                                                               aff(s, t)))
+    np.testing.assert_array_equal(_np(plain).reshape(-1), once)
